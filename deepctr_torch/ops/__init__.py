@@ -1,0 +1,1 @@
+"""Device ops of the port; the hand-written kernels live in ``ops.kernels``."""

@@ -1,0 +1,165 @@
+"""Checkpoints in the JAX package's format, and the parameter converter.
+
+Port of the read side of ``deepctr_tpu/utils/checkpoint.py`` plus a writer
+of the same format, so checkpoints move both ways between the packages:
+an ``np.savez`` of the flattened parameter pytree (``leaf_0`` ...) and a
+JSON manifest whose ``scoring`` entry says where the table and the dense
+leaves sit.
+
+Two things the JAX side gets from ``jax.tree_util`` and ``ml_dtypes`` are
+done here by hand:
+
+- leaf order: JAX flattens dicts in sorted key order and lists in index
+  order, so FNN's dense leaves are ``layers[0].b, layers[0].w, layers[1].b,
+  ...`` (b before w). :func:`jax_leaves` reproduces that order.
+- bfloat16 leaves (``table_dtype="bf16"`` training) are stored as uint16
+  bit patterns listed in ``bf16_leaves``; they are widened exactly to f32
+  by a 16-bit shift.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any
+
+import numpy as np
+import torch
+
+Tree = Any  # nested dicts and lists with array leaves
+
+
+def jax_leaves(tree: Tree) -> list:
+    """Leaves of ``tree`` in ``jax.tree_util.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in jax_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for sub in tree for leaf in jax_leaves(sub)]
+    return [tree]
+
+
+def _unflatten_like(like: Tree, leaves: list) -> Tree:
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {key: build(node[key]) for key in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [build(sub) for sub in node]
+        return next(it)
+
+    return build(like)
+
+
+def _bf16_to_f32(bits: np.ndarray) -> np.ndarray:
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def read_manifest(path: str) -> dict:
+    """Read the JSON manifest of a checkpoint without loading the arrays."""
+    with np.load(path, allow_pickle=False) as z:
+        return json.loads(str(z["manifest"]))
+
+
+def save_scoring_params(path: str, table: np.ndarray, dense: Tree, *,
+                        schema=None, meta: dict | None = None) -> None:
+    """Atomically write ``(table, dense)`` as f32 in the JAX package's
+    checkpoint format, so that both packages' scoring loaders read it
+    (``load_scoring_params`` here and in ``deepctr_tpu``)."""
+    # the pytree {"dense", "table"} flattens dense leaves first, then the table
+    leaves = [np.asarray(leaf, np.float32)
+              for leaf in jax_leaves({"dense": dense, "table": table})]
+    n_dense = len(leaves) - 1
+    manifest = {
+        "n": len(leaves),
+        "bf16_leaves": [],
+        "scoring": {"table_leaf": n_dense, "dense_start": 0, "n_dense": n_dense},
+    }
+    if meta:
+        manifest.update(meta)
+    if schema is not None:
+        manifest["schema_json"] = schema.to_json()
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, manifest=json.dumps(manifest),
+             **{f"leaf_{i}": a for i, a in enumerate(leaves)})
+    os.replace(tmp, path)
+
+
+def load_scoring_params(path: str, dense_like: Tree) -> tuple[np.ndarray, Tree]:
+    """Load just ``(table, dense)`` as f32 numpy arrays from a checkpoint.
+
+    ``dense_like`` gives the dense pytree's structure (for a port model,
+    :func:`dense_structure`)."""
+    manifest = read_manifest(path)
+    sc = manifest["scoring"]
+    n_dense = len(jax_leaves(dense_like))
+    if n_dense != sc["n_dense"]:
+        raise ValueError(
+            f"checkpoint {path} has {sc['n_dense']} dense leaves, model "
+            f"expects {n_dense} — model/config mismatch"
+        )
+    bf16 = set(manifest.get("bf16_leaves", ()))
+
+    def leaf(z, i):
+        a = z[f"leaf_{i}"]
+        return _bf16_to_f32(a) if i in bf16 else a.astype(np.float32)
+
+    with np.load(path, allow_pickle=False) as z:
+        table = leaf(z, sc["table_leaf"])
+        dense = [leaf(z, sc["dense_start"] + i) for i in range(n_dense)]
+    return table, _unflatten_like(dense_like, dense)
+
+
+def params_from_jax(table, dense: Tree) -> dict[str, torch.Tensor]:
+    """JAX-layout ``(table, dense)`` arrays -> a port model's ``state_dict``.
+
+    ``dense["mlp"]["layers"][0]["w"]`` becomes key ``mlp.layers.0.w``."""
+    state = {"table": torch.as_tensor(np.asarray(table, np.float32))}
+
+    def walk(node, prefix):
+        items = (sorted(node.items()) if isinstance(node, dict)
+                 else enumerate(node) if isinstance(node, (list, tuple))
+                 else None)
+        if items is None:
+            state[prefix] = torch.as_tensor(np.asarray(node, np.float32))
+            return
+        for key, sub in items:
+            walk(sub, f"{prefix}.{key}" if prefix else str(key))
+
+    walk(dense, "")
+    return state
+
+
+def _nest(items) -> Tree:
+    """``("mlp.layers.0.w", leaf)`` pairs -> the JAX-layout nested pytree."""
+    nested: dict = {}
+    for key, leaf in items:
+        node = nested
+        parts = key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(key.isdigit() for key in node):
+            return [listify(node[key]) for key in sorted(node, key=int)]
+        return {key: listify(sub) for key, sub in node.items()}
+
+    return listify(nested)
+
+
+def dense_structure(model: torch.nn.Module) -> Tree:
+    """The structure of a port model's dense pytree, with placeholder
+    leaves: the ``dense_like`` of :func:`load_scoring_params`. Nothing is
+    copied off the device."""
+    return _nest((key, 0) for key in model.state_dict() if key != "table")
+
+
+def params_to_jax(model: torch.nn.Module) -> tuple[np.ndarray, Tree]:
+    """A port model's parameters -> JAX-layout ``(table, dense)`` arrays."""
+    state = model.state_dict()
+    dense = _nest((key, t.detach().cpu().numpy())
+                  for key, t in state.items() if key != "table")
+    return state["table"].detach().cpu().numpy(), dense
