@@ -7,8 +7,10 @@ instead of copying them. Its Pallas kernels become CUDA C++ kernels under
 ``csrc/``, each with a plain PyTorch version beside it
 (``ops/kernels/``).
 
-Ported so far: the FNN serving path (``cli --score`` -> ``serving.Scorer``
--> ``models.fnn`` -> the fused tower kernel).
+Ported so far: FNN serving (``cli --score`` -> ``serving.Scorer`` ->
+``models.fnn`` -> the fused tower forward kernel) and FNN training (``cli``
+-> ``train.fit`` -> ``train.step`` -> ``optim`` and the tower's forward
+kernel with in-kernel dropout and its backward kernel).
 """
 
 __version__ = "0.1.0"

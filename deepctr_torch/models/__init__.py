@@ -1,6 +1,7 @@
-"""Models of the port (forward only): FNN so far."""
+"""Models of the port: FNN so far."""
 
-from .base import MlpSpec, apply_model
+from .base import MlpSpec, apply_model, init_mlp, lazy_l2, weighted_bce_with_logits
 from .fnn import FNNModel, make_fnn
 
-__all__ = ["MlpSpec", "apply_model", "FNNModel", "make_fnn"]
+__all__ = ["MlpSpec", "apply_model", "init_mlp", "lazy_l2",
+           "weighted_bce_with_logits", "FNNModel", "make_fnn"]

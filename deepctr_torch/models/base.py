@@ -1,6 +1,7 @@
-"""Common model pieces: the MLP spec, the tower's parameters, apply_model.
+"""Common model pieces: the MLP spec, the tower's parameters and their
+initialisation, apply_model, the loss and the lazy L2.
 
-Port of ``deepctr_tpu/models/base.py`` for the serving path. The contract
+Port of ``deepctr_tpu/models/base.py``. The contract
 is the JAX package's, in PyTorch form: a model holds the embedding
 ``table`` [V+1, D] and its dense head as parameters, and
 
@@ -10,14 +11,16 @@ is the JAX package's, in PyTorch form: a model holds the embedding
 Parameters keep the JAX layout (``w`` is ``[in, out]``), and a module's
 ``state_dict`` keys mirror the JAX parameter pytree (``mlp.layers.0.w`` is
 ``dense["mlp"]["layers"][0]["w"]``), so ``utils/checkpoint.py`` converts one
-into the other. Constructors give shapes only (zeros); weights come from a
-checkpoint or from ``params_from_jax``. The port is forward-only for now:
-dropout, initialisation and losses come with the training slice.
+into the other. Constructors give shapes only (zeros); weights come from
+:func:`init_mlp` and a model's ``init_parameters`` (each with an explicit
+``torch.Generator``), a checkpoint, or ``params_from_jax``. The JAX PRNG is
+never reproduced: parity tests load JAX's initial values instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
@@ -29,10 +32,13 @@ from ..ops.kernels.mlp import ACTIVATIONS
 class MlpSpec:
     hidden: tuple[int, ...] = (300, 100)
     activation: str = "tanh"
+    dropout: float = 0.0
 
     def __post_init__(self):
         if self.activation not in ACTIVATIONS:
             raise ValueError(f"unknown activation {self.activation!r}")
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError(f"dropout {self.dropout} outside [0, 1)")
 
 
 class Dense(nn.Module):
@@ -61,8 +67,38 @@ class MlpTower(nn.Module):
         return [(layer.w, layer.b) for layer in self.layers]
 
 
+@torch.no_grad()
+def init_mlp(tower: MlpTower, generator: torch.Generator) -> None:
+    """Glorot-uniform weights and zero biases, in place (the reference's
+    ``init_mlp``); every draw comes from ``generator``."""
+    for layer in tower.layers:
+        fan_in, fan_out = layer.w.shape
+        limit = math.sqrt(6.0 / (fan_in + fan_out))
+        draw = torch.rand(layer.w.shape, generator=generator,
+                          device=generator.device, dtype=torch.float32)
+        layer.w.copy_(draw * (2 * limit) - limit)
+        layer.b.zero_()
+
+
 def apply_model(model: nn.Module, ids: torch.Tensor, pad_id: int) -> torch.Tensor:
-    """Full forward: gather + head. ``[B, S]`` ids -> ``[B]`` logits."""
-    rows = model.table[ids]
+    """Full forward: gather + head. ``[B, S]`` ids -> ``[B]`` logits. Rows
+    of a bf16 table are widened to f32 after the gather."""
+    rows = model.table[ids].float()
     mask = (ids != pad_id).to(rows.dtype)
     return model.apply_rows(rows, mask)
+
+
+def weighted_bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
+                             weights: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy over weighted examples (pad rows weight 0)."""
+    per = -(labels * nn.functional.logsigmoid(logits)
+            + (1.0 - labels) * nn.functional.logsigmoid(-logits))
+    return (per * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+
+
+def lazy_l2(rows: torch.Tensor, mask: torch.Tensor, coeff: float) -> torch.Tensor:
+    """L2 on the rows this batch touches only (the sparse analogue of weight
+    decay, applied where gradients flow)."""
+    if coeff == 0.0:
+        return rows.new_zeros(())
+    return coeff * (rows.square() * mask[..., None]).sum() / rows.shape[0]

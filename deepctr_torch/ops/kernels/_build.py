@@ -7,7 +7,8 @@ and given CUDA tensors it launches the kernel or raises. Nothing falls back.
 
 The kernels are CUDA C++ for ``sm_90a`` (``deepctr_torch/csrc/*.cu``) with
 plain ``extern "C"`` entry points. At first use they are compiled by
-``nvcc`` into one shared library under ``build/kernels/`` at the root of the
+``nvcc``, one process per source in parallel, and linked into one shared
+library under ``build/kernels/`` at the root of the
 checkout, named by a hash of the sources and flags, and loaded with
 ``ctypes`` (the same pattern as ``deepctr_tpu/data/native`` for g++). A
 failed build raises :class:`KernelBuildError`.
@@ -26,10 +27,11 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -62,32 +64,61 @@ def _sources() -> list[str]:
 def compile_library(out_dir: str = BUILD_DIR) -> str:
     """Compile every ``csrc/*.cu`` into one shared library; return its path.
 
+    The sources compile in parallel, one ``nvcc`` each, and are then linked.
     An existing library with the same hash is reused. ``nvcc``'s output,
     including ``-Xptxas=-v``'s registers and spills per kernel, is kept
     beside it as ``<library>.log``.
     """
     srcs = _sources()
     headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in srcs + headers:
         with open(path, "rb") as f:
             h.update(f.read())
     out = os.path.join(out_dir, f"libdeepctr_kernels_{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", out + f".{os.getpid()}.tmp", *srcs]
+    nvcc = _nvcc()
     os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}"
+    objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+    log = []
+    procs: list[subprocess.Popen] = []
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for src, obj in zip(srcs, objs)
+        ]
+        failed = []
+        for src, proc in zip(srcs, procs):
+            text = proc.communicate(timeout=600)[0]
+            log.append(f"== {os.path.basename(src)}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n"
+                              f"{text[-4000:]}")
+        if failed:
+            raise KernelBuildError("nvcc failed: " + "\n".join(failed))
+        res = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp + ".so", *objs],
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc link failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        log.append(f"== link\n{res.stdout}{res.stderr}")
     except (OSError, subprocess.TimeoutExpired) as e:
         raise KernelBuildError(f"nvcc did not run: {e}") from e
-    if res.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}"
-        )
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(out + ".log", "w") as f:
-        f.write(res.stdout + res.stderr)
-    os.replace(out + f".{os.getpid()}.tmp", out)
+        f.write("\n".join(log))
+    os.replace(tmp + ".so", out)
     return out
 
 

@@ -8,18 +8,23 @@ port imports, and it imports them only through this module;
 """
 
 from deepctr_tpu.config import RunConfig
-from deepctr_tpu.data import Schema, featindex, ipinyou_full_schema, ipinyou_like_schema, synthetic
-from deepctr_tpu.data.criteo import criteo_schema
+from deepctr_tpu.data import Schema, featindex, ipinyou_full_schema, ipinyou_like_schema, parser, synthetic
+from deepctr_tpu.data.cache import cache_text_file, read_cache
+from deepctr_tpu.data.criteo import criteo_schema, parse_criteo_file
 from deepctr_tpu.data.pipeline import minibatches, stream_yx_batches
 
 __all__ = [
     "RunConfig",
     "Schema",
+    "cache_text_file",
     "criteo_schema",
     "featindex",
     "ipinyou_full_schema",
     "ipinyou_like_schema",
     "minibatches",
+    "parse_criteo_file",
+    "parser",
+    "read_cache",
     "stream_yx_batches",
     "synthetic",
 ]

@@ -1,10 +1,10 @@
 """Checkpoints in the JAX package's format, and the parameter converter.
 
-Port of the read side of ``deepctr_tpu/utils/checkpoint.py`` plus a writer
-of the same format, so checkpoints move both ways between the packages:
-an ``np.savez`` of the flattened parameter pytree (``leaf_0`` ...) and a
-JSON manifest whose ``scoring`` entry says where the table and the dense
-leaves sit.
+Port of ``deepctr_tpu/utils/checkpoint.py``: the scoring read side, writers
+of the same format (scoring parameters, and a whole train state) and the
+FM -> FNN hand-off, so checkpoints move both ways between the packages: an
+``np.savez`` of the flattened pytree (``leaf_0`` ...) and a JSON manifest
+whose ``scoring`` entry says where the table and the dense leaves sit.
 
 Two things the JAX side gets from ``jax.tree_util`` and ``ml_dtypes`` are
 done here by hand:
@@ -14,7 +14,12 @@ done here by hand:
   ...`` (b before w). :func:`jax_leaves` reproduces that order.
 - bfloat16 leaves (``table_dtype="bf16"`` training) are stored as uint16
   bit patterns listed in ``bf16_leaves``; they are widened exactly to f32
-  by a 16-bit shift.
+  by a 16-bit shift. The reference's ``load_fm_embeddings`` ignores this
+  marker and hands FNN the raw uint16 bits of a bf16 FM table; the port's
+  honours it.
+
+Resuming from a train-state checkpoint (``load_train_state``) is not ported
+yet (ROADMAP.md, slice 4, item 11).
 """
 
 from __future__ import annotations
@@ -61,6 +66,35 @@ def read_manifest(path: str) -> dict:
         return json.loads(str(z["manifest"]))
 
 
+def _host_array(leaf) -> tuple[np.ndarray, bool]:
+    """A leaf as numpy, and whether it is bf16 (stored as its uint16 bits,
+    since ``np.savez`` has no bfloat16)."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).cpu().numpy().view(np.uint16), True
+        return leaf.cpu().numpy(), False
+    return np.asarray(leaf), False
+
+
+def _write(path: str, leaves: list, manifest: dict, schema=None,
+           meta: dict | None = None) -> None:
+    """Atomically write ``leaves`` and the manifest, as ``save_pytree``."""
+    arrays, bf16 = {}, []
+    for i, leaf in enumerate(leaves):
+        arrays[f"leaf_{i}"], is_bf16 = _host_array(leaf)
+        if is_bf16:
+            bf16.append(i)
+    manifest = {"n": len(leaves), "bf16_leaves": bf16, **manifest}
+    if meta:
+        manifest.update(meta)
+    if schema is not None:
+        manifest["schema_json"] = schema.to_json()
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, manifest=json.dumps(manifest), **arrays)
+    os.replace(tmp, path)
+
+
 def save_scoring_params(path: str, table: np.ndarray, dense: Tree, *,
                         schema=None, meta: dict | None = None) -> None:
     """Atomically write ``(table, dense)`` as f32 in the JAX package's
@@ -70,19 +104,62 @@ def save_scoring_params(path: str, table: np.ndarray, dense: Tree, *,
     leaves = [np.asarray(leaf, np.float32)
               for leaf in jax_leaves({"dense": dense, "table": table})]
     n_dense = len(leaves) - 1
-    manifest = {
-        "n": len(leaves),
-        "bf16_leaves": [],
-        "scoring": {"table_leaf": n_dense, "dense_start": 0, "n_dense": n_dense},
-    }
-    if meta:
-        manifest.update(meta)
-    if schema is not None:
-        manifest["schema_json"] = schema.to_json()
-    tmp = path + ".tmp.npz"
-    np.savez(tmp, manifest=json.dumps(manifest),
-             **{f"leaf_{i}": a for i, a in enumerate(leaves)})
-    os.replace(tmp, path)
+    _write(path, leaves, {"scoring": {"table_leaf": n_dense, "dense_start": 0,
+                                      "n_dense": n_dense}},
+           schema=schema, meta=meta)
+
+
+def save_train_state(path: str, state, epoch: int = 0,
+                     meta: dict | None = None, schema=None) -> None:
+    """Save a ``train.TrainState`` with the leaves in the reference's
+    ``TrainState`` order: step, table, the sparse optimizer's state, the
+    dense parameters, the dense optimizer's state, and last the dropout
+    generator's state (where the reference keeps its PRNG key). ``epoch``
+    records the epochs completed. A bf16 table is stored as uint16 bits
+    with the ``bf16_leaves`` marker, as ``save_pytree`` does; both
+    packages' ``--score`` read the result."""
+    model = state.model
+    names = [key for key, _ in model.named_parameters() if key != "table"]
+    params = dict(model.named_parameters())
+    dense = jax_leaves(_nest((key, params[key]) for key in names))
+    dense_state = jax_leaves(_nest(zip(names, state.dense_state)))
+    sparse = list(state.sparse_state)
+    leaves = [np.int32(state.step), model.table, *sparse, *dense,
+              *dense_state, state.generator.get_state()]
+    _write(path, leaves, {
+        "treedef": "deepctr_torch TrainState(step, table, sparse_state, "
+                   "dense, dense_state, generator)",
+        "epoch": int(epoch),
+        "scoring": {"table_leaf": 1, "dense_start": 2 + len(sparse),
+                    "n_dense": len(dense)},
+    }, schema=schema, meta=meta)
+
+
+def load_fm_embeddings(path: str) -> np.ndarray:
+    """A trained FM's ``[V+1, 1+k]`` (w|v) table as f32, from the file the
+    reference's ``save_fm_embeddings`` writes; a bf16 table is decoded."""
+    with np.load(path, allow_pickle=False) as z:
+        manifest = json.loads(str(z["manifest"]))
+        if manifest["n"] != 1:
+            raise ValueError(f"{path}: {manifest['n']} leaves, not an FM table")
+        table = z["leaf_0"]
+    if 0 in manifest.get("bf16_leaves", ()):
+        return _bf16_to_f32(table)
+    return table.astype(np.float32)
+
+
+@torch.no_grad()
+def init_fnn_from_fm(model: torch.nn.Module, fm_table: np.ndarray) -> None:
+    """Replace FNN's embedding table with the trained FM (w|v) rows, in
+    place, in the dtype of the model's table (the configured
+    ``train.table_dtype``)."""
+    fm_table = torch.as_tensor(np.asarray(fm_table, np.float32))
+    if fm_table.shape != model.table.shape:
+        raise ValueError(
+            f"FM table {tuple(fm_table.shape)} does not match FNN table "
+            f"{tuple(model.table.shape)}; train FM with the same schema and k"
+        )
+    model.table.copy_(fm_table)
 
 
 def load_scoring_params(path: str, dense_like: Tree) -> tuple[np.ndarray, Tree]:
@@ -160,6 +237,6 @@ def dense_structure(model: torch.nn.Module) -> Tree:
 def params_to_jax(model: torch.nn.Module) -> tuple[np.ndarray, Tree]:
     """A port model's parameters -> JAX-layout ``(table, dense)`` arrays."""
     state = model.state_dict()
-    dense = _nest((key, t.detach().cpu().numpy())
+    dense = _nest((key, t.detach().float().cpu().numpy())
                   for key, t in state.items() if key != "table")
-    return state["table"].detach().cpu().numpy(), dense
+    return state["table"].detach().float().cpu().numpy(), dense
