@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FNN serving and training paths once on one GPU.
+"""Drive the PyTorch port's serving and training paths once on one GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``, and imports nothing of JAX.
@@ -20,17 +20,37 @@ Phases, each printing its own lines:
 5. profile: ``torch.profiler`` around one scorer call over the requests,
    printing the device's busy share and its time per op;
 6. training kernels vs plain: the forward with dropout and the backward
-   kernel against the plain tower and autograd through it, at [8192, 176]
-   and [1000, 176], dropout 0.5 and 0; a second backward launch compared
-   bit for bit; forward, backward and both timed against the plain ones;
-7. training end to end: ``deepctr_torch.cli``'s run on
-   ``configs/fnn_full_ipinyou.json`` at full iPinYou width, batch 8192, bf16
-   table, for one epoch of 40 steps; launch counts of both training
-   kernels, the eval AUC, and the written checkpoint scored by ``--score``
+   kernel against the plain tower and autograd through it, for FNN's tanh
+   200-300-100 and DeepFM's relu 200-200, at [8192, 176] and [1000, 176],
+   dropout 0.5 and 0 (relu: rows at its derivative's step get no upstream
+   gradient, see RELU_EDGE); a second backward launch compared bit for
+   bit; the FNN tower's forward, backward and both timed against the plain
+   ones;
+7. FM scorer kernel vs plain: ``fm_score_fwd`` against ``fm_score_plain``
+   at [8192, 18, 11], [65536, 18, 11], a ragged [1000, 18, 11], a small odd
+   [77, 5, 4] and the Criteo configs' k=16 ([8192, 39, 17]), with pad slots
+   and an all-pad example; a second launch compared bit for bit; the first
+   two shapes timed on both (the kernels line takes [65536, 18, 11]'s: at
+   8192 rows the loop times the host); the autograd Function's gradient
+   against autograd through the plain version;
+8. FM training end to end: ``deepctr_torch.cli``'s run on
+   ``configs/fm_k10.json`` at full iPinYou width, batch 8192, bf16 table,
+   one epoch of 40 steps; the FM scorer's launch count, the eval AUC, the
+   ``.fm_table`` it writes, and its checkpoint scored by ``--score``
    against the eval step; then 5 steps of the kernel path against 5 steps
    of a plain comparator from one state, 3 steps run twice compared bit for
-   bit, step times on both paths, the occurrence-gradient scatter's forms
-   timed, and ``torch.profiler`` around warm steps.
+   bit, step times on both paths and ``torch.profiler`` around warm steps;
+9. FNN training end to end, seeded from phase 8's ``.fm_table`` (the FM ->
+   FNN pipeline): ``configs/fnn_full_ipinyou.json`` with
+   ``model.init_from`` set to it, the same cut and checks as phase 8 for
+   the tower kernels, the occurrence-gradient scatter's forms timed;
+10. DeepFM: 10 training steps through the CLI at full width (relu 200-200,
+    dropout 0.5), launching the FM scorer and both tower kernels,
+    ``--score`` of its checkpoint against the eval step, 5 kernel steps
+    against 5 plain steps and 3 steps run twice compared bit for bit;
+11. LR and IPNN: ``--score`` of checkpoints written from seeded parameters,
+    against a float64 numpy forward (LR) and the plain path on the card
+    (IPNN, tower input 296).
 Then one JSON line on the kernels, and last ``{"ok": true, "device": ...}``.
 Any failure raises, and the script exits non-zero without that last line;
 so it does without a CUDA device, or outside a checkout of the repository.
@@ -60,14 +80,28 @@ PROB_ATOL = 1e-5
 # a weight or bias gradient sums 8192 rows in another order than cuBLAS:
 # held to this share of the gradient's largest element
 GRAD_REL = 1e-4
+# relu's derivative steps at 0: where a hidden pre-activation lies within the
+# two sums' f32 rounding (~1e-6 at these widths) of 0, kernel and plain may
+# take different sides of the step. The backward checks set the upstream
+# gradient of such rows to 0 (a few per cent of the rows at this band)
+RELU_EDGE = 1e-4
 FNN_HIDDEN = (200, 300, 100)
 K = 10
 BATCH = 8192
 REQUESTS = 8 * BATCH
 DROPOUT = 0.5
-TRAIN_STEPS = 40            # steps of the CLI's one-epoch training run
-TEST_FRACTION = 0.15        # the config's held-out share
-CONFIG = "configs/fnn_full_ipinyou.json"
+TRAIN_STEPS = 40            # steps of the CLI's one-epoch training runs
+DEEPFM_STEPS = 10
+TEST_FRACTION = 0.15        # the configs' held-out share
+FM_CONFIG = "configs/fm_k10.json"
+FNN_CONFIG = "configs/fnn_full_ipinyou.json"
+PNN_HIDDEN = (200, 200)
+DEEPFM_HIDDEN = (200, 200)  # relu, dropout 0.5: the reference's DeepFM tower
+# FM scorer, kernel vs plain: both sum in f32 in other orders; the
+# reference's own tolerance for its kernel (tests/test_pallas.py:26), at
+# rows N(0, FM_SIGMA) (the error grows with the squared sums)
+FM_TOL = 1e-4
+FM_SIGMA = 0.5
 
 
 def _fail(msg: str) -> None:
@@ -75,16 +109,23 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
-def _tower(rng, dims, device):
-    import torch
-
+def _np_layers(rng, dims) -> list:
+    """A tower's layers in the JAX layout, ``[{"w": [in, out], "b": [out]}]``:
+    Glorot-uniform weights and N(0, 0.1) biases, f32."""
     layers = []
     for d_in, d_out in zip(dims[:-1], dims[1:]):
         lim = np.sqrt(6.0 / (d_in + d_out))
-        w = rng.uniform(-lim, lim, (d_in, d_out)).astype(np.float32)
-        b = rng.normal(0.0, 0.1, d_out).astype(np.float32)
-        layers.append((torch.from_numpy(w).to(device), torch.from_numpy(b).to(device)))
+        layers.append({"w": rng.uniform(-lim, lim, (d_in, d_out)).astype(np.float32),
+                       "b": rng.normal(0.0, 0.1, d_out).astype(np.float32)})
     return layers
+
+
+def _tower(rng, dims, device):
+    import torch
+
+    return [(torch.from_numpy(layer["w"]).to(device),
+             torch.from_numpy(layer["b"]).to(device))
+            for layer in _np_layers(rng, dims)]
 
 
 def _check_close(what, got, want, rtol=RTOL, atol=ATOL) -> float:
@@ -133,12 +174,27 @@ def _numpy_fnn(table, layers, schema, ids):
     return h[:, 0]
 
 
+def _device_ops(prof) -> list:
+    """(device µs, count, name) of each op a ``torch.profiler`` run saw on
+    the card, largest first."""
+    from torch.autograd import DeviceType
+
+    device = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        device.append((us, e.count, e.key))
+    return sorted(device, reverse=True)
+
+
 def _profile_scorer(scorer, ids, n_batches) -> None:
     """Device time per op and the device's busy share of the wall time,
     under ``torch.profiler``, for one ``Scorer.logits`` call. The profiler
     adds host time, so the busy share it gives is a lower bound."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     scorer.logits(ids)   # warm
@@ -148,18 +204,11 @@ def _profile_scorer(scorer, ids, n_batches) -> None:
         scorer.logits(ids)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    device = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        device.append((us, e.count, e.key))
+    device = _device_ops(prof)
     busy_us = sum(us for us, _, _ in device)
     print(f"profile: device busy {busy_us:.1f} us of {wall_us:.1f} us wall "
           f"({100 * busy_us / wall_us:.1f}%) for {n_batches} batches")
-    for us, count, key in sorted(device, reverse=True)[:10]:
+    for us, count, key in device[:10]:
         print(f"  {us / n_batches:9.2f} us/batch  {count // n_batches:3d}/batch  "
               f"{key[:90]}")
 
@@ -183,30 +232,60 @@ def _in_turns(fns: dict, iters=50) -> dict:
     return {name: float(np.mean(t)) for name, t in times.items()}
 
 
+def _relu_edge_rows(x, layers, drop, seed):
+    """Rows ``[B]`` (bool) with a hidden pre-activation within RELU_EDGE of
+    0, from a float64 forward with the tower's dropout masks."""
+    import torch
+
+    from deepctr_torch.ops.kernels.mlp import dropout_mask_plain
+
+    h = x.double()
+    edge = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for i, (w, b) in enumerate(layers[:-1]):
+        z = h @ w.double() + b.double()
+        edge |= (z.abs() < RELU_EDGE).any(dim=1)
+        h = torch.relu(z)
+        if drop > 0.0:
+            h = h * dropout_mask_plain(tuple(h.shape), 1.0 - drop, seed, i,
+                                       device=h.device).double()
+    return edge
+
+
 def _phase6_training_kernels(dev, rng) -> dict:
     """The forward with dropout and the backward kernel against the plain
-    tower and autograd through it; returns errors and times for the report."""
+    tower and autograd through it, for FNN's tanh tower and DeepFM's relu
+    tower; returns errors and times (FNN's) for the report."""
     import torch
 
     from deepctr_torch.ops.kernels import mlp as mlp_k
 
-    dims = (16 * (1 + K),) + FNN_HIDDEN + (1,)
+    in_dim = 16 * (1 + K)
     seed = 12345
     out = {"fwd_drop_err": 0.0, "bwd_err": 0.0}
-    for batch in (BATCH, 1000):
-        x = torch.from_numpy(rng.normal(size=(batch, dims[0])).astype(np.float32)).to(dev)
+    for act, hidden, batch in (("tanh", FNN_HIDDEN, BATCH), ("tanh", FNN_HIDDEN, 1000),
+                               ("relu", DEEPFM_HIDDEN, BATCH),
+                               ("relu", DEEPFM_HIDDEN, 1000)):
+        dims = (in_dim,) + hidden + (1,)
+        x = torch.from_numpy(rng.normal(size=(batch, in_dim)).astype(np.float32)).to(dev)
         g = torch.from_numpy(rng.normal(size=batch).astype(np.float32)).to(dev)
         layers = _tower(rng, dims, dev)
         for drop in (DROPOUT, 0.0):
-            tag = f"[{batch}, {dims[0]}] dropout {drop}"
-            got = mlp_k.mlp_tower_fwd(x, layers, "tanh", drop, seed)
-            want = mlp_k.mlp_tower_plain(x, layers, "tanh", drop, seed)
+            tag = f"[{batch}, {in_dim}] {'-'.join(map(str, dims[1:]))} {act} dropout {drop}"
+            got = mlp_k.mlp_tower_fwd(x, layers, act, drop, seed)
+            want = mlp_k.mlp_tower_plain(x, layers, act, drop, seed)
             err = _check_close(f"fwd kernel vs plain {tag}", got.cpu(), want.cpu())
             if drop > 0:
                 out["fwd_drop_err"] = max(out["fwd_drop_err"], err)
-            gx, grads = mlp_k.mlp_tower_bwd(x, layers, g, "tanh", drop, seed)
+            g_up = g
+            if act == "relu":
+                edge = _relu_edge_rows(x, layers, drop, seed)
+                print(f"bwd {tag}: {int(edge.sum())} of {batch} rows have a hidden "
+                      f"pre-activation within {RELU_EDGE:g} of 0; their upstream "
+                      f"gradient is set to 0")
+                g_up = torch.where(edge, 0.0, g)
+            gx, grads = mlp_k.mlp_tower_bwd(x, layers, g_up, act, drop, seed)
             torch.cuda.synchronize()
-            wgx, wgrads = mlp_k.mlp_tower_bwd_plain(x, layers, g, "tanh", drop, seed)
+            wgx, wgrads = mlp_k.mlp_tower_bwd_plain(x, layers, g_up, act, drop, seed)
             errs = [_check_close(f"bwd kernel vs autograd {tag}: gx", gx.cpu(),
                                  wgx.cpu())]
             for i, ((gw, gb), (ww, wb)) in enumerate(zip(grads, wgrads)):
@@ -215,7 +294,7 @@ def _phase6_training_kernels(dev, rng) -> dict:
                 errs.append(_check_grad(f"bwd kernel vs autograd {tag}: gb{i}",
                                         gb.cpu(), wb.cpu()))
             out["bwd_err"] = max(out["bwd_err"], *errs)
-            gx2, grads2 = mlp_k.mlp_tower_bwd(x, layers, g, "tanh", drop, seed)
+            gx2, grads2 = mlp_k.mlp_tower_bwd(x, layers, g_up, act, drop, seed)
             same = torch.equal(gx, gx2) and all(
                 torch.equal(a, c) and torch.equal(b, d)
                 for (a, b), (c, d) in zip(grads, grads2))
@@ -223,7 +302,8 @@ def _phase6_training_kernels(dev, rng) -> dict:
             if not same:
                 raise AssertionError("two backward launches gave different bits")
 
-    x = torch.from_numpy(rng.normal(size=(BATCH, dims[0])).astype(np.float32)).to(dev)
+    dims = (in_dim,) + FNN_HIDDEN + (1,)
+    x = torch.from_numpy(rng.normal(size=(BATCH, in_dim)).astype(np.float32)).to(dev)
     g = torch.from_numpy(rng.normal(size=BATCH).astype(np.float32)).to(dev)
     layers = _tower(rng, dims, dev)
     xg = x.clone().requires_grad_(True)
@@ -262,13 +342,13 @@ def _phase6_training_kernels(dev, rng) -> dict:
     return out
 
 
-def _plain_train_step(schema, sparse_opt, dense_opt):
-    """The port's train step with the plain tower called directly, built
-    from the port's pieces: the comparator of the kernel path."""
+def _plain_train_step(schema, sparse_opt, dense_opt, plain_logits, l2=0.0):
+    """The port's train step with the model's kernels replaced by their plain
+    versions (``plain_logits(model, rows, mask, seed)``), built from the
+    port's pieces: the comparator of the kernel path."""
     import torch
 
-    from deepctr_torch.models import weighted_bce_with_logits
-    from deepctr_torch.ops.kernels.mlp import mlp_tower_plain
+    from deepctr_torch.models import lazy_l2, weighted_bce_with_logits
     from deepctr_torch.train import dense_params
 
     def step(state, ids, labels, weights, seed):
@@ -276,10 +356,9 @@ def _plain_train_step(schema, sparse_opt, dense_opt):
         mask = (ids != schema.pad_id).float()
         rows = model.table.detach()[ids].float().requires_grad_(True)
         params = dense_params(model)
-        spec = model.mlp.spec
-        logits = mlp_tower_plain(model.tower_input(rows, mask), model.mlp.params(),
-                                 spec.activation, spec.dropout, seed)
+        logits = plain_logits(model, rows, mask, seed)
         loss = weighted_bce_with_logits(logits, labels, weights)
+        loss = loss + lazy_l2(rows, mask, l2)
         g_rows, *g_dense = torch.autograd.grad(loss, [rows] + params)
         sparse_opt.update(model.table.data, state.sparse_state, ids.reshape(-1),
                           g_rows.reshape(-1, g_rows.shape[-1]))
@@ -290,6 +369,33 @@ def _plain_train_step(schema, sparse_opt, dense_opt):
     return step
 
 
+def _fnn_plain_logits(model, rows, mask, seed):
+    from deepctr_torch.ops.kernels.mlp import mlp_tower_plain
+
+    spec = model.mlp.spec
+    return mlp_tower_plain(model.tower_input(rows, mask), model.mlp.params(),
+                           spec.activation, spec.dropout, seed)
+
+
+def _fm_plain_logits(model, rows, mask, seed):
+    from deepctr_torch.ops.kernels.interaction import fm_score_plain
+
+    del seed
+    return fm_score_plain(rows, mask) + model.bias
+
+
+def _deepfm_plain_logits(model, rows, mask, seed):
+    from deepctr_torch.models.base import pool_fields
+    from deepctr_torch.ops.kernels.interaction import fm_score_plain
+    from deepctr_torch.ops.kernels.mlp import mlp_tower_plain
+
+    spec = model.mlp.spec
+    pooled = pool_fields(rows, mask, model.slot_onehot)
+    deep = mlp_tower_plain(pooled.reshape(pooled.shape[0], -1), model.mlp.params(),
+                           spec.activation, spec.dropout, seed)
+    return fm_score_plain(rows, mask) + deep + model.bias
+
+
 def _bf16_ulps(a, b):
     import torch
 
@@ -297,7 +403,7 @@ def _bf16_ulps(a, b):
 
 
 def _compare_states(what, a, b) -> None:
-    """Table (bf16), Adagrad accumulator and tower of two states."""
+    """Table (bf16), Adagrad accumulator and dense parameters of two states."""
     ulps = _bf16_ulps(a.table, b.table)
     far = int((ulps > 1).sum())
     print(f"{what}: table {int((ulps > 0).sum())} of {ulps.numel()} elements "
@@ -314,11 +420,10 @@ def _compare_states(what, a, b) -> None:
                          rtol=1e-4, atol=1e-5)
 
 
-def _profile_steps(step, state, batches, seeds) -> None:
+def _profile_steps(step, state, batches, seeds, tag) -> None:
     """Device time per op and the device's busy share of the wall time,
     under ``torch.profiler``, for warm train steps."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     n = len(batches)
@@ -331,19 +436,14 @@ def _profile_steps(step, state, batches, seeds) -> None:
             state, _ = step(state, *b, seed=s)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    device = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        device.append((us, e.count, e.key))
+    device = _device_ops(prof)
     busy_us = sum(us for us, _, _ in device)
-    print(f"profile, train step: device busy {busy_us:.1f} us of {wall_us:.1f} us "
-          f"wall ({100 * busy_us / wall_us:.1f}%) for {n} steps")
-    for us, count, key in sorted(device, reverse=True)[:14]:
-        print(f"  {us / n:9.2f} us/step  {count / n:5.1f}/step  {key[:90]}")
+    print(f"profile, {tag} train step: device busy {busy_us:.1f} us of {wall_us:.1f} "
+          f"us wall ({100 * busy_us / wall_us:.1f}%) for {n} steps")
+    # the top ops, and the port's own kernels wherever they rank
+    for i, (us, count, key) in enumerate(device):
+        if i < 14 or re.search(r"::(fm_score|tower_\w+)_kernel", key):
+            print(f"  {us / n:9.2f} us/step  {count / n:5.1f}/step  {key[:90]}")
 
 
 def _time_scatter_forms(dev, schema, ids) -> None:
@@ -378,68 +478,135 @@ def _time_scatter_forms(dev, schema, ids) -> None:
               f"vs index_put_ {err:.2e}")
 
 
-def _phase7_training(dev, root, tmp) -> dict:
-    """The training slice end to end through ``deepctr_torch.cli``, then the
-    kernel path against the plain comparator on the card."""
+def _phase7_fm_kernel(dev, rng) -> dict:
+    """``fm_score_fwd`` against ``fm_score_plain`` on the card at the FM
+    path's shapes, a ragged batch, a small odd case and the Criteo configs'
+    width; a second launch compared bit for bit; the first two shapes timed
+    in turns; the autograd Function's gradient against autograd through the
+    plain version."""
+    import torch
+
+    from deepctr_torch.ops.kernels import interaction as fm_k
+
+    cases = [(BATCH, 18, K, True), (REQUESTS, 18, K, True), (1000, 18, K, False),
+             (77, 5, 3, False), (BATCH, 39, 16, False)]
+    out = {"err": 0.0}
+
+    def inputs(batch, slots, k):
+        rows = rng.normal(0.0, FM_SIGMA, (batch, slots, 1 + k)).astype(np.float32)
+        mask = (rng.random((batch, slots)) < 0.9).astype(np.float32)
+        mask[0] = 0.0   # an all-pad example
+        return (torch.from_numpy(rows).to(dev), torch.from_numpy(mask).to(dev))
+
+    for batch, slots, k, timed in cases:
+        rows, mask = inputs(batch, slots, k)
+        tag = f"[{batch}, {slots}, {1 + k}]"
+        got = fm_k.fm_score_fwd(rows, mask)
+        torch.cuda.synchronize()
+        want = fm_k.fm_score_plain(rows, mask)
+        out["err"] = max(out["err"], _check_close(
+            f"fm_score kernel vs plain {tag}", got.cpu(), want.cpu(),
+            rtol=FM_TOL, atol=FM_TOL))
+        same = torch.equal(got, fm_k.fm_score_fwd(rows, mask))
+        print(f"fm_score kernel {tag}: second launch bitwise equal: {same}")
+        if not same:
+            raise AssertionError("two fm_score launches gave different bits")
+        if timed:
+            t = _in_turns({"plain": lambda: fm_k.fm_score_plain(rows, mask),
+                           "kernel": lambda: fm_k.fm_score_fwd(rows, mask)})
+            nbytes = 4 * (rows.numel() + mask.numel() + batch)
+            print(f"time fm_score {tag}: kernel {t['kernel']:.4f} ms "
+                  f"({nbytes / t['kernel'] / 1e6:.1f} GB/s of its {nbytes} bytes), "
+                  f"plain {t['plain']:.4f} ms")
+            if batch == REQUESTS:   # at 8192 rows the loop times the host
+                out["ms"], out["plain_ms"] = t["kernel"], t["plain"]
+
+    rows, mask = inputs(BATCH, 18, K)
+    g = torch.from_numpy(rng.normal(size=BATCH).astype(np.float32)).to(dev)
+    r = rows.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(fm_k.fm_score(r, mask), [r], g)
+    (want,) = torch.autograd.grad(fm_k.fm_score_plain(r, mask), [r], g)
+    _check_close(f"fm_score gradient vs autograd through the plain version "
+                 f"[{BATCH}, 18, {1 + K}]", got.cpu(), want.cpu(), rtol=FM_TOL,
+                 atol=FM_TOL)
+    return out
+
+
+def _reset_counts() -> None:
+    from deepctr_torch.ops.kernels import interaction as fm_k
+    from deepctr_torch.ops.kernels import mlp as mlp_k
+
+    mlp_k.LAUNCHES = mlp_k.DROPOUT_LAUNCHES = mlp_k.BWD_LAUNCHES = 0
+    fm_k.LAUNCHES = 0
+
+
+def _counts() -> dict:
+    from deepctr_torch.ops.kernels import interaction as fm_k
+    from deepctr_torch.ops.kernels import mlp as mlp_k
+
+    return {"fwd_dropout": mlp_k.DROPOUT_LAUNCHES, "bwd": mlp_k.BWD_LAUNCHES,
+            "fwd_eval": mlp_k.LAUNCHES - mlp_k.DROPOUT_LAUNCHES,
+            "fm_score": fm_k.LAUNCHES}
+
+
+def _cli_train(dev, root, tmp, config, overrides, steps, tag):
+    """One training run through ``deepctr_torch.cli``'s ``run`` with the
+    kernel counts set to 0 just before it and read just after; checks the
+    step count, a finite loss and an eval record. Returns (cfg, overrides,
+    result, launches, metrics events)."""
     import torch
 
     from deepctr_torch import cli
-    from deepctr_torch.ops.kernels import mlp as mlp_k
-    from deepctr_torch.shared import RunConfig, ipinyou_full_schema, synthetic
-    from deepctr_torch.train import make_eval_step, make_train_step
+    from deepctr_torch.shared import RunConfig
 
-    schema = ipinyou_full_schema()
-    schema_path = os.path.join(tmp, "ipinyou_full.json")
-    with open(schema_path, "w") as f:
-        f.write(schema.to_json())
-    examples = int(np.ceil(TRAIN_STEPS * BATCH / (1 - TEST_FRACTION))) + 1
-    ckpt = os.path.join(tmp, "fnn_train.ckpt")
-    metrics = os.path.join(tmp, "metrics.jsonl")
-    overrides = ["model.init_from=none", f"data.schema_path={schema_path}",
-                 f"train.batch_size={BATCH}", "train.table_dtype=bf16",
-                 f"data.synthetic_examples={examples}", "train.epochs=1",
-                 f"train.checkpoint_path={ckpt}", f"train.metrics_path={metrics}"]
-    config = os.path.join(root, CONFIG)
-    cfg = RunConfig.load(config).apply_overrides(overrides)
-    print(f"train: python -m deepctr_torch.cli --config {CONFIG} "
+    examples = int(np.ceil(steps * BATCH / (1 - TEST_FRACTION))) + 1
+    metrics = os.path.join(tmp, f"{tag}_metrics.jsonl")
+    overrides = overrides + [
+        f"train.batch_size={BATCH}", "train.table_dtype=bf16",
+        f"data.synthetic_examples={examples}", "train.epochs=1",
+        f"train.metrics_path={metrics}"]
+    cfg = RunConfig.load(os.path.join(root, config)).apply_overrides(overrides)
+    print(f"{tag} train: python -m deepctr_torch.cli --config {config} "
           f"{' '.join(overrides)} --device cuda")
-
-    mlp_k.LAUNCHES = mlp_k.DROPOUT_LAUNCHES = mlp_k.BWD_LAUNCHES = 0
+    _reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         result = cli.run(cfg, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fwd_dropout": mlp_k.DROPOUT_LAUNCHES, "bwd": mlp_k.BWD_LAUNCHES,
-                "fwd_eval": mlp_k.LAUNCHES - mlp_k.DROPOUT_LAUNCHES}
+    launches = _counts()
     rec = result["history"][0]
     state = result["state"]
-    print(f"cli train: {state.step} steps in {wall:.2f} s (data, init, epoch, eval, "
-          f"checkpoint); launches {launches}; train_loss {rec['train_loss']:.5f}, "
-          f"eval auc {rec['auc']:.5f}, logloss {rec['logloss']:.5f}, rmse "
-          f"{rec['rmse']:.5f}; examples_per_s {rec['examples_per_s']:.0f} "
-          f"(host clock, the epoch's steps)")
-    if state.step != TRAIN_STEPS:
-        raise AssertionError(f"{state.step} steps, expected {TRAIN_STEPS}")
-    if launches["fwd_dropout"] < state.step or launches["bwd"] < state.step:
-        raise AssertionError(f"training kernels launched {launches} in "
-                             f"{state.step} steps")
-    if launches["fwd_eval"] < 1:
-        raise AssertionError("eval launched no dropout-free forward kernel")
-    if not (np.isfinite(rec["train_loss"]) and rec["auc"] > 0.5):
-        raise AssertionError(f"training did not learn: {rec}")
+    print(f"{tag} cli train: {state.step} steps in {wall:.2f} s (data, init, epoch, "
+          f"eval, checkpoint); launches {launches}; train_loss "
+          f"{rec['train_loss']:.5f}, eval auc {rec['auc']:.5f}, logloss "
+          f"{rec['logloss']:.5f}, rmse {rec['rmse']:.5f}; examples_per_s "
+          f"{rec['examples_per_s']:.0f} (host clock, the epoch's steps)")
+    if state.step != steps:
+        raise AssertionError(f"{tag}: {state.step} steps, expected {steps}")
+    if not np.isfinite(rec["train_loss"]):
+        raise AssertionError(f"{tag}: loss not finite: {rec}")
     with open(metrics) as f:
-        if not any('"auc"' in line for line in f):
-            raise AssertionError("no eval record in the metrics file")
+        events = [json.loads(line) for line in f]
+    if not any("auc" in e for e in events):
+        raise AssertionError(f"{tag}: no eval record in the metrics file")
+    return cfg, overrides, result, launches, events
 
-    # the checkpoint through --score against the eval step on the trained state
-    _, tr_ids, tr_labels, te_ids, te_labels = cli.load_data(cfg)
-    yx = os.path.join(tmp, "test_rows.yx")
+
+def _check_cli_score(config_path, overrides, state, schema, te_ids, te_labels,
+                     tmp, tag) -> None:
+    """The run's checkpoint through ``--score`` against the eval step on the
+    trained state."""
+    from deepctr_torch import cli
+    from deepctr_torch.shared import synthetic
+    from deepctr_torch.train import make_eval_step
+
+    yx = os.path.join(tmp, f"{tag}_test_rows.yx")
     synthetic.write_yx_file(synthetic.SyntheticDataset(
         schema, te_ids, te_labels, np.zeros(len(te_labels), np.float32)), yx)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = cli.main(["--config", config, "--score", yx, *overrides,
+        rc = cli.main(["--config", config_path, "--score", yx, *overrides,
                        "--device", "cuda"])
     if rc != 0:
         raise AssertionError(f"deepctr_torch.cli --score returned {rc}")
@@ -448,14 +615,25 @@ def _phase7_training(dev, root, tmp) -> dict:
     logits = np.concatenate([
         eval_step(state.model, te_ids[i:i + BATCH]).cpu().numpy()
         for i in range(0, len(te_ids), BATCH)])
-    _check_close(f"train: --score of the checkpoint vs eval step ({len(probs)} "
-                 f"test rows)", probs, 1.0 / (1.0 + np.exp(-np.clip(logits, -30, 30))),
+    _check_close(f"{tag} train: --score of the checkpoint vs eval step "
+                 f"({len(probs)} test rows)", probs,
+                 1.0 / (1.0 + np.exp(-np.clip(logits, -30, 30))),
                  rtol=0.0, atol=PROB_ATOL)
 
-    # the kernel path against the plain comparator, from one state
+
+def _check_steps(dev, cfg, schema, state, tr_ids, tr_labels, plain_logits, tag):
+    """The kernel path against the plain comparator over 5 steps from one
+    state, and 3 kernel steps run twice compared bit for bit. Returns
+    (kernel step, plain step, batches, seeds)."""
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch.train import make_train_step
+
     sparse_opt, dense_opt = cli.build_optimizers(cfg)
-    kstep = make_train_step(schema, sparse_opt, dense_opt)
-    pstep = _plain_train_step(schema, sparse_opt, dense_opt)
+    kstep = make_train_step(schema, sparse_opt, dense_opt, l2=cfg.optim.l2)
+    pstep = _plain_train_step(schema, sparse_opt, dense_opt, plain_logits,
+                              l2=cfg.optim.l2)
     batches = []
     for i in range(10):
         sl = slice(i * BATCH, (i + 1) * BATCH)
@@ -467,9 +645,9 @@ def _phase7_training(dev, root, tmp) -> dict:
     for i in range(5):
         k_state, km = kstep(k_state, *batches[i], seed=seeds[i])
         p_state, pl = pstep(p_state, *batches[i], seed=seeds[i])
-        _check_close(f"5 steps, kernel vs plain: loss of step {i}", [float(km.loss)],
-                     [float(pl)], rtol=1e-4, atol=1e-6)
-    _compare_states("5 steps, kernel vs plain", k_state, p_state)
+        _check_close(f"{tag}, 5 steps, kernel vs plain: loss of step {i}",
+                     [float(km.loss)], [float(pl)], rtol=1e-4, atol=1e-6)
+    _compare_states(f"{tag}, 5 steps, kernel vs plain", k_state, p_state)
 
     a, b = state.clone(), state.clone()
     for i in range(3):
@@ -479,12 +657,18 @@ def _phase7_training(dev, root, tmp) -> dict:
             and torch.equal(a.sparse_state.acc, b.sparse_state.acc)
             and all(torch.equal(p, q) for p, q in zip(a.model.parameters(),
                                                       b.model.parameters())))
-    print(f"3 steps twice from one state: table, accumulator and tower "
-          f"bit-identical: {same}")
+    print(f"{tag}, 3 steps twice from one state: table, accumulator and dense "
+          f"parameters bit-identical: {same}")
     if not same:
-        raise AssertionError("the train step is not bitwise repeatable")
+        raise AssertionError(f"{tag}: the train step is not bitwise repeatable")
+    return kstep, pstep, batches, seeds
 
-    # step time on the card: batches already on the card, CUDA events
+
+def _time_steps(kstep, pstep, state, batches, seeds, tag) -> dict:
+    """Step time on the card: batches already on the card, CUDA events over
+    10 steps, kernel path and plain comparator in turns."""
+    import torch
+
     times = {"plain": [], "kernel": []}
     for which in ("plain", "kernel", "kernel", "plain"):
         st = state.clone()
@@ -502,12 +686,178 @@ def _phase7_training(dev, root, tmp) -> dict:
         times[which].append(start.elapsed_time(end) / 10)
         del st
     step_ms = {k: float(np.mean(v)) for k, v in times.items()}
-    print(f"train step on the card ({BATCH} rows, CUDA events over 10 steps, in "
-          f"turns): kernel {step_ms['kernel']:.4f} ms, plain {step_ms['plain']:.4f} "
-          f"ms; runs {times}")
+    print(f"{tag} train step on the card ({BATCH} rows, CUDA events over 10 steps, "
+          f"in turns): kernel {step_ms['kernel']:.4f} ms, plain "
+          f"{step_ms['plain']:.4f} ms; runs {times}")
+    return step_ms
+
+
+def _phase8_fm_training(dev, root, tmp, schema, schema_path) -> dict:
+    """FM k=10 (``configs/fm_k10.json``) trained through the CLI at full
+    iPinYou width: the path that runs the FM scorer kernel."""
+    from deepctr_torch import cli
+    from deepctr_torch.utils.checkpoint import load_fm_embeddings
+
+    ckpt = os.path.join(tmp, "fm_train.ckpt")
+    overrides = [f"data.schema_path={schema_path}", f"train.checkpoint_path={ckpt}"]
+    cfg, overrides, result, launches, _ = _cli_train(dev, root, tmp, FM_CONFIG,
+                                                     overrides, TRAIN_STEPS, "fm")
+    state = result["state"]
+    rec = result["history"][0]
+    _, tr_ids, tr_labels, te_ids, te_labels = cli.load_data(cfg)
+    if launches["fm_score"] <= state.step:
+        raise AssertionError(f"fm: fm_score launched {launches['fm_score']} times in "
+                             f"{state.step} steps and an eval")
+    if rec["auc"] <= 0.5:
+        raise AssertionError(f"fm: training did not learn: {rec}")
+    fm_table = load_fm_embeddings(ckpt + ".fm_table")
+    if not np.array_equal(fm_table, state.table.float().cpu().numpy()):
+        raise AssertionError("fm: the .fm_table file is not the trained table")
+    print(f"fm: {ckpt}.fm_table written, {fm_table.shape} = the trained table")
+    _check_cli_score(os.path.join(root, FM_CONFIG), overrides, state,
+                     schema, te_ids, te_labels, tmp, "fm")
+    kstep, pstep, batches, seeds = _check_steps(
+        dev, cfg, schema, state, tr_ids, tr_labels, _fm_plain_logits, "fm")
+    step_ms = _time_steps(kstep, pstep, state, batches, seeds, "fm")
+    _profile_steps(kstep, state.clone(), batches[:5], seeds[:5], "fm")
+    return {"launches": launches, "step_ms": step_ms, "fm_table": ckpt + ".fm_table"}
+
+
+def _phase9_fnn_training(dev, root, tmp, schema, schema_path, fm_table) -> dict:
+    """FNN (``configs/fnn_full_ipinyou.json``) seeded from phase 8's FM table
+    and trained through the CLI: the FM -> FNN pipeline on the port."""
+    from deepctr_torch import cli
+
+    ckpt = os.path.join(tmp, "fnn_train.ckpt")
+    overrides = [f"model.init_from={fm_table}", f"data.schema_path={schema_path}",
+                 f"train.checkpoint_path={ckpt}"]
+    cfg, overrides, result, launches, events = _cli_train(
+        dev, root, tmp, FNN_CONFIG, overrides, TRAIN_STEPS, "fnn")
+    state = result["state"]
+    rec = result["history"][0]
+    if not any(e.get("event") == "init_from_fm" and e.get("path") == fm_table
+               for e in events):
+        raise AssertionError("fnn: the run did not start from the FM table")
+    print(f"fnn: started from {fm_table} (init_from_fm in the metrics file)")
+    if launches["fwd_dropout"] < state.step or launches["bwd"] < state.step:
+        raise AssertionError(f"fnn: training kernels launched {launches} in "
+                             f"{state.step} steps")
+    if launches["fwd_eval"] < 1:
+        raise AssertionError("fnn: eval launched no dropout-free forward kernel")
+    if rec["auc"] <= 0.5:
+        raise AssertionError(f"fnn: training did not learn: {rec}")
+    _, tr_ids, tr_labels, te_ids, te_labels = cli.load_data(cfg)
+    _check_cli_score(os.path.join(root, FNN_CONFIG), overrides, state,
+                     schema, te_ids, te_labels, tmp, "fnn")
+    kstep, pstep, batches, seeds = _check_steps(
+        dev, cfg, schema, state, tr_ids, tr_labels, _fnn_plain_logits, "fnn")
+    step_ms = _time_steps(kstep, pstep, state, batches, seeds, "fnn")
     _time_scatter_forms(dev, schema, batches[0][0])
-    _profile_steps(kstep, state.clone(), batches[:5], seeds[:5])
+    _profile_steps(kstep, state.clone(), batches[:5], seeds[:5], "fnn")
     return {"launches": launches, "step_ms": step_ms}
+
+
+def _phase10_deepfm(dev, root, tmp, schema, schema_path) -> dict:
+    """DeepFM at full width, a short training run through the CLI (the FM
+    scorer and both tower kernels, relu with dropout), ``--score`` of its
+    checkpoint, then 5 steps of the kernel path against the plain
+    comparator and 3 steps run twice compared bit for bit."""
+    from deepctr_torch import cli
+
+    ckpt = os.path.join(tmp, "deepfm_train.ckpt")
+    hidden = ",".join(map(str, DEEPFM_HIDDEN))
+    overrides = ["model.name=deepfm", f"model.hidden={hidden}", "model.activation=relu",
+                 "model.dropout=0.5", "model.init_from=none",
+                 f"data.schema_path={schema_path}", f"train.checkpoint_path={ckpt}"]
+    cfg, overrides, result, launches, _ = _cli_train(
+        dev, root, tmp, FNN_CONFIG, overrides, DEEPFM_STEPS, "deepfm")
+    state = result["state"]
+    if (launches["fm_score"] <= state.step or launches["fwd_dropout"] < state.step
+            or launches["bwd"] < state.step or launches["fwd_eval"] < 1):
+        raise AssertionError(f"deepfm: kernels launched {launches} in {state.step} "
+                             f"steps")
+    _, tr_ids, tr_labels, te_ids, te_labels = cli.load_data(cfg)
+    _check_cli_score(os.path.join(root, FNN_CONFIG), overrides, state,
+                     schema, te_ids, te_labels, tmp, "deepfm")
+    _check_steps(dev, cfg, schema, state, tr_ids, tr_labels, _deepfm_plain_logits,
+                 "deepfm")
+    return {"launches": launches}
+
+
+def _phase11_lr_ipnn(dev, tmp, schema) -> None:
+    """LR and IPNN: ``--score`` of a checkpoint written from seeded
+    parameters, against the plain path on the card (IPNN: its products and
+    the plain tower) and a float64 numpy forward (LR)."""
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch.models import MlpSpec, make_pnn
+    from deepctr_torch.ops.kernels import mlp as mlp_k
+    from deepctr_torch.serving import Scorer
+    from deepctr_torch.shared import synthetic
+    from deepctr_torch.utils.checkpoint import save_scoring_params
+
+    n = 2 * BATCH
+    ds = synthetic.generate(schema, num_examples=n, k=K, seed=SEED + 3)
+    yx = os.path.join(tmp, "lr_ipnn_requests.yx")
+    synthetic.write_yx_file(ds, yx)
+    prng = np.random.default_rng(SEED + 4)
+    mask = ds.ids != schema.pad_id
+
+    def score(name, ckpt, extra):
+        out = io.StringIO()
+        _reset_counts()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--score", yx, f"train.checkpoint_path={ckpt}",
+                           f"model.name={name}", f"model.k={K}",
+                           f"train.batch_size={BATCH}", *extra, "--device", "cuda"])
+        if rc != 0:
+            raise AssertionError(f"deepctr_torch.cli --score ({name}) returned {rc}")
+        probs = np.array(out.getvalue().split(), dtype=np.float64)
+        if probs.shape != (n,):
+            raise AssertionError(f"{name}: scored {probs.shape} rows, expected {n}")
+        return probs, _counts()
+
+    table = prng.normal(0.0, 0.3, (schema.padded_vocab_size, 1)).astype(np.float32)
+    table[schema.pad_id] = 0.0
+    bias = np.float32(-0.2)
+    ckpt = os.path.join(tmp, "lr.ckpt")
+    save_scoring_params(ckpt, table, {"bias": bias}, schema=schema, meta={"model": "lr"})
+    probs, _ = score("lr", ckpt, [])
+    logits = (table[ds.ids, 0].astype(np.float64) * mask).sum(axis=1) + bias
+    _check_close("lr: cli --score vs float64 numpy forward", probs,
+                 1.0 / (1.0 + np.exp(-logits)), rtol=0.0, atol=PROB_ATOL)
+
+    table = prng.normal(0.0, 0.3, (schema.padded_vocab_size, 1 + K)).astype(np.float32)
+    table[schema.pad_id] = 0.0
+    fields = schema.num_fields
+    dims = (fields * (1 + K) + fields * (fields - 1) // 2,) + PNN_HIDDEN + (1,)
+    ckpt = os.path.join(tmp, "ipnn.ckpt")
+    save_scoring_params(ckpt, table, {"mlp": {"layers": _np_layers(prng, dims)}},
+                        schema=schema, meta={"model": "ipnn"})
+    hidden = ",".join(map(str, PNN_HIDDEN))
+    probs, launches = score("ipnn", ckpt, [f"model.hidden={hidden}",
+                                           "model.activation=relu"])
+    if launches["fwd_eval"] < 1:
+        raise AssertionError("ipnn: scoring launched no tower kernel")
+    spec = MlpSpec(hidden=PNN_HIDDEN, activation="relu")
+    model = Scorer.from_checkpoint(ckpt, make_pnn(schema, k=K, product="inner",
+                                                  mlp=spec, device=dev)).model
+    with torch.inference_mode():
+        plain = []
+        for i in range(0, n, BATCH):
+            ids = torch.from_numpy(ds.ids[i:i + BATCH]).to(dev).long()
+            rows = model.table[ids]
+            x = model.tower_input(rows, (ids != schema.pad_id).float())
+            plain.append(mlp_k.mlp_tower_plain(x, model.mlp.params(), "relu")
+                         .cpu().numpy())
+    plain = np.concatenate(plain)
+    print(f"ipnn: tower input {dims[0]} ({fields} fields of {1 + K} and "
+          f"{fields * (fields - 1) // 2} inner products), {launches['fwd_eval']} "
+          f"tower kernel launches")
+    _check_close("ipnn: cli --score vs the plain path on the card", probs,
+                 1.0 / (1.0 + np.exp(-np.clip(plain, -30, 30))), rtol=0.0,
+                 atol=PROB_ATOL)
 
 
 def main() -> int:
@@ -546,8 +896,8 @@ def main() -> int:
     name = "?"
     with open(lib_path + ".log") as f:
         for line in f:
-            entry = re.search(r"entry function '.*?\d+(tower_\w+?_kernel)(ILb([01])E)?",
-                              line)
+            entry = re.search(
+                r"entry function '.*?\d+((?:tower|fm)_\w+?_kernel)(ILb([01])E)?", line)
             if entry:
                 name = entry.group(1) + {None: "", "1": "<true>", "0": "<false>"}[
                     entry.group(3)]
@@ -608,13 +958,7 @@ def main() -> int:
     table[schema.pad_id] = 0.0
     dims = (schema.num_fields * (1 + K),) + FNN_HIDDEN + (1,)
     assert dims[0] == in_dim
-    dense_layers = []
-    for d_in, d_out in zip(dims[:-1], dims[1:]):
-        lim = np.sqrt(6.0 / (d_in + d_out))
-        dense_layers.append({
-            "w": prng.uniform(-lim, lim, (d_in, d_out)).astype(np.float32),
-            "b": prng.normal(0.0, 0.1, d_out).astype(np.float32),
-        })
+    dense_layers = _np_layers(prng, dims)
     spec = MlpSpec(hidden=FNN_HIDDEN, activation="tanh")
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -700,9 +1044,19 @@ def main() -> int:
     # 6. the training kernels against their plain versions
     train_k = _phase6_training_kernels(dev, rng)
 
-    # 7. the training slice end to end, through the CLI
+    # 7. the FM scorer kernel against its plain version
+    fm_kernel = _phase7_fm_kernel(dev, rng)
+
+    # 8-11. the FM family through the CLI, at full iPinYou width
     with tempfile.TemporaryDirectory() as tmp:
-        train = _phase7_training(dev, root, tmp)
+        schema_path = os.path.join(tmp, "ipinyou_full.json")
+        with open(schema_path, "w") as f:
+            f.write(schema.to_json())
+        fm = _phase8_fm_training(dev, root, tmp, schema, schema_path)
+        train = _phase9_fnn_training(dev, root, tmp, schema, schema_path,
+                                     fm["fm_table"])
+        _phase10_deepfm(dev, root, tmp, schema, schema_path)
+        _phase11_lr_ipnn(dev, tmp, schema)
 
     report = {"kernels": [{
         "name": "mlp_tower_fwd",
@@ -731,6 +1085,15 @@ def main() -> int:
         "max_abs_err": train_k["bwd_err"],
         "ms": train_k["bwd_ms"],
         "plain_ms": train_k["bwd_plain_ms"],
+    }, {
+        "name": "fm_score",
+        "route": "cuda",
+        "source": "deepctr_torch/csrc/fm_score.cu",
+        "replaces": "deepctr_tpu/ops/pallas/interaction.py:66",
+        "launches": fm["launches"]["fm_score"],
+        "max_abs_err": fm_kernel["err"],
+        "ms": fm_kernel["ms"],
+        "plain_ms": fm_kernel["plain_ms"],
     }]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
 """CLI entry point: ``python -m deepctr_torch.cli --config configs/fnn.json``.
 
-Port of ``deepctr_tpu/cli.py`` for FNN: it reads the same
-``configs/*.json`` and dotted overrides (``deepctr_tpu.config.RunConfig``),
-trains (``run``: data, model, optimizers, the FM -> FNN hand-off, ``fit``,
-checkpoints and JSONL metrics), or with ``--score`` scores a yx file with a
-checkpoint written by either package, printing one probability per line.
+Port of ``deepctr_tpu/cli.py`` for LR, FM, FNN, DeepFM and PNN (IPNN/OPNN):
+it reads the same ``configs/*.json`` and dotted overrides
+(``deepctr_tpu.config.RunConfig``), trains (``run``: data, model,
+optimizers, the FM -> FNN hand-off, ``fit``, checkpoints, an FM run's
+``.fm_table`` and JSONL metrics), or with ``--score`` scores a yx file with
+a checkpoint written by either package, printing one probability per line.
 ``--device`` names where the model runs, and the device alone picks the
-tower: on CUDA the fused kernels, on the CPU their plain versions. Asking
-for CUDA where there is none raises.
+kernels: on CUDA the hand-written ones, on the CPU their plain versions.
+Asking for CUDA where there is none raises. SNN is not ported yet.
 
 Keys of the shared config that are TPU mechanisms are read and have no
 effect here: ``model.use_pallas`` (the device picks the kernels),
@@ -39,21 +40,33 @@ UNPORTED_KEYS = {
 
 
 def build_model(cfg, schema, device: torch.device | str):
-    from .models import MlpSpec, make_fnn
+    """The configured model, as the reference's ``build_model`` builds it."""
+    from .models import MlpSpec, make_deepfm, make_fm, make_fnn, make_lr, make_pnn
 
     m = cfg.model
+    mlp = MlpSpec(hidden=tuple(m.hidden), activation=m.activation,
+                  dropout=m.dropout)
+    if m.name == "lr":
+        return make_lr(schema, device=device)
+    if m.name == "fm":
+        return make_fm(schema, k=m.k, init_sigma=m.init_sigma, device=device)
     if m.name == "fnn":
-        return make_fnn(
-            schema,
-            k=m.k,
-            mlp=MlpSpec(hidden=tuple(m.hidden), activation=m.activation,
-                        dropout=m.dropout),
-            init_sigma=m.init_sigma,
-            device=device,
+        return make_fnn(schema, k=m.k, mlp=mlp, init_sigma=m.init_sigma,
+                        device=device)
+    if m.name == "deepfm":
+        return make_deepfm(schema, k=m.k, mlp=mlp, init_sigma=m.init_sigma,
+                           device=device)
+    if m.name in ("pnn", "ipnn", "opnn"):
+        return make_pnn(schema, k=m.k,
+                        product="outer" if m.name == "opnn" else "inner",
+                        mlp=mlp, init_sigma=m.init_sigma, device=device)
+    if m.name == "snn":
+        raise NotImplementedError(
+            "model 'snn' is not ported to deepctr_torch yet (ROADMAP.md, "
+            "'Modules still to port', slice 3, item 9)"
         )
-    raise NotImplementedError(
-        f"model {m.name!r} is not ported to deepctr_torch yet (ROADMAP.md, "
-        f"'Modules still to port', slice 3: the rest of the model family)"
+    raise ValueError(
+        f"unknown model {m.name!r} (lr|fm|fnn|snn|deepfm|ipnn|opnn)"
     )
 
 
@@ -150,7 +163,12 @@ def run(cfg, device: torch.device) -> dict:
     """Train the configured model on ``device``; returns the best AUC, its
     epoch, the per-epoch history and the final ``TrainState``."""
     from .train import fit, init_state
-    from .utils.checkpoint import init_fnn_from_fm, load_fm_embeddings, save_train_state
+    from .utils.checkpoint import (
+        init_fnn_from_fm,
+        load_fm_embeddings,
+        save_fm_embeddings,
+        save_train_state,
+    )
     from .utils.logging import MetricsLogger
 
     check_ported(cfg)
@@ -160,7 +178,9 @@ def run(cfg, device: torch.device) -> dict:
     logger = MetricsLogger(cfg.train.metrics_path, echo=True)
     state = init_state(model, schema, sparse_opt, dense_opt, seed=cfg.train.seed,
                        table_dtype=cfg.train.table_dtype)
-    if cfg.model.init_from:
+    # the FM -> FNN hand-off; for other models init_from means something
+    # else (SNN's pretraining output) or nothing, as in the reference
+    if cfg.model.name == "fnn" and cfg.model.init_from:
         init_fnn_from_fm(model, load_fm_embeddings(cfg.model.init_from))
         logger.log({"event": "init_from_fm", "path": cfg.model.init_from})
 
@@ -191,6 +211,9 @@ def run(cfg, device: torch.device) -> dict:
         epochs_done = sum(1 for r in res.history if not r.get("eval_only"))
         save_train_state(cfg.train.checkpoint_path, res.state, epoch=epochs_done,
                          meta=ckpt_meta, schema=schema)
+        if cfg.model.name == "fm":
+            save_fm_embeddings(cfg.train.checkpoint_path + ".fm_table",
+                               res.state.table)
     logger.log({"event": "done", "best_auc": res.best_auc})
     logger.close()
     return {"best_auc": res.best_auc, "best_epoch": res.best_epoch,
@@ -207,7 +230,8 @@ def resolve_device(name: str) -> torch.device:
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="deepctr_torch",
-        description="CTR training and scoring on PyTorch/CUDA (FNN)",
+        description="CTR training and scoring on PyTorch/CUDA (LR, FM, FNN, "
+        "DeepFM, IPNN/OPNN)",
     )
     ap.add_argument("--config", help="JSON config path (defaults applied)")
     ap.add_argument(

@@ -25,7 +25,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops.kernels.mlp import ACTIVATIONS
+from ..ops.kernels.mlp import ACTIVATIONS, mlp_tower, mlp_tower_fwd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +65,52 @@ class MlpTower(nn.Module):
 
     def params(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
         return [(layer.w, layer.b) for layer in self.layers]
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                seed: int | None = None) -> torch.Tensor:
+        """``[B, in]`` -> logits ``[B]`` through the tower kernels.
+
+        With ``train`` and a spec with dropout, the tower drops with the
+        counter-hash mask of ``seed`` (an int below 2^24). Where autograd
+        may need the tower's gradients, the tower is the differentiable
+        :func:`mlp_tower`; otherwise the forward kernel alone.
+        """
+        drop = self.spec.dropout if train else 0.0
+        if drop > 0.0 and seed is None:
+            raise ValueError("dropout requires a seed in train mode")
+        if torch.is_grad_enabled() or drop > 0.0:
+            return mlp_tower(x, self.params(), self.spec.activation, drop,
+                             seed or 0)
+        return mlp_tower_fwd(x, self.params(), self.spec.activation)
+
+
+def slot_onehot(slot_field, num_fields: int, *,
+                device: torch.device | str) -> torch.Tensor:
+    """The static one-hot slot -> field map ``[S, F]``."""
+    onehot = torch.zeros(len(slot_field), num_fields, device=device)
+    onehot[torch.arange(len(slot_field)), torch.as_tensor(slot_field)] = 1.0
+    return onehot
+
+
+def pool_fields(rows: torch.Tensor, mask: torch.Tensor,
+                onehot: torch.Tensor) -> torch.Tensor:
+    """Each field's slots masked and sum-pooled: rows ``[B, S, D]``, mask
+    ``[B, S]`` -> ``[B, F, D]`` (``einsum("bsd,sf->bfd")``, as the JAX
+    models pool)."""
+    return torch.einsum("bsd,sf->bfd", rows * mask[..., None], onehot)
+
+
+@torch.no_grad()
+def init_table(table: torch.Tensor, generator: torch.Generator, sigma: float,
+               pad_id: int, zero_linear: bool = False) -> None:
+    """A ``(w | v)`` table normal with ``sigma``, in place, its pad row zero
+    and, with ``zero_linear``, its column 0 (FM's linear weights) zero."""
+    draw = torch.randn(table.shape, generator=generator, device=generator.device,
+                       dtype=torch.float32)
+    draw[pad_id] = 0.0
+    if zero_linear:
+        draw[:, 0] = 0.0
+    table.copy_(sigma * draw)
 
 
 @torch.no_grad()

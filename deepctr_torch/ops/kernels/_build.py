@@ -133,6 +133,16 @@ def load_library() -> ctypes.CDLL:
         return _LIB
 
 
+def is_cuda(x, what: str) -> bool:
+    """The device rule: True for a CUDA tensor (launch the kernel), False for
+    a CPU one (take the plain version); raise for any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
+    return True
+
+
 def check(code: int, what: str) -> None:
     """Raise if a kernel entry point returned a CUDA error code."""
     if code != 0:

@@ -36,7 +36,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ._build import check, load_library
+from ._build import check, is_cuda, load_library
 
 Layers = Sequence[tuple[torch.Tensor, torch.Tensor]]
 
@@ -187,15 +187,6 @@ def _check_args(x: torch.Tensor, layers: Layers, activation: str,
         d_in = w.shape[1]
 
 
-def _is_cuda(x: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raise for anything else."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
-    return True
-
-
 def _tower_args(x: torch.Tensor, layers: Layers):
     n = len(layers)
     dims = (ctypes.c_int * (n + 1))(x.shape[1], *(w.shape[1] for w, _ in layers))
@@ -212,7 +203,7 @@ def mlp_tower_fwd(x: torch.Tensor, layers: Layers, activation: str = "tanh",
     kernel on the current stream, or raises.
     """
     global LAUNCHES, DROPOUT_LAUNCHES
-    if not _is_cuda(x, "mlp_tower_fwd"):
+    if not is_cuda(x, "mlp_tower_fwd"):
         return mlp_tower_plain(x, layers, activation, dropout, seed)
     _check_args(x, layers, activation, dropout, seed)
     batch = x.shape[0]
@@ -247,7 +238,7 @@ def mlp_tower_bwd(x: torch.Tensor, layers: Layers, g: torch.Tensor,
     same bits.
     """
     global BWD_LAUNCHES
-    if not _is_cuda(x, "mlp_tower_bwd"):
+    if not is_cuda(x, "mlp_tower_bwd"):
         return mlp_tower_bwd_plain(x, layers, g, activation, dropout, seed)
     _check_args(x, layers, activation, dropout, seed)
     batch = x.shape[0]

@@ -21,9 +21,11 @@ What differs from the reference, and why:
 - ``make_scan_train_step`` is a JAX dispatch device and is not ported.
 
 On the card the step is bitwise repeatable: the gather's backward is never
-taken (rows are a leaf), the tower's backward kernel sums in a fixed order,
-and the sparse optimizers scatter with ``index_put_(accumulate=True)``,
-which PyTorch runs without float atomics.
+taken (rows are a leaf), the tower's backward kernel and the FM scorer
+kernel sum in a fixed order, and the sparse optimizers sum duplicate ids
+with ``ops/scatter.py``'s prefix sums in 61-bit fixed point, exact in any
+order (``scatter_totals`` in dense mode, ``dedupe_grads`` in sorted mode);
+no float atomics.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from ..shared import Schema
 @dataclasses.dataclass
 class TrainState:
     step: int
-    model: nn.Module              # table and tower parameters, updated in place
+    model: nn.Module              # table and dense parameters, updated in place
     sparse_state: Any
     dense_state: list[torch.Tensor]
     generator: torch.Generator    # dropout seeds, on the CPU
@@ -72,8 +74,8 @@ class StepMetrics(NamedTuple):
 
 
 def dense_params(model: nn.Module) -> list[torch.Tensor]:
-    """The tower's parameters in ``named_parameters`` order (the table is
-    the sparse optimizer's)."""
+    """The dense parameters (tower, bias) in ``named_parameters`` order
+    (the table is the sparse optimizer's)."""
     return [p for name, p in model.named_parameters() if name != "table"]
 
 

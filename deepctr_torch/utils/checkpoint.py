@@ -1,8 +1,8 @@
 """Checkpoints in the JAX package's format, and the parameter converter.
 
 Port of ``deepctr_tpu/utils/checkpoint.py``: the scoring read side, writers
-of the same format (scoring parameters, and a whole train state) and the
-FM -> FNN hand-off, so checkpoints move both ways between the packages: an
+of the same format (scoring parameters, a whole train state, an FM table)
+and the FM -> FNN hand-off, so checkpoints move both ways between the packages: an
 ``np.savez`` of the flattened pytree (``leaf_0`` ...) and a JSON manifest
 whose ``scoring`` entry says where the table and the dense leaves sit.
 
@@ -135,6 +135,13 @@ def save_train_state(path: str, state, epoch: int = 0,
     }, schema=schema, meta=meta)
 
 
+def save_fm_embeddings(path: str, table) -> None:
+    """Atomically write a trained FM's ``[V+1, 1+k]`` (w|v) table as the
+    reference's ``save_fm_embeddings`` does: one leaf, stored as uint16 bits
+    with the ``bf16_leaves`` marker when the table is bf16."""
+    _write(path, [table], {"treedef": "PyTreeDef({'fm_table': *})"})
+
+
 def load_fm_embeddings(path: str) -> np.ndarray:
     """A trained FM's ``[V+1, 1+k]`` (w|v) table as f32, from the file the
     reference's ``save_fm_embeddings`` writes; a bf16 table is decoded."""
@@ -191,14 +198,14 @@ def params_from_jax(table, dense: Tree) -> dict[str, torch.Tensor]:
     """JAX-layout ``(table, dense)`` arrays -> a port model's ``state_dict``.
 
     ``dense["mlp"]["layers"][0]["w"]`` becomes key ``mlp.layers.0.w``."""
-    state = {"table": torch.as_tensor(np.asarray(table, np.float32))}
+    state = {"table": torch.tensor(np.asarray(table, np.float32))}
 
     def walk(node, prefix):
         items = (sorted(node.items()) if isinstance(node, dict)
                  else enumerate(node) if isinstance(node, (list, tuple))
                  else None)
         if items is None:
-            state[prefix] = torch.as_tensor(np.asarray(node, np.float32))
+            state[prefix] = torch.tensor(np.asarray(node, np.float32))
             return
         for key, sub in items:
             walk(sub, f"{prefix}.{key}" if prefix else str(key))

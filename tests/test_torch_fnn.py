@@ -15,7 +15,7 @@ import torch
 from deepctr_torch.models import MlpSpec as TMlpSpec
 from deepctr_torch.models import apply_model as t_apply_model
 from deepctr_torch.models import make_fnn as t_make_fnn
-from deepctr_torch.models import fnn as t_fnn
+from deepctr_torch.models import base as t_base
 from deepctr_torch.ops.kernels.mlp import mlp_tower_plain
 from deepctr_torch.utils.checkpoint import (
     dense_structure,
@@ -116,14 +116,15 @@ def test_dense_structure_is_the_jax_dense_tree(schema):
 
 def test_tower_always_goes_through_the_kernel_wrapper(schema, monkeypatch):
     """No model-level switch picks the plain tower: every forward calls
-    ``mlp_tower_fwd``, which alone decides by the tensor's device."""
+    ``mlp_tower_fwd`` (through the tower module, ``models/base.py``), which
+    alone decides by the tensor's device."""
     calls = []
 
     def spy(x, layers, activation):
         calls.append((tuple(x.shape), len(layers), activation))
         return mlp_tower_plain(x, layers, activation)
 
-    monkeypatch.setattr(t_fnn, "mlp_tower_fwd", spy)
+    monkeypatch.setattr(t_base, "mlp_tower_fwd", spy)
     table, dense = _jax_params(schema)
     model = t_make_fnn(schema, k=K, mlp=TMlpSpec(hidden=HIDDEN), device="cpu")
     model.load_state_dict(params_from_jax(table, dense))

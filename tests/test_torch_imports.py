@@ -13,7 +13,9 @@ import sys
 import numpy as np
 import deepctr_torch, deepctr_torch.cli, deepctr_torch.serving
 import deepctr_torch.optim, deepctr_torch.train, deepctr_torch.utils.metrics
-from deepctr_torch.models import MlpSpec, make_fnn
+import deepctr_torch.ops.interaction, deepctr_torch.ops.kernels.interaction
+from deepctr_torch.models import (DeepFMModel, FMModel, LRModel, MlpSpec, PNNModel,
+                                  make_deepfm, make_fm, make_fnn, make_lr, make_pnn)
 from deepctr_torch.optim import SparseAdagrad, make_dense_optimizer
 from deepctr_torch.serving import Scorer
 from deepctr_torch.train import init_state, make_train_step
@@ -29,6 +31,13 @@ state = init_state(model, schema, sopt, dopt, seed=0, table_dtype="bf16")
 state, m = make_train_step(schema, sopt, dopt)(state, ds.ids, ds.labels,
                                                np.ones(20, np.float32))
 assert state.step == 1 and np.isfinite(float(m.loss)), m
+model = make_fm(schema, k=2, device="cpu")
+state = init_state(model, schema, sopt, dopt, seed=0, table_dtype="bf16")
+state, m = make_train_step(schema, sopt, dopt, l2=1e-6)(state, ds.ids, ds.labels,
+                                                        np.ones(20, np.float32))
+assert state.step == 1 and np.isfinite(float(m.loss)), m
+for make in (make_lr, make_deepfm, make_pnn):
+    assert isinstance(make(schema, device="cpu"), (LRModel, DeepFMModel, PNNModel))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "ml_dtypes"))
 assert not bad, bad
