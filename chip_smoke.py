@@ -7,7 +7,12 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and imports nothing of JAX.
 Phases, each printing its own lines:
 1. device: the card's name and power limit, as nvidia-smi gives them;
 2. build: the CUDA kernels of ``deepctr_torch/csrc`` compiled from source,
-   one nvcc per source in parallel, with ptxas registers and spills;
+   one nvcc per source in parallel, with ptxas registers, static shared
+   memory, spills and any wgmma serialization warning per kernel, the tower
+   kernels' rows a block, ring slots and dynamic shared memory at FNN and
+   DeepFM widths, and the tensor-core instructions (``HGMMA`` or ``HMMA``)
+   ``cuobjdump -sass`` finds in each kernel: every tower kernel (forward,
+   backward rows, weight gradient) must have them;
 3. kernel vs plain: ``mlp_tower_fwd`` against ``mlp_tower_plain`` on the
    card at the serving shape [8192, 176] with FNN widths 200-300-100 tanh,
    at [65536, 176], at a ragged batch, and at small relu and sigmoid
@@ -30,9 +35,9 @@ Phases, each printing its own lines:
    at [8192, 18, 11], [65536, 18, 11], a ragged [1000, 18, 11], a small odd
    [77, 5, 4] and the Criteo configs' k=16 ([8192, 39, 17]), with pad slots
    and an all-pad example; a second launch compared bit for bit; the first
-   two shapes timed on both (the kernels line takes [65536, 18, 11]'s: at
-   8192 rows the loop times the host); the autograd Function's gradient
-   against autograd through the plain version;
+   two shapes timed on both (the kernels line takes [65536, 18, 11]'s);
+   the autograd Function's gradient against autograd through the plain
+   version;
 8. FM training end to end: ``deepctr_torch.cli``'s run on
    ``configs/fm_k10.json`` at full iPinYou width, batch 8192, bf16 table,
    one epoch of 40 steps; the FM scorer's launch count, the eval AUC, the
@@ -47,11 +52,16 @@ Phases, each printing its own lines:
 10. DeepFM: 10 training steps through the CLI at full width (relu 200-200,
     dropout 0.5), launching the FM scorer and both tower kernels,
     ``--score`` of its checkpoint against the eval step, 5 kernel steps
-    against 5 plain steps and 3 steps run twice compared bit for bit;
+    against 5 plain steps and 3 steps run twice compared bit for bit, and
+    ``torch.profiler`` around warm steps;
 11. LR and IPNN: ``--score`` of checkpoints written from seeded parameters,
     against a float64 numpy forward (LR) and the plain path on the card
     (IPNN, tower input 296).
-Then one JSON line on the kernels, and last ``{"ok": true, "device": ...}``.
+Then one JSON line on the kernels (each with its least time on the card
+from the shapes: ``bound_ms`` against f32 on the CUDA cores, 67 TFLOP/s,
+and 3.35 TB/s, as ``bound_by`` and ``bound_kind`` say, and
+``bound_3xtf32_ms`` against three TF32 products a multiply on the tensor
+cores), and last ``{"ok": true, "device": ...}``.
 Any failure raises, and the script exits non-zero without that last line;
 so it does without a CUDA device, or outside a checkout of the repository.
 """
@@ -59,10 +69,12 @@ so it does without a CUDA device, or outside a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -71,8 +83,9 @@ import time
 import numpy as np
 
 SEED = 0
-# kernel and plain version are both f32 with f32 accumulation; they differ
-# only in summation order (and tanhf vs torch.tanh in the last ulp)
+# kernel and plain version both keep f32's accuracy (the kernels' products
+# are 3xTF32 on the tensor cores); they differ in summation order and in
+# tanh (the kernels' from one exp, within 2.5e-7 of torch.tanh)
 RTOL, ATOL = 1e-4, 1e-5
 # printed probabilities: 6 decimals (5e-7) plus the logit tolerance through
 # the sigmoid, whose slope is at most 1/4
@@ -102,6 +115,12 @@ DEEPFM_HIDDEN = (200, 200)  # relu, dropout 0.5: the reference's DeepFM tower
 # rows N(0, FM_SIGMA) (the error grows with the squared sums)
 FM_TOL = 1e-4
 FM_SIGMA = 0.5
+# the card's peaks for a kernel's least time (NVIDIA's H100 SXM data sheet):
+# f32 on the CUDA cores, TF32 on the tensor cores (3xTF32 takes three
+# products a multiply), and device memory
+F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+HBM_BYTES = 3.35e12
 
 
 def _fail(msg: str) -> None:
@@ -144,19 +163,50 @@ def _check_close(what, got, want, rtol=RTOL, atol=ATOL) -> float:
 
 
 def _time_ms(fn, iters=50, warmup=5) -> float:
+    """Device time of one call, in ms: CUDA events around `iters` calls.
+    A sleep kernel holds the stream while the host enqueues them, so the
+    events bracket the device's work and not the host's launch overhead
+    (the wrappers' argument checks and ctypes calls cost tens of us)."""
     import torch
 
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t0) / warmup
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # twice the host's time for the loop, at 2 GHz; at most 0.2 s
+    torch.cuda._sleep(int(min(2 * iters * host_s, 0.2) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _bound(flop: float, nbytes: float) -> dict:
+    """A kernel's least time on the card, in ms: the larger of its FLOP at
+    f32's 67 TFLOP/s and its bytes at 3.35 TB/s; and at 3xTF32's rate."""
+    compute_ms, memory_ms = flop / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    by = "operations" if compute_ms >= memory_ms else "bytes"
+    return {"bound_ms": max(compute_ms, memory_ms), "bound_by": by,
+            "bound_kind": "compute" if by == "operations" else "memory",
+            "bound_3xtf32_ms": max(flop / (TF32_FLOPS / 3) * 1e3, memory_ms)}
+
+
+def _tower_work(batch, dims) -> dict:
+    """FLOP and bytes of the tower kernels at [batch, dims[0]]: the forward
+    (every layer's product), and the backward (the hidden layers'
+    recompute, the transposed chain and the weight-gradient products),
+    each input read once and each output written once."""
+    macs = [a * b for a, b in zip(dims[:-1], dims[1:])]
+    params = sum(macs) + sum(dims[1:])
+    fwd_bytes = 4 * (batch * dims[0] + params + batch)
+    return {"fwd": (2 * batch * sum(macs), fwd_bytes),
+            "bwd": (2 * batch * (sum(macs[:-1]) + 2 * sum(macs)),
+                    4 * (2 * batch * dims[0] + batch + 2 * params))}
 
 
 def _numpy_fnn(table, layers, schema, ids):
@@ -518,7 +568,7 @@ def _phase7_fm_kernel(dev, rng) -> dict:
             print(f"time fm_score {tag}: kernel {t['kernel']:.4f} ms "
                   f"({nbytes / t['kernel'] / 1e6:.1f} GB/s of its {nbytes} bytes), "
                   f"plain {t['plain']:.4f} ms")
-            if batch == REQUESTS:   # at 8192 rows the loop times the host
+            if batch == REQUESTS:   # the kernels line's shape since it was ported
                 out["ms"], out["plain_ms"] = t["kernel"], t["plain"]
 
     rows, mask = inputs(BATCH, 18, K)
@@ -557,7 +607,7 @@ def _cli_train(dev, root, tmp, config, overrides, steps, tag):
     import torch
 
     from deepctr_torch import cli
-    from deepctr_torch.shared import RunConfig
+    from deepctr_torch.config import RunConfig
 
     examples = int(np.ceil(steps * BATCH / (1 - TEST_FRACTION))) + 1
     metrics = os.path.join(tmp, f"{tag}_metrics.jsonl")
@@ -598,7 +648,7 @@ def _check_cli_score(config_path, overrides, state, schema, te_ids, te_labels,
     """The run's checkpoint through ``--score`` against the eval step on the
     trained state."""
     from deepctr_torch import cli
-    from deepctr_torch.shared import synthetic
+    from deepctr_torch.data import synthetic
     from deepctr_torch.train import make_eval_step
 
     yx = os.path.join(tmp, f"{tag}_test_rows.yx")
@@ -779,8 +829,9 @@ def _phase10_deepfm(dev, root, tmp, schema, schema_path) -> dict:
     _, tr_ids, tr_labels, te_ids, te_labels = cli.load_data(cfg)
     _check_cli_score(os.path.join(root, FNN_CONFIG), overrides, state,
                      schema, te_ids, te_labels, tmp, "deepfm")
-    _check_steps(dev, cfg, schema, state, tr_ids, tr_labels, _deepfm_plain_logits,
-                 "deepfm")
+    kstep, _, batches, seeds = _check_steps(dev, cfg, schema, state, tr_ids, tr_labels,
+                                            _deepfm_plain_logits, "deepfm")
+    _profile_steps(kstep, state.clone(), batches[:5], seeds[:5], "deepfm")
     return {"launches": launches}
 
 
@@ -794,7 +845,7 @@ def _phase11_lr_ipnn(dev, tmp, schema) -> None:
     from deepctr_torch.models import MlpSpec, make_pnn
     from deepctr_torch.ops.kernels import mlp as mlp_k
     from deepctr_torch.serving import Scorer
-    from deepctr_torch.shared import synthetic
+    from deepctr_torch.data import synthetic
     from deepctr_torch.utils.checkpoint import save_scoring_params
 
     n = 2 * BATCH
@@ -860,6 +911,34 @@ def _phase11_lr_ipnn(dev, tmp, schema) -> None:
                  atol=PROB_ATOL)
 
 
+def _template_args(mangled) -> str:
+    """``<64, true>`` for a mangled ``ILi64ELb1EE``; '' for none."""
+    if not mangled:
+        return ""
+    args = [v if k == "i" else ("true" if v == "1" else "false")
+            for k, v in re.findall(r"L([ib])(\d+)E", mangled)]
+    return f"<{', '.join(args)}>"
+
+
+def _sass_hmma(lib_path) -> dict:
+    """``{kernel: (count of tensor-core instructions, HGMMA or HMMA, one such
+    instruction)}`` from ``cuobjdump -sass`` of the built library."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        entry = re.search(r"\d+((?:tower|fm)_\w+?_kernel)(I(?:L[ib]\d+E)+E)?",
+                          part.split()[0])
+        if not entry:
+            continue
+        ops = re.findall(r"(H(?:G)?MMA\.\S+)", part)
+        out[entry.group(1) + _template_args(entry.group(2))] = (
+            len(ops), ops[0] if ops else "")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -896,13 +975,35 @@ def main() -> int:
     name = "?"
     with open(lib_path + ".log") as f:
         for line in f:
-            entry = re.search(
-                r"entry function '.*?\d+((?:tower|fm)_\w+?_kernel)(ILb([01])E)?", line)
+            entry = re.search(r"entry function '.*?\d+((?:tower|fm)_\w+?_kernel)"
+                              r"(I(?:L[ib]\d+E)+E)?", line)
             if entry:
-                name = entry.group(1) + {None: "", "1": "<true>", "0": "<false>"}[
-                    entry.group(3)]
-            elif "registers" in line or "spill" in line:
+                name = entry.group(1) + _template_args(entry.group(2))
+            elif re.search(r"Used \d+ registers|spill|serialized", line):
                 print(f"  ptxas, {name}: {line.strip()}")
+    lib = _build.load_library()
+    rows, stages, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_size_t()
+    lib.mlp_tower_block_shape.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_size_t)]
+    lib.mlp_tower_wgrad_smem_bytes.restype = ctypes.c_size_t
+    for what, dims in (("FNN 176-200-300-100-1", (176,) + FNN_HIDDEN + (1,)),
+                       ("DeepFM 176-200-200-1", (176,) + DEEPFM_HIDDEN + (1,))):
+        for back, kernel in ((0, "tower_fwd_kernel"), (1, "tower_bwd_rows_kernel")):
+            lib.mlp_tower_block_shape(len(dims) - 1, (ctypes.c_int * len(dims))(*dims), back,
+                                      ctypes.byref(rows), ctypes.byref(stages),
+                                      ctypes.byref(smem))
+            print(f"  {kernel}, {what}: {rows.value} rows a block, {stages.value} "
+                  f"image slots a ring, {smem.value} B of dynamic shared memory")
+    print(f"  tower_wgrad_kernel: {lib.mlp_tower_wgrad_smem_bytes()} B of dynamic "
+          f"shared memory")
+    hmma = _sass_hmma(lib_path)
+    for kernel, (count, example) in sorted(hmma.items()):
+        print(f"  cuobjdump -sass, {kernel}: {count} tensor-core instructions"
+              + (f" (e.g. {example})" if example else ""))
+    for kernel in ("tower_fwd_kernel", "tower_bwd_rows_kernel", "tower_wgrad_kernel"):
+        if not any(k.startswith(kernel) and c for k, (c, _) in hmma.items()):
+            raise AssertionError(f"{kernel}: no tensor-core instructions in its SASS")
 
     # 3. kernel vs plain on the card; timed at three batch sizes
     rng = np.random.default_rng(SEED)
@@ -949,7 +1050,7 @@ def main() -> int:
     from deepctr_torch import cli
     from deepctr_torch.models import MlpSpec, apply_model, make_fnn
     from deepctr_torch.serving import Scorer
-    from deepctr_torch.shared import ipinyou_full_schema, synthetic
+    from deepctr_torch.data import ipinyou_full_schema, synthetic
     from deepctr_torch.utils.checkpoint import save_scoring_params
 
     schema = ipinyou_full_schema()
@@ -1058,6 +1159,9 @@ def main() -> int:
         _phase10_deepfm(dev, root, tmp, schema, schema_path)
         _phase11_lr_ipnn(dev, tmp, schema)
 
+    work = _tower_work(BATCH, fnn_dims)
+    fm_rows = REQUESTS * 18 * (1 + K)   # the timed fm_score shape [65536, 18, 11]
+    fm_bound = _bound(4 * fm_rows, 4 * (fm_rows + REQUESTS * 18 + REQUESTS))
     report = {"kernels": [{
         "name": "mlp_tower_fwd",
         "route": "cuda",
@@ -1067,6 +1171,8 @@ def main() -> int:
         "max_abs_err": main_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        **_bound(*work["fwd"]),
+        "library_ms": None,
     }, {
         "name": "mlp_tower_fwd (dropout branch)",
         "route": "cuda",
@@ -1076,6 +1182,8 @@ def main() -> int:
         "max_abs_err": train_k["fwd_drop_err"],
         "ms": train_k["fwd_drop_ms"],
         "plain_ms": train_k["fwd_drop_plain_ms"],
+        **_bound(*work["fwd"]),
+        "library_ms": None,
     }, {
         "name": "mlp_tower_bwd",
         "route": "cuda",
@@ -1085,6 +1193,8 @@ def main() -> int:
         "max_abs_err": train_k["bwd_err"],
         "ms": train_k["bwd_ms"],
         "plain_ms": train_k["bwd_plain_ms"],
+        **_bound(*work["bwd"]),
+        "library_ms": None,
     }, {
         "name": "fm_score",
         "route": "cuda",
@@ -1094,6 +1204,8 @@ def main() -> int:
         "max_abs_err": fm_kernel["err"],
         "ms": fm_kernel["ms"],
         "plain_ms": fm_kernel["plain_ms"],
+        **fm_bound,
+        "library_ms": None,
     }]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

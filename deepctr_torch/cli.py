@@ -2,7 +2,7 @@
 
 Port of ``deepctr_tpu/cli.py`` for LR, FM, FNN, DeepFM and PNN (IPNN/OPNN):
 it reads the same ``configs/*.json`` and dotted overrides
-(``deepctr_tpu.config.RunConfig``), trains (``run``: data, model,
+(``deepctr_torch.config.RunConfig``, the port's copy of the reference's), trains (``run``: data, model,
 optimizers, the FM -> FNN hand-off, ``fit``, checkpoints, an FM run's
 ``.fm_table`` and JSONL metrics), or with ``--score`` scores a yx file with
 a checkpoint written by either package, printing one probability per line.
@@ -25,7 +25,7 @@ import sys
 
 import torch
 
-from .shared import RunConfig
+from .config import RunConfig
 
 # config key -> the ROADMAP.md item that will honour it
 UNPORTED_KEYS = {
@@ -96,17 +96,9 @@ def check_ported(cfg) -> None:
 def load_data(cfg):
     """Returns (schema, train_ids, train_labels, test_ids, test_labels), as
     the reference's ``load_data`` without its streaming branch."""
-    from .shared import (
-        Schema,
-        cache_text_file,
-        criteo_schema,
-        featindex,
-        ipinyou_like_schema,
-        parse_criteo_file,
-        parser,
-        read_cache,
-        synthetic,
-    )
+    from .data import Schema, featindex, ipinyou_like_schema, parser, synthetic
+    from .data.cache import cache_text_file, read_cache
+    from .data.criteo import criteo_schema, parse_criteo_file
 
     d = cfg.data
     if d.format not in ("yx", "criteo"):
@@ -264,7 +256,7 @@ def score(cfg, yx_path: str, device: torch.device) -> int:
     are remapped through the featindex exactly as at training time.
     """
     from .serving import Scorer
-    from .shared import Schema, featindex
+    from .data import Schema, featindex
     from .utils.checkpoint import read_manifest
 
     if not cfg.train.checkpoint_path:
@@ -305,7 +297,8 @@ def score(cfg, yx_path: str, device: torch.device) -> int:
 
 def _load_schema_only(cfg):
     """Config-derived schema — fallback for checkpoints without schema_json."""
-    from .shared import Schema, criteo_schema, ipinyou_like_schema
+    from .data import Schema, ipinyou_like_schema
+    from .data.criteo import criteo_schema
 
     if cfg.data.schema_path:
         with open(cfg.data.schema_path) as f:

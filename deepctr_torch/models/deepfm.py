@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from ..ops.kernels.interaction import fm_score
-from ..shared import Schema
+from ..data import Schema
 from .base import MlpSpec, MlpTower, init_mlp, init_table, pool_fields, slot_onehot
 
 _DEFAULT_MLP = MlpSpec(hidden=(200, 200), activation="relu", dropout=0.5)

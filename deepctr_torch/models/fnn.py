@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..shared import Schema
+from ..data import Schema
 from .base import MlpSpec, MlpTower, init_mlp, init_table, pool_fields, slot_onehot
 
 _DEFAULT_MLP = MlpSpec(hidden=(200, 300, 100), activation="tanh", dropout=0.5)

@@ -128,15 +128,19 @@ def mlp_tower_bwd_plain(x: torch.Tensor, layers: Layers, g: torch.Tensor,
 
 @functools.cache
 def _fwd_kernel():
-    fn = load_library().mlp_tower_fwd
+    lib = load_library()
+    fn = lib.mlp_tower_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
     ]
-    return fn
+    ws = lib.mlp_tower_fwd_workspace
+    ws.restype = ctypes.c_size_t
+    ws.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    return fn, ws
 
 
 @functools.cache
@@ -212,12 +216,16 @@ def mlp_tower_fwd(x: torch.Tensor, layers: Layers, activation: str = "tanh",
         return out
     n, dims, weights, biases = _tower_args(x, layers)
     threshold, scale = dropout_params(dropout)
+    kernel, workspace_bytes = _fwd_kernel()
+    workspace = torch.empty(workspace_bytes(n, dims), dtype=torch.uint8,
+                            device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = _fwd_kernel()(
+        code = kernel(
             x.data_ptr(), batch, n, dims, weights, biases,
             ACTIVATIONS[activation], int(dropout > 0.0), int(seed), threshold,
-            scale, 0, out.data_ptr(), stream,
+            scale, 0, out.data_ptr(), workspace.data_ptr(), workspace.numel(),
+            stream,
         )
     check(code, f"mlp_tower_fwd (widths {list(dims)}, dropout {dropout})")
     LAUNCHES += 1

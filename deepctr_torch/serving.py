@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .models.base import apply_model
-from .shared import Schema, minibatches, stream_yx_batches
+from .data import Schema, minibatches, stream_yx_batches
 from .utils.checkpoint import (
     dense_structure,
     load_scoring_params,

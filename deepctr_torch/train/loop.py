@@ -1,7 +1,7 @@
 """Training loop: epochs, per-epoch eval, early stopping.
 
 Port of ``deepctr_tpu/train/loop.py`` (``evaluate`` and ``fit`` on its
-per-step route). Epochs shuffle through the shared ``minibatches`` with
+per-step route). Epochs shuffle through ``data.minibatches`` with
 ``seed + epoch`` and drop the last partial batch; the learning rate decays
 by ``lr_decay ** epoch``; training stops early when the held-out AUC has not
 improved for more than ``early_stop_patience`` epochs. ``start_epoch``
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..shared import Schema, minibatches
+from ..data import Schema, minibatches
 from ..utils import metrics as M
 from ..utils.logging import MetricsLogger
 from .step import TrainState, init_state, make_eval_step, make_train_step

@@ -40,7 +40,7 @@ from torch import nn
 
 from ..models.base import lazy_l2, weighted_bce_with_logits
 from ..ops.kernels.mlp import SEED_LIMIT
-from ..shared import Schema
+from ..data import Schema
 
 
 @dataclasses.dataclass

@@ -1,7 +1,8 @@
-"""deepctr_torch never imports jax, optax or ml_dtypes: the machine with
-the GPU has none. Of the JAX package it loads only the jax-free data layer
-and run config, through ``deepctr_torch/shared.py``."""
+"""deepctr_torch and chip_smoke.py never import jax, optax or ml_dtypes
+(the machine with the GPU has none), nor any module of the JAX package
+``deepctr_tpu``: the port keeps its own copies of what it needs."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -19,7 +20,7 @@ from deepctr_torch.models import (DeepFMModel, FMModel, LRModel, MlpSpec, PNNMod
 from deepctr_torch.optim import SparseAdagrad, make_dense_optimizer
 from deepctr_torch.serving import Scorer
 from deepctr_torch.train import init_state, make_train_step
-from deepctr_tpu.data import make_schema, synthetic
+from deepctr_torch.data import make_schema, synthetic
 schema = make_schema([("a", 4), ("tags", 10, 3)])
 model = make_fnn(schema, k=2, mlp=MlpSpec(hidden=(8,)), device="cpu")
 ds = synthetic.generate(schema, num_examples=20, k=2, seed=0)
@@ -42,9 +43,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "ml_dtypes"))
 assert not bad, bad
 ref = sorted(m for m in sys.modules if m.split(".")[0] == "deepctr_tpu")
-bad = [m for m in ref if m != "deepctr_tpu" and m != "deepctr_tpu.config"
-       and not m.startswith("deepctr_tpu.data")]
-assert not bad, bad
+assert not ref, ref
 print("ok")
 """
 
@@ -52,6 +51,43 @@ print("ok")
 def test_port_imports_and_scores_without_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip() == "ok"
+
+
+def _chip_smoke_imports() -> str:
+    """Every import statement of chip_smoke.py, at any depth, as source."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    nodes = [n for n in ast.walk(tree) if isinstance(n, (ast.Import, ast.ImportFrom))
+             and not (isinstance(n, ast.ImportFrom) and n.module == "__future__")]
+    return "\n".join(ast.unparse(n) for n in nodes)
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """chip_smoke.py's imports, the ones inside its phases too, run on a
+    machine without a card: none loads jax or the JAX package, and its
+    main() refuses to run without CUDA."""
+    imports = _chip_smoke_imports()
+    assert "deepctr_torch.data" in imports and "deepctr_torch.config" in imports
+    script = f"""
+import sys
+{imports}
+import chip_smoke
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "optax", "ml_dtypes", "deepctr_tpu"))
+assert not bad, bad
+try:
+    chip_smoke.main()
+except SystemExit as e:
+    assert e.code not in (0, None), e.code
+else:
+    raise AssertionError("chip_smoke.main() returned without a card")
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.strip() == "ok"
