@@ -12,11 +12,12 @@ Phases, each printing its own lines:
    kernels' rows a block, ring slots and dynamic shared memory at FNN and
    DeepFM widths, and the tensor-core instructions (``HGMMA`` or ``HMMA``)
    ``cuobjdump -sass`` finds in each kernel: every tower kernel (forward,
-   backward rows, weight gradient) must have them;
+   backward rows, weight gradient) must have them, the FM scorer none;
 3. kernel vs plain: ``mlp_tower_fwd`` against ``mlp_tower_plain`` on the
    card at the serving shape [8192, 176] with FNN widths 200-300-100 tanh,
-   at [65536, 176], at a ragged batch, and at small relu and sigmoid
-   towers; the FNN shapes timed on both with CUDA events;
+   at [65536, 176], at a ragged batch, at SNN's [8192, 200] with its tower
+   300-100, and at small relu and sigmoid towers; the FNN shapes timed on
+   both with CUDA events;
 4. serving end to end: full-width iPinYou FNN parameters from a seed are
    written with the port's checkpoint writer, 65,536 synthetic requests are
    scored through ``deepctr_torch.cli --score``, and the output is held
@@ -27,17 +28,22 @@ Phases, each printing its own lines:
 6. training kernels vs plain: the forward with dropout and the backward
    kernel against the plain tower and autograd through it, for FNN's tanh
    200-300-100 and DeepFM's relu 200-200, at [8192, 176] and [1000, 176],
+   and SNN's tanh 300-100 at [8192, 200],
    dropout 0.5 and 0 (relu: rows at its derivative's step get no upstream
    gradient, see RELU_EDGE); a second backward launch compared bit for
    bit; the FNN tower's forward, backward and both timed against the plain
    ones;
 7. FM scorer kernel vs plain: ``fm_score_fwd`` against ``fm_score_plain``
    at [8192, 18, 11], [65536, 18, 11], a ragged [1000, 18, 11], a small odd
-   [77, 5, 4] and the Criteo configs' k=16 ([8192, 39, 17]), with pad slots
-   and an all-pad example; a second launch compared bit for bit; the first
-   two shapes timed on both (the kernels line takes [65536, 18, 11]'s);
-   the autograd Function's gradient against autograd through the plain
-   version;
+   [77, 5, 4], the Criteo configs' k=16 ([8192, 39, 17]), a batch that is
+   no multiple of the kernel's tile ([8197, 18, 11]) and one of exactly one
+   tile ([16, 18, 11]), with pad slots and an all-pad example; the launch's
+   shape (examples a tile, blocks, shared memory); a second launch compared
+   bit for bit; the first two shapes timed on both, with GB/s, beside an
+   empty kernel of the same launch (the launch floor) and, at 8192 rows,
+   over eight inputs in turn (57 MB, past the 50 MB L2; one input stays in
+   L2 over the timed calls); the kernels line takes [65536, 18, 11]'s; the
+   autograd Function's gradient against autograd through the plain version;
 8. FM training end to end: ``deepctr_torch.cli``'s run on
    ``configs/fm_k10.json`` at full iPinYou width, batch 8192, bf16 table,
    one epoch of 40 steps; the FM scorer's launch count, the eval AUC, the
@@ -56,7 +62,19 @@ Phases, each printing its own lines:
     ``torch.profiler`` around warm steps;
 11. LR and IPNN: ``--score`` of checkpoints written from seeded parameters,
     against a float64 numpy forward (LR) and the plain path on the card
-    (IPNN, tower input 296).
+    (IPNN, tower input 296);
+12. SNN with its pretraining: ``deepctr_torch.cli``'s run on
+    ``configs/snn_rbm.json`` at full iPinYou width (table 927,659 x 200,
+    f32), batch 8192, cut to 20 RBM pretraining steps and 20 fine-tune steps
+    (the config's one pretraining epoch and 10 epochs over 200,000
+    examples): the pretrain record, the hand-off event, the tower kernels'
+    launch counts, eval AUC above 0.5, ``--score`` of its checkpoint against
+    the eval step, 5 kernel steps against 5 plain steps, 3 steps run twice
+    compared bit for bit, step times and ``torch.profiler`` around the
+    fine-tune step and around RBM and DAE pretraining steps; the same run
+    with ``train.pretrain=dae`` cut to 5 and 5 steps; the occurrence
+    scatter's fixed-point sums at a DAE step's 557,056 rows of 200 floats
+    against float64; peak device memory.
 Then one JSON line on the kernels (each with its least time on the card
 from the shapes: ``bound_ms`` against f32 on the CUDA cores, 67 TFLOP/s,
 and 3.35 TB/s, as ``bound_by`` and ``bound_kind`` say, and
@@ -105,6 +123,11 @@ REQUESTS = 8 * BATCH
 DROPOUT = 0.5
 TRAIN_STEPS = 40            # steps of the CLI's one-epoch training runs
 DEEPFM_STEPS = 10
+SNN_CONFIG = "configs/snn_rbm.json"
+SNN_HIDDEN1 = 200           # the config's bottom layer; its tower is 300-100
+SNN_HIDDEN = (300, 100)
+SNN_STEPS = 20              # RBM pretraining steps, and fine-tune steps
+SNN_DAE_STEPS = 5
 TEST_FRACTION = 0.15        # the configs' held-out share
 FM_CONFIG = "configs/fm_k10.json"
 FNN_CONFIG = "configs/fnn_full_ipinyou.json"
@@ -312,15 +335,17 @@ def _phase6_training_kernels(dev, rng) -> dict:
     in_dim = 16 * (1 + K)
     seed = 12345
     out = {"fwd_drop_err": 0.0, "bwd_err": 0.0}
-    for act, hidden, batch in (("tanh", FNN_HIDDEN, BATCH), ("tanh", FNN_HIDDEN, 1000),
-                               ("relu", DEEPFM_HIDDEN, BATCH),
-                               ("relu", DEEPFM_HIDDEN, 1000)):
-        dims = (in_dim,) + hidden + (1,)
-        x = torch.from_numpy(rng.normal(size=(batch, in_dim)).astype(np.float32)).to(dev)
+    for act, hidden, batch, width in (("tanh", FNN_HIDDEN, BATCH, in_dim),
+                                      ("tanh", FNN_HIDDEN, 1000, in_dim),
+                                      ("relu", DEEPFM_HIDDEN, BATCH, in_dim),
+                                      ("relu", DEEPFM_HIDDEN, 1000, in_dim),
+                                      ("tanh", SNN_HIDDEN, BATCH, SNN_HIDDEN1)):
+        dims = (width,) + hidden + (1,)
+        x = torch.from_numpy(rng.normal(size=(batch, width)).astype(np.float32)).to(dev)
         g = torch.from_numpy(rng.normal(size=batch).astype(np.float32)).to(dev)
         layers = _tower(rng, dims, dev)
         for drop in (DROPOUT, 0.0):
-            tag = f"[{batch}, {in_dim}] {'-'.join(map(str, dims[1:]))} {act} dropout {drop}"
+            tag = f"[{batch}, {width}] {'-'.join(map(str, dims[1:]))} {act} dropout {drop}"
             got = mlp_k.mlp_tower_fwd(x, layers, act, drop, seed)
             want = mlp_k.mlp_tower_plain(x, layers, act, drop, seed)
             err = _check_close(f"fwd kernel vs plain {tag}", got.cpu(), want.cpu())
@@ -446,54 +471,95 @@ def _deepfm_plain_logits(model, rows, mask, seed):
     return fm_score_plain(rows, mask) + deep + model.bias
 
 
+def _snn_plain_logits(model, rows, mask, seed):
+    from deepctr_torch.ops.kernels.mlp import mlp_tower_plain
+
+    spec = model.mlp.spec
+    return mlp_tower_plain(model.bottom(rows, mask), model.mlp.params(),
+                           spec.activation, spec.dropout, seed)
+
+
 def _bf16_ulps(a, b):
     import torch
 
     return (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
 
 
+def _check_close_on_device(what, got, want, rtol, atol) -> None:
+    """:func:`_check_close` for tensors too large to compare on the host."""
+    err = (got.double() - want.double()).abs()
+    bad = int((err > atol + rtol * want.double().abs()).sum())
+    print(f"{what}: max |d| {float(err.max()):.3e} (rtol {rtol:g}, atol {atol:g}), "
+          f"{bad} of {err.numel()} outside")
+    if bad or not bool(got.isfinite().all()):
+        raise AssertionError(f"{what}: kernel and reference disagree")
+
+
 def _compare_states(what, a, b) -> None:
-    """Table (bf16), Adagrad accumulator and dense parameters of two states."""
-    ulps = _bf16_ulps(a.table, b.table)
-    far = int((ulps > 1).sum())
-    print(f"{what}: table {int((ulps > 0).sum())} of {ulps.numel()} elements "
-          f"differ, max {int(ulps.max())} bf16 ulps, {far} beyond 1 ulp "
-          f"(allowed: {ulps.numel() // 10000})")
-    if far > ulps.numel() // 10000:
+    """Table, Adagrad accumulator and dense parameters of two states. A few
+    table elements may lie further apart than rounding: Adagrad's first
+    update of a coordinate is lr * g / (|g| + eps), which carries the last
+    bits of a gradient near eps (or its sign near 0) into the row."""
+    import torch
+
+    allowed = a.table.numel() // 10000
+    if a.table.dtype == torch.bfloat16:
+        ulps = _bf16_ulps(a.table, b.table)
+        far = int((ulps > 1).sum())
+        print(f"{what}: table {int((ulps > 0).sum())} of {ulps.numel()} elements "
+              f"differ, max {int(ulps.max())} bf16 ulps, {far} beyond 1 ulp "
+              f"(allowed: {allowed})")
+    else:
+        err = (a.table - b.table).abs()
+        far = int((err > 1e-5 + 1e-3 * b.table.abs()).sum())
+        print(f"{what}: f32 table {int((err > 0).sum())} of {err.numel()} elements "
+              f"differ, max |d| {float(err.max()):.3e}, {far} beyond atol 1e-5 + rtol "
+              f"1e-3 (allowed: {allowed})")
+    if far > allowed:
         raise AssertionError(f"{what}: tables disagree")
     acc_a, acc_b = a.sparse_state.acc, b.sparse_state.acc
-    _check_close(f"{what}: Adagrad accumulator (atol 1e-6 x max)", acc_a.cpu(),
-                 acc_b.cpu(), rtol=1e-3, atol=1e-6 * float(acc_b.max()))
+    _check_close_on_device(f"{what}: Adagrad accumulator (atol 1e-6 x max)", acc_a,
+                           acc_b, rtol=1e-3, atol=1e-6 * float(acc_b.max()))
     for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
         if name != "table":
             _check_close(f"{what}: {name}", p.detach().cpu(), q.detach().cpu(),
                          rtol=1e-4, atol=1e-5)
 
 
-def _profile_steps(step, state, batches, seeds, tag) -> None:
+def _profile_loop(run, n, tag) -> None:
     """Device time per op and the device's busy share of the wall time,
-    under ``torch.profiler``, for warm train steps."""
+    under ``torch.profiler``, for ``run(0) .. run(n - 1)`` after the same
+    calls as a warm-up."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    n = len(batches)
-    for b, s in zip(batches, seeds):  # warm
-        state, _ = step(state, *b, seed=s)
+    for i in range(n):  # warm
+        run(i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b, s in zip(batches, seeds):
-            state, _ = step(state, *b, seed=s)
+        for i in range(n):
+            run(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     device = _device_ops(prof)
     busy_us = sum(us for us, _, _ in device)
-    print(f"profile, {tag} train step: device busy {busy_us:.1f} us of {wall_us:.1f} "
+    print(f"profile, {tag}: device busy {busy_us:.1f} us of {wall_us:.1f} "
           f"us wall ({100 * busy_us / wall_us:.1f}%) for {n} steps")
     # the top ops, and the port's own kernels wherever they rank
     for i, (us, count, key) in enumerate(device):
         if i < 14 or re.search(r"::(fm_score|tower_\w+)_kernel", key):
-            print(f"  {us / n:9.2f} us/step  {count / n:5.1f}/step  {key[:90]}")
+            name = key.replace("void ", "").replace("at::native::", "")
+            print(f"  {us / n:9.2f} us/step  {count / n:5.1f}/step  {name[:120]}")
+
+
+def _profile_steps(step, state, batches, seeds, tag) -> None:
+    """:func:`_profile_loop` around warm train steps (the state is updated
+    in place)."""
+    def run(i):
+        step(state, *batches[i], seed=seeds[i])
+
+    _profile_loop(run, len(batches), f"{tag} train step")
 
 
 def _time_scatter_forms(dev, schema, ids) -> None:
@@ -528,18 +594,47 @@ def _time_scatter_forms(dev, schema, ids) -> None:
               f"vs index_put_ {err:.2e}")
 
 
+def _fm_launch_shape(lib, batch, slots, d) -> str:
+    """The launch ``fm_score_fwd`` makes at a shape, as the library reports
+    it."""
+    rows, ring, stages, blocks = (ctypes.c_int() for _ in range(4))
+    smem = ctypes.c_size_t()
+    code = lib.fm_score_launch_shape(batch, slots, d, ctypes.byref(rows),
+                                     ctypes.byref(ring), ctypes.byref(stages),
+                                     ctypes.byref(blocks), ctypes.byref(smem))
+    if code != 0:
+        raise AssertionError(f"fm_score_launch_shape returned {code}")
+    how = (f"whole tiles by bulk copies into a ring of {stages.value} stages"
+           if ring.value else "every tile by thread loads")
+    return (f"{rows.value} examples a tile, {blocks.value} blocks, {smem.value} B of "
+            f"dynamic shared memory, {how}")
+
+
 def _phase7_fm_kernel(dev, rng) -> dict:
     """``fm_score_fwd`` against ``fm_score_plain`` on the card at the FM
-    path's shapes, a ragged batch, a small odd case and the Criteo configs'
+    path's shapes, ragged batches, a small odd case and the Criteo configs'
     width; a second launch compared bit for bit; the first two shapes timed
-    in turns; the autograd Function's gradient against autograd through the
-    plain version."""
+    in turns beside an empty kernel of the same launch; the autograd
+    Function's gradient against autograd through the plain version."""
     import torch
 
+    from deepctr_torch.ops.kernels import _build
     from deepctr_torch.ops.kernels import interaction as fm_k
 
+    lib = _build.load_library()
+    lib.fm_score_empty.restype = ctypes.c_int
+    lib.fm_score_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p]
+    lib.fm_score_launch_shape.restype = ctypes.c_int
+    lib.fm_score_launch_shape.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_size_t)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
     cases = [(BATCH, 18, K, True), (REQUESTS, 18, K, True), (1000, 18, K, False),
-             (77, 5, 3, False), (BATCH, 39, 16, False)]
+             (77, 5, 3, False), (BATCH, 39, 16, False), (BATCH + 5, 18, K, False),
+             (16, 18, K, False)]
     out = {"err": 0.0}
 
     def inputs(batch, slots, k):
@@ -548,9 +643,14 @@ def _phase7_fm_kernel(dev, rng) -> dict:
         mask[0] = 0.0   # an all-pad example
         return (torch.from_numpy(rows).to(dev), torch.from_numpy(mask).to(dev))
 
+    def empty(batch, slots, d):
+        if lib.fm_score_empty(batch, slots, d, stream) != 0:
+            raise AssertionError("fm_score_empty did not launch")
+
     for batch, slots, k, timed in cases:
         rows, mask = inputs(batch, slots, k)
         tag = f"[{batch}, {slots}, {1 + k}]"
+        print(f"fm_score launch {tag}: {_fm_launch_shape(lib, batch, slots, 1 + k)}")
         got = fm_k.fm_score_fwd(rows, mask)
         torch.cuda.synchronize()
         want = fm_k.fm_score_plain(rows, mask)
@@ -563,13 +663,32 @@ def _phase7_fm_kernel(dev, rng) -> dict:
             raise AssertionError("two fm_score launches gave different bits")
         if timed:
             t = _in_turns({"plain": lambda: fm_k.fm_score_plain(rows, mask),
-                           "kernel": lambda: fm_k.fm_score_fwd(rows, mask)})
+                           "kernel": lambda: fm_k.fm_score_fwd(rows, mask),
+                           "empty": lambda: empty(batch, slots, 1 + k)})
             nbytes = 4 * (rows.numel() + mask.numel() + batch)
             print(f"time fm_score {tag}: kernel {t['kernel']:.4f} ms "
-                  f"({nbytes / t['kernel'] / 1e6:.1f} GB/s of its {nbytes} bytes), "
-                  f"plain {t['plain']:.4f} ms")
+                  f"({nbytes / t['kernel'] / 1e6:.1f} GB/s of its {nbytes} bytes, "
+                  f"{nbytes / HBM_BYTES * 1e3:.4f} ms at the card's memory rate), "
+                  f"an empty kernel of the same launch {t['empty']:.4f} ms (the "
+                  f"launch floor), plain {t['plain']:.4f} ms")
             if batch == REQUESTS:   # the kernels line's shape since it was ported
                 out["ms"], out["plain_ms"] = t["kernel"], t["plain"]
+                out["floor_ms"] = t["empty"]
+            else:
+                out["ms_train"], out["floor_ms_train"] = t["kernel"], t["empty"]
+                # one 7.1 MB input stays in the 50 MB L2 over the timed
+                # calls; eight in turn (57 MB) come from device memory
+                sets = [(rows, mask)] + [inputs(batch, slots, k) for _ in range(7)]
+                turn = [0]
+
+                def cold():
+                    turn[0] += 1
+                    fm_k.fm_score_fwd(*sets[turn[0] % len(sets)])
+
+                ms = float(np.mean([_time_ms(cold, iters=56) for _ in range(2)]))
+                out["ms_train_cold"] = ms
+                print(f"time fm_score {tag}, eight inputs in turn ({8 * nbytes} bytes, "
+                      f"past the L2): kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s)")
 
     rows, mask = inputs(BATCH, 18, K)
     g = torch.from_numpy(rng.normal(size=BATCH).astype(np.float32)).to(dev)
@@ -599,7 +718,7 @@ def _counts() -> dict:
             "fm_score": fm_k.LAUNCHES}
 
 
-def _cli_train(dev, root, tmp, config, overrides, steps, tag):
+def _cli_train(dev, root, tmp, config, overrides, steps, tag, table_dtype="bf16"):
     """One training run through ``deepctr_torch.cli``'s ``run`` with the
     kernel counts set to 0 just before it and read just after; checks the
     step count, a finite loss and an eval record. Returns (cfg, overrides,
@@ -612,7 +731,7 @@ def _cli_train(dev, root, tmp, config, overrides, steps, tag):
     examples = int(np.ceil(steps * BATCH / (1 - TEST_FRACTION))) + 1
     metrics = os.path.join(tmp, f"{tag}_metrics.jsonl")
     overrides = overrides + [
-        f"train.batch_size={BATCH}", "train.table_dtype=bf16",
+        f"train.batch_size={BATCH}", f"train.table_dtype={table_dtype}",
         f"data.synthetic_examples={examples}", "train.epochs=1",
         f"train.metrics_path={metrics}"]
     cfg = RunConfig.load(os.path.join(root, config)).apply_overrides(overrides)
@@ -911,6 +1030,156 @@ def _phase11_lr_ipnn(dev, tmp, schema) -> None:
                  atol=PROB_ATOL)
 
 
+def _pretrain_steps_on_card(dev, schema, cfg, tr_ids, kind, steps) -> None:
+    """``steps`` pretraining steps of ``kind`` at the run's batch size from a
+    fresh table: wall time per step (host clock, ending in a synchronize)
+    and ``torch.profiler`` around warm steps."""
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch.models import DaePretrainer, RbmPretrainer, init_pretrain_dense
+    from deepctr_torch.models.base import init_table
+    from deepctr_torch.train import make_pretrain_step
+
+    pre = (DaePretrainer(m=cfg.train.pretrain_m, corruption=cfg.train.pretrain_corruption)
+           if kind == "dae" else RbmPretrainer(m=cfg.train.pretrain_m))
+    sparse_opt, _ = cli.build_optimizers(cfg)
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    table = torch.zeros(schema.padded_vocab_size, cfg.model.hidden1, device=dev)
+    init_table(table, generator, 0.01, schema.pad_id)
+    dense = init_pretrain_dense(schema, cfg.model.hidden1, dev)
+    sparse_state = sparse_opt.init(table)
+    pstep = make_pretrain_step(pre, schema, sparse_opt, cfg.train.pretrain_lr)
+    batches = [torch.from_numpy(tr_ids[i * BATCH:(i + 1) * BATCH]).to(dev).long()
+               for i in range(steps)]
+    losses = []
+
+    def run(i):
+        losses.append(pstep(table, sparse_state, dense, generator, batches[i])[-1])
+
+    run(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        run(i)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    occ = BATCH * (schema.num_slots * (2 if kind == "dae" else 1)
+                   + schema.num_fields * cfg.train.pretrain_m)
+    print(f"snn {kind} pretrain step on the card ({BATCH} rows, {occ} occurrence rows "
+          f"of {cfg.model.hidden1} floats, host clock over {steps} steps): "
+          f"{wall_ms:.3f} ms; loss {float(losses[0]):.5f} -> {float(losses[-1]):.5f}")
+    if not all(np.isfinite(float(x)) for x in losses):
+        raise AssertionError(f"snn {kind} pretraining: loss not finite")
+    _profile_loop(run, steps, f"snn {kind} pretrain step")
+
+
+def _check_scatter_range(dev, schema, cfg, state, tr_ids) -> None:
+    """The occurrence scatter's fixed-point prefix sums at a DAE step's size
+    (every encoder and candidate occurrence of the batch, rows of hidden1
+    floats) against float64 sums of the same rows."""
+    import torch
+
+    from deepctr_torch.models import DaePretrainer, field_sampling, init_pretrain_dense
+    from deepctr_torch.ops.scatter import dedupe_grads
+
+    pre = DaePretrainer(m=cfg.train.pretrain_m, corruption=cfg.train.pretrain_corruption)
+    ids = torch.from_numpy(tr_ids[:BATCH]).to(dev).long()
+    _, occ_ids, occ_rows, _ = pre.loss_and_grads(
+        state.table, init_pretrain_dense(schema, cfg.model.hidden1, dev), ids,
+        schema.pad_id, field_sampling(schema, dev),
+        torch.Generator(device=dev).manual_seed(SEED))
+    d = dedupe_grads(occ_ids, occ_rows)
+    shape = (schema.padded_vocab_size, occ_rows.shape[1])
+    got = torch.zeros(shape, dtype=torch.float64, device=dev)
+    got[d.ids[d.is_last]] = d.rows[d.is_last].double()
+    want = torch.zeros(shape, dtype=torch.float64, device=dev).index_add_(
+        0, occ_ids, occ_rows.double())
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    _, exponent = torch.frexp(occ_rows.abs().max().double() * occ_rows.numel())
+    print(f"snn: scatter of {occ_ids.shape[0]} occurrence rows of {occ_rows.shape[1]} "
+          f"floats ({int(d.is_last.sum())} distinct ids): fixed-point step "
+          f"2^{int(exponent) - 61} against max |g| {float(occ_rows.abs().max()):.3e}; "
+          f"totals vs float64 sums max |d| {err:.3e}, max |total| {scale:.3e}")
+    # an f32 total carries half an ulp, 6e-8 of its magnitude
+    if not err <= 1e-6 * scale:
+        raise AssertionError("snn: the occurrence scatter lost precision at this size")
+
+
+def _phase12_snn(dev, root, tmp, schema, schema_path) -> None:
+    """SNN (``configs/snn_rbm.json``) at full iPinYou width through the CLI:
+    RBM pretraining, the hand-off, fine-tuning through both tower kernels,
+    eval, a checkpoint scored by ``--score``; then the same with DAE
+    pretraining, shorter."""
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch.optim.sparse import _pick_dense
+
+    torch.cuda.reset_peak_memory_stats()
+    ckpt = os.path.join(tmp, "snn_train.ckpt")
+    overrides = [f"data.schema_path={schema_path}", f"train.checkpoint_path={ckpt}"]
+    print(f"snn: {SNN_CONFIG} cut to {SNN_STEPS} pretraining steps and {SNN_STEPS} "
+          f"fine-tune steps of {BATCH} (the config: 1 pretraining epoch and 10 epochs "
+          f"over 200,000 examples at batch 4096)")
+    cfg, overrides, result, launches, events = _cli_train(
+        dev, root, tmp, SNN_CONFIG, overrides, SNN_STEPS, "snn", table_dtype="f32")
+    state = result["state"]
+    rec = result["history"][0]
+    pre = [e for e in events if "pretrain_loss" in e]
+    if (len(pre) != cfg.train.pretrain_epochs
+            or not all(np.isfinite(e["pretrain_loss"]) for e in pre)):
+        raise AssertionError(f"snn: pretraining records {pre}")
+    if not any(e.get("event") == "init_from_pretrain" and e.get("kind") == "rbm"
+               for e in events):
+        raise AssertionError("snn: the run did not start from the pretrained table")
+    print(f"snn: rbm pretraining reconstruction error {pre[0]['pretrain_loss']:.5f} "
+          f"(mean of the epoch), init_from_pretrain in the metrics file; table "
+          f"{tuple(state.table.shape)} {state.table.dtype}, sparse optimizer mode: "
+          f"{'dense' if _pick_dense(cfg.optim.sparse_mode, state.table) else 'sorted'}")
+    if launches["fwd_dropout"] < state.step or launches["bwd"] < state.step:
+        raise AssertionError(f"snn: training kernels launched {launches} in "
+                             f"{state.step} steps")
+    if launches["fwd_eval"] < 1:
+        raise AssertionError("snn: eval launched no dropout-free forward kernel")
+    if rec["auc"] <= 0.5:
+        raise AssertionError(f"snn: training did not learn: {rec}")
+    _, tr_ids, tr_labels, te_ids, te_labels = cli.load_data(cfg)
+    _check_cli_score(os.path.join(root, SNN_CONFIG), overrides, state, schema,
+                     te_ids, te_labels, tmp, "snn")
+    os.remove(ckpt)
+    kstep, pstep, batches, seeds = _check_steps(
+        dev, cfg, schema, state, tr_ids, tr_labels, _snn_plain_logits, "snn")
+    _time_steps(kstep, pstep, state, batches, seeds, "snn")
+    _profile_steps(kstep, state.clone(), batches[:5], seeds[:5], "snn")
+    _check_scatter_range(dev, schema, cfg, state, tr_ids)
+    _pretrain_steps_on_card(dev, schema, cfg, tr_ids, "rbm", 5)
+    _pretrain_steps_on_card(dev, schema, cfg, tr_ids, "dae", 5)
+    del state, result, kstep, pstep, batches
+
+    print(f"snn-dae: the same run with train.pretrain=dae, cut to {SNN_DAE_STEPS} "
+          f"pretraining steps and {SNN_DAE_STEPS} fine-tune steps, no checkpoint")
+    _, _, result, dae_launches, events = _cli_train(
+        dev, root, tmp, SNN_CONFIG,
+        [f"data.schema_path={schema_path}", "train.pretrain=dae"], SNN_DAE_STEPS,
+        "snn-dae", table_dtype="f32")
+    pre = [e for e in events if "pretrain_loss" in e]
+    if not pre or not all(np.isfinite(e["pretrain_loss"]) for e in pre):
+        raise AssertionError(f"snn-dae: pretraining records {pre}")
+    if not any(e.get("event") == "init_from_pretrain" and e.get("kind") == "dae"
+               for e in events):
+        raise AssertionError("snn-dae: the run did not start from the pretrained table")
+    steps = result["state"].step
+    if (dae_launches["fwd_dropout"] < steps or dae_launches["bwd"] < steps
+            or dae_launches["fwd_eval"] < 1):
+        raise AssertionError(f"snn-dae: kernels launched {dae_launches} in {steps} steps")
+    print(f"snn-dae: dae pretraining loss {pre[0]['pretrain_loss']:.5f}, "
+          f"init_from_pretrain in the metrics file")
+    print(f"snn: peak device memory of the phase "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def _template_args(mangled) -> str:
     """``<64, true>`` for a mangled ``ILi64ELb1EE``; '' for none."""
     if not mangled:
@@ -975,6 +1244,8 @@ def main() -> int:
     name = "?"
     with open(lib_path + ".log") as f:
         for line in f:
+            if line.startswith("== "):   # the next source's log
+                name = line[3:].strip()
             entry = re.search(r"entry function '.*?\d+((?:tower|fm)_\w+?_kernel)"
                               r"(I(?:L[ib]\d+E)+E)?", line)
             if entry:
@@ -1004,6 +1275,9 @@ def main() -> int:
     for kernel in ("tower_fwd_kernel", "tower_bwd_rows_kernel", "tower_wgrad_kernel"):
         if not any(k.startswith(kernel) and c for k, (c, _) in hmma.items()):
             raise AssertionError(f"{kernel}: no tensor-core instructions in its SASS")
+    # the FM scorer stays in full f32 on the CUDA cores
+    if "fm_score_kernel" not in hmma or hmma["fm_score_kernel"][0]:
+        raise AssertionError(f"fm_score_kernel: {hmma.get('fm_score_kernel')} in its SASS")
 
     # 3. kernel vs plain on the card; timed at three batch sizes
     rng = np.random.default_rng(SEED)
@@ -1013,6 +1287,7 @@ def main() -> int:
         ("fnn tanh", BATCH, fnn_dims, "tanh", True),
         ("fnn tanh, 8 batches", REQUESTS, fnn_dims, "tanh", True),
         ("fnn tanh ragged", 1000, fnn_dims, "tanh", True),
+        ("snn tanh", BATCH, (SNN_HIDDEN1,) + SNN_HIDDEN + (1,), "tanh", False),
         ("small relu", 300, (24, 32, 16, 1), "relu", False),
         ("small sigmoid", 77, (24, 32, 16, 1), "sigmoid", False),
     ]
@@ -1148,7 +1423,7 @@ def main() -> int:
     # 7. the FM scorer kernel against its plain version
     fm_kernel = _phase7_fm_kernel(dev, rng)
 
-    # 8-11. the FM family through the CLI, at full iPinYou width
+    # 8-12. the FM family and SNN through the CLI, at full iPinYou width
     with tempfile.TemporaryDirectory() as tmp:
         schema_path = os.path.join(tmp, "ipinyou_full.json")
         with open(schema_path, "w") as f:
@@ -1158,6 +1433,7 @@ def main() -> int:
                                      fm["fm_table"])
         _phase10_deepfm(dev, root, tmp, schema, schema_path)
         _phase11_lr_ipnn(dev, tmp, schema)
+        _phase12_snn(dev, root, tmp, schema, schema_path)
 
     work = _tower_work(BATCH, fnn_dims)
     fm_rows = REQUESTS * 18 * (1 + K)   # the timed fm_score shape [65536, 18, 11]
@@ -1206,6 +1482,9 @@ def main() -> int:
         "plain_ms": fm_kernel["plain_ms"],
         **fm_bound,
         "library_ms": None,
+        "launch_floor_ms": fm_kernel["floor_ms"],
+        "ms_8192": fm_kernel["ms_train"],
+        "ms_8192_past_l2": fm_kernel["ms_train_cold"],
     }]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

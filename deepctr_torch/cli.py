@@ -1,14 +1,16 @@
 """CLI entry point: ``python -m deepctr_torch.cli --config configs/fnn.json``.
 
-Port of ``deepctr_tpu/cli.py`` for LR, FM, FNN, DeepFM and PNN (IPNN/OPNN):
-it reads the same ``configs/*.json`` and dotted overrides
-(``deepctr_torch.config.RunConfig``, the port's copy of the reference's), trains (``run``: data, model,
-optimizers, the FM -> FNN hand-off, ``fit``, checkpoints, an FM run's
-``.fm_table`` and JSONL metrics), or with ``--score`` scores a yx file with
-a checkpoint written by either package, printing one probability per line.
+Port of ``deepctr_tpu/cli.py`` for LR, FM, FNN, SNN, DeepFM and PNN
+(IPNN/OPNN): it reads the same ``configs/*.json`` and dotted overrides
+(``deepctr_torch.config.RunConfig``, the port's copy of the reference's),
+trains (``run``: data, model, optimizers, the FM -> FNN hand-off, SNN's DAE
+or RBM pretraining (``train.pretrain``) and its hand-off, ``fit``,
+checkpoints, an FM run's ``.fm_table`` and JSONL metrics), or with
+``--score`` scores a yx file with a checkpoint written by either package,
+printing one probability per line.
 ``--device`` names where the model runs, and the device alone picks the
 kernels: on CUDA the hand-written ones, on the CPU their plain versions.
-Asking for CUDA where there is none raises. SNN is not ported yet.
+Asking for CUDA where there is none raises.
 
 Keys of the shared config that are TPU mechanisms are read and have no
 effect here: ``model.use_pallas`` (the device picks the kernels),
@@ -32,7 +34,6 @@ UNPORTED_KEYS = {
     "train.sharded": "slice 5, item 15 (row-sharded multi-GPU training)",
     "train.distributed": "slice 5, item 16 (multi-process runs)",
     "data.stream": "slice 4, item 13 (streaming input to fit)",
-    "train.pretrain": "slice 3, item 9 (SNN and its pretraining)",
     "train.profile_dir": "slice 4, item 13 (the CLI's profiler hook)",
     "train.resume": "slice 4, item 11 (train-state resume)",
     "train.debug_nans": "slice 4, item 13 (the CLI's NaN check)",
@@ -41,7 +42,15 @@ UNPORTED_KEYS = {
 
 def build_model(cfg, schema, device: torch.device | str):
     """The configured model, as the reference's ``build_model`` builds it."""
-    from .models import MlpSpec, make_deepfm, make_fm, make_fnn, make_lr, make_pnn
+    from .models import (
+        MlpSpec,
+        make_deepfm,
+        make_fm,
+        make_fnn,
+        make_lr,
+        make_pnn,
+        make_snn,
+    )
 
     m = cfg.model
     mlp = MlpSpec(hidden=tuple(m.hidden), activation=m.activation,
@@ -61,10 +70,8 @@ def build_model(cfg, schema, device: torch.device | str):
                         product="outer" if m.name == "opnn" else "inner",
                         mlp=mlp, init_sigma=m.init_sigma, device=device)
     if m.name == "snn":
-        raise NotImplementedError(
-            "model 'snn' is not ported to deepctr_torch yet (ROADMAP.md, "
-            "'Modules still to port', slice 3, item 9)"
-        )
+        return make_snn(schema, hidden1=m.hidden1, mlp=mlp,
+                        init_sigma=m.init_sigma, device=device)
     raise ValueError(
         f"unknown model {m.name!r} (lr|fm|fnn|snn|deepfm|ipnn|opnn)"
     )
@@ -154,9 +161,10 @@ def load_data(cfg):
 def run(cfg, device: torch.device) -> dict:
     """Train the configured model on ``device``; returns the best AUC, its
     epoch, the per-epoch history and the final ``TrainState``."""
-    from .train import fit, init_state
+    from .train import fit, init_state, pretrain_snn
     from .utils.checkpoint import (
         init_fnn_from_fm,
+        init_snn_from_pretrain,
         load_fm_embeddings,
         save_fm_embeddings,
         save_train_state,
@@ -170,11 +178,30 @@ def run(cfg, device: torch.device) -> dict:
     logger = MetricsLogger(cfg.train.metrics_path, echo=True)
     state = init_state(model, schema, sparse_opt, dense_opt, seed=cfg.train.seed,
                        table_dtype=cfg.train.table_dtype)
-    # the FM -> FNN hand-off; for other models init_from means something
-    # else (SNN's pretraining output) or nothing, as in the reference
+    # the two-phase flows. The FM -> FNN hand-off: for other models
+    # init_from means nothing, as in the reference
     if cfg.model.name == "fnn" and cfg.model.init_from:
         init_fnn_from_fm(model, load_fm_embeddings(cfg.model.init_from))
         logger.log({"event": "init_from_fm", "path": cfg.model.init_from})
+    # SNN's pretraining. data.stream, with which the reference refuses to
+    # pretrain, is refused above for every model until streaming is ported
+    if cfg.model.name == "snn" and cfg.train.pretrain:
+        from .models import DaePretrainer, RbmPretrainer
+
+        if cfg.train.pretrain not in ("dae", "rbm"):
+            raise ValueError(f"train.pretrain {cfg.train.pretrain!r} (dae|rbm)")
+        pre = (DaePretrainer(m=cfg.train.pretrain_m,
+                             corruption=cfg.train.pretrain_corruption)
+               if cfg.train.pretrain == "dae"
+               else RbmPretrainer(m=cfg.train.pretrain_m))
+        table, b1 = pretrain_snn(
+            pre, schema, cfg.model.hidden1, tr_ids, sparse_opt=sparse_opt,
+            dense_lr=cfg.train.pretrain_lr, batch_size=cfg.train.batch_size,
+            epochs=cfg.train.pretrain_epochs, seed=cfg.train.seed, logger=logger,
+            device=device)
+        init_snn_from_pretrain(model, table, b1)
+        del table
+        logger.log({"event": "init_from_pretrain", "kind": cfg.train.pretrain})
 
     ckpt_meta = {"sparse_opt": cfg.optim.sparse, "model": cfg.model.name}
 
@@ -223,7 +250,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="deepctr_torch",
         description="CTR training and scoring on PyTorch/CUDA (LR, FM, FNN, "
-        "DeepFM, IPNN/OPNN)",
+        "SNN, DeepFM, IPNN/OPNN)",
     )
     ap.add_argument("--config", help="JSON config path (defaults applied)")
     ap.add_argument(

@@ -3,8 +3,14 @@
 Port of ``deepctr_tpu/ops/pallas/interaction.py``: the forward
 ``_fm_scorer_fwd`` (entry ``fm_score_fused``) and the ``custom_vjp``
 ``fm_score``, here the autograd Function behind :func:`fm_score`. The
-kernel is ``deepctr_torch/csrc/fm_score.cu``; its source says what bounds
-it on the card and how its design answers that.
+kernel is ``deepctr_torch/csrc/fm_score.cu``: persistent blocks walk over
+tiles of whole examples, which the copy engine brings into a ring of
+shared-memory stages (bulk asynchronous copies completing on ``mbarrier``s)
+while the consumer warps reduce the tile before. Its source says what bounds
+it on the card (bytes, and at the training shape the launch) and how the
+design answers that. The copy engine wants 16-byte aligned addresses, so the
+wrapper refuses tensors whose first element is not: a view with a storage
+offset is copied by the caller first (``.clone()``).
 
 For rows f32 ``[B, S, 1+k]`` = ``(w | v)`` and mask f32 ``[B, S]`` the
 logit part is ``sum_s w_s m_s + 1/2 sum_f [(sum_s v_sf m_s)^2 -
@@ -27,6 +33,7 @@ from ..interaction import fm_interaction
 from ._build import check, is_cuda, load_library
 
 MAX_K = 64  # kMaxD - 1 in csrc/fm_score.cu
+ALIGN = 16  # bytes: the bulk copies' source alignment
 
 # kernel launches since the last reset
 LAUNCHES = 0
@@ -66,6 +73,11 @@ def _check_args(rows: torch.Tensor, mask: torch.Tensor) -> None:
             raise TypeError(f"the kernel takes float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
+        if t.data_ptr() % ALIGN:
+            raise ValueError(
+                f"the kernel takes tensors aligned to {ALIGN} bytes; this one "
+                f"starts {t.data_ptr() % ALIGN} bytes past that (a view with a "
+                f"storage offset?)")
     if rows.dim() != 3 or rows.shape[1] < 1:
         raise ValueError(f"rows must be [B, S, 1+k], got {tuple(rows.shape)}")
     if mask.shape != rows.shape[:2]:

@@ -1,12 +1,13 @@
-"""Training of the port: the step, the loop."""
+"""Training of the port: the steps, the loop, SNN's pretraining."""
 
-from .loop import FitResult, evaluate, fit
+from .loop import FitResult, evaluate, fit, pretrain_snn
 from .step import (
     StepMetrics,
     TrainState,
     dense_params,
     init_state,
     make_eval_step,
+    make_pretrain_step,
     make_train_step,
 )
 
@@ -19,5 +20,7 @@ __all__ = [
     "dense_params",
     "init_state",
     "make_eval_step",
+    "make_pretrain_step",
     "make_train_step",
+    "pretrain_snn",
 ]

@@ -1,15 +1,16 @@
 """Training loop: epochs, per-epoch eval, early stopping.
 
-Port of ``deepctr_tpu/train/loop.py`` (``evaluate`` and ``fit`` on its
-per-step route). Epochs shuffle through ``data.minibatches`` with
-``seed + epoch`` and drop the last partial batch; the learning rate decays
+Port of ``deepctr_tpu/train/loop.py`` (``evaluate``, ``fit`` on its
+per-step route, and ``pretrain_snn``). Epochs shuffle through
+``data.minibatches`` with ``seed + epoch`` and drop the last partial batch
+(pretraining epochs too); the learning rate decays
 by ``lr_decay ** epoch``; training stops early when the held-out AUC has not
 improved for more than ``early_stop_patience`` epochs. ``start_epoch``
 continues the epoch schedule of a saved run.
 
 Not here: the reference's ``lax.scan`` route (a JAX dispatch device), its
-background device prefetcher (ROADMAP.md slice 4), streaming input
-(``train_source``) and SNN pretraining (both later slices).
+background device prefetcher (ROADMAP.md slice 4) and streaming input
+(``train_source``, a later slice).
 """
 
 from __future__ import annotations
@@ -25,7 +26,13 @@ from torch import nn
 from ..data import Schema, minibatches
 from ..utils import metrics as M
 from ..utils.logging import MetricsLogger
-from .step import TrainState, init_state, make_eval_step, make_train_step
+from .step import (
+    TrainState,
+    init_state,
+    make_eval_step,
+    make_pretrain_step,
+    make_train_step,
+)
 
 
 @dataclasses.dataclass
@@ -129,3 +136,51 @@ def fit(
         best_auc, best_epoch = ev["auc"], start_epoch
     return FitResult(state=state, history=history, best_auc=float(best_auc),
                      best_epoch=best_epoch)
+
+
+def pretrain_snn(
+    pretrainer,
+    schema: Schema,
+    hidden1: int,
+    train_ids: np.ndarray,
+    *,
+    sparse_opt,
+    dense_lr: float = 0.1,
+    batch_size: int = 1024,
+    epochs: int = 1,
+    seed: int = 0,
+    logger: MetricsLogger | None = None,
+    device: torch.device | str,
+):
+    """Unsupervised pretraining of SNN's bottom layer on ``device``.
+
+    Returns ``(table, b1)`` to seed ``SNNModel``'s supervised phase. The
+    table starts normal with sigma 0.01 (pad row zero) from a
+    ``torch.Generator`` seeded with ``seed``, which also gives the steps'
+    noise."""
+    from ..models.base import init_table
+    from ..models.snn import init_pretrain_dense
+
+    device = torch.device(device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    table = torch.zeros(schema.padded_vocab_size, hidden1, device=device)
+    init_table(table, generator, 0.01, schema.pad_id)
+    dense = init_pretrain_dense(schema, hidden1, device)
+    sparse_state = sparse_opt.init(table)
+    pstep = make_pretrain_step(pretrainer, schema, sparse_opt, dense_lr)
+
+    dummy_labels = np.zeros(train_ids.shape[0], np.float32)
+    for epoch in range(epochs):
+        losses = []  # device scalars, read once per epoch
+        for b in minibatches(train_ids, dummy_labels, batch_size, schema=schema,
+                             shuffle=True, seed=seed + epoch, drop_remainder=True):
+            table, sparse_state, dense, generator, loss = pstep(
+                table, sparse_state, dense, generator, b.ids)
+            losses.append(loss)
+        if logger is not None:
+            logger.log({
+                "pretrain_epoch": epoch,
+                "pretrain_loss": (float(torch.stack(losses).mean()) if losses
+                                  else float("nan")),
+            })
+    return table, dense["b1"]

@@ -19,6 +19,9 @@ What differs from the reference, and why:
   f32 summation order; the parity tests hold the port against the JAX step
   with and without the plan.
 - ``make_scan_train_step`` is a JAX dispatch device and is not ported.
+- ``make_pretrain_step`` has no ``jit`` and no ``donate_argnums``, and takes
+  a ``torch.Generator`` where the reference threads a PRNG key: the table,
+  the optimizer's state and ``b1`` are updated in place.
 
 On the card the step is bitwise repeatable: the gather's backward is never
 taken (rows are a leaf), the tower's backward kernel and the FM scorer
@@ -153,3 +156,50 @@ def make_eval_step(schema: Schema):
         return model.apply_rows(rows, (ids != pad_id).float(), train=False)
 
     return eval_step
+
+
+# ---------------------------------------------------------------------------
+# SNN unsupervised pretraining step (shared by DAE and RBM)
+# ---------------------------------------------------------------------------
+
+
+def make_pretrain_step(pretrainer, schema: Schema, sparse_opt, dense_lr: float,
+                       with_noise: bool = False):
+    """Build ``pstep(table, sparse_state, dense, generator, ids) -> (table,
+    sparse_state, dense, generator, loss)`` where ``dense`` = ``{"b1",
+    "vbias"}`` (``init_pretrain_dense``). The table goes through
+    ``sparse_opt.update`` (duplicates of an id, a sampled negative that is
+    also active among them, are summed before the rule); ``vbias`` takes
+    plain SGD through a deduplicated scatter, ``b1`` plain SGD. The table,
+    the sparse state and ``b1`` are updated in place; ``dense`` is the same
+    dict with a new ``vbias``.
+
+    ``with_noise=True`` builds ``pstep(..., ids, noise)`` where ``noise`` is
+    the pretrainer's dict of uniforms: the same uniforms fed to the
+    reference's step and to the NumPy oracle make the trajectories
+    comparable."""
+    from ..models.snn import field_sampling
+    from ..ops.scatter import scatter_add_dedup
+
+    pad_id = schema.pad_id
+    sampling = {}  # device -> FieldSampling
+
+    @torch.no_grad()
+    def pstep(table, sparse_state, dense, generator, ids, noise=None):
+        device = table.device
+        if device not in sampling:
+            sampling[device] = field_sampling(schema, device)
+        ids = _to_device(ids, device, torch.long)
+        loss, occ_ids, occ_rows, dgrads = pretrainer.loss_and_grads(
+            table, dense, ids, pad_id, sampling[device], generator, noise=noise)
+        table, sparse_state = sparse_opt.update(table, sparse_state, occ_ids, occ_rows)
+        dense["vbias"] = scatter_add_dedup(
+            dense["vbias"][:, None], dgrads["vbias_ids"],
+            -dense_lr * dgrads["vbias_grads"][:, None])[:, 0]
+        dense["b1"].sub_(dense_lr * dgrads["b1"])
+        return table, sparse_state, dense, generator, loss
+
+    if with_noise:
+        return pstep
+    return lambda table, sparse_state, dense, generator, ids: pstep(
+        table, sparse_state, dense, generator, ids)

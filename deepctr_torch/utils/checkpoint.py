@@ -1,10 +1,11 @@
 """Checkpoints in the JAX package's format, and the parameter converter.
 
 Port of ``deepctr_tpu/utils/checkpoint.py``: the scoring read side, writers
-of the same format (scoring parameters, a whole train state, an FM table)
-and the FM -> FNN hand-off, so checkpoints move both ways between the packages: an
-``np.savez`` of the flattened pytree (``leaf_0`` ...) and a JSON manifest
-whose ``scoring`` entry says where the table and the dense leaves sit.
+of the same format (scoring parameters, a whole train state, an FM table),
+the FM -> FNN hand-off and the pretraining -> SNN hand-off, so checkpoints
+move both ways between the packages: an ``np.savez`` of the flattened
+pytree (``leaf_0`` ...) and a JSON manifest whose ``scoring`` entry says
+where the table and the dense leaves sit.
 
 Two things the JAX side gets from ``jax.tree_util`` and ``ml_dtypes`` are
 done here by hand:
@@ -169,6 +170,20 @@ def init_fnn_from_fm(model: torch.nn.Module, fm_table: np.ndarray) -> None:
     model.table.copy_(fm_table)
 
 
+@torch.no_grad()
+def init_snn_from_pretrain(model: torch.nn.Module, table, b1) -> None:
+    """Seed SNN's supervised phase from the DAE or RBM pretraining output, in
+    place: the table (in the dtype of the model's) and ``b1``."""
+    table = torch.as_tensor(table)
+    if table.shape != model.table.shape:
+        raise ValueError(
+            f"pretrained table {tuple(table.shape)} != SNN table "
+            f"{tuple(model.table.shape)}"
+        )
+    model.table.copy_(table)
+    model.b1.copy_(torch.as_tensor(b1))
+
+
 def load_scoring_params(path: str, dense_like: Tree) -> tuple[np.ndarray, Tree]:
     """Load just ``(table, dense)`` as f32 numpy arrays from a checkpoint.
 
@@ -197,7 +212,8 @@ def load_scoring_params(path: str, dense_like: Tree) -> tuple[np.ndarray, Tree]:
 def params_from_jax(table, dense: Tree) -> dict[str, torch.Tensor]:
     """JAX-layout ``(table, dense)`` arrays -> a port model's ``state_dict``.
 
-    ``dense["mlp"]["layers"][0]["w"]`` becomes key ``mlp.layers.0.w``."""
+    ``dense["mlp"]["layers"][0]["w"]`` becomes key ``mlp.layers.0.w``, and
+    SNN's ``dense["b1"]`` key ``b1``."""
     state = {"table": torch.tensor(np.asarray(table, np.float32))}
 
     def walk(node, prefix):

@@ -124,7 +124,7 @@ def test_wrapper_raises_off_cpu_and_cuda():
 
 
 @pytest.mark.parametrize("case", ["dtype", "contiguous", "mask", "rank", "width",
-                                  "device"])
+                                  "device", "rows-misaligned", "mask-misaligned"])
 def test_kernel_argument_checks(case):
     """What the wrapper checks before a launch (on the card it is the only
     guard in front of raw pointers)."""
@@ -139,11 +139,30 @@ def test_kernel_argument_checks(case):
         rows = torch.zeros(8, 3 * (1 + K))
     elif case == "width":
         rows = torch.zeros(8, 3, fm_k.MAX_K + 2)
+    elif case == "rows-misaligned":
+        # contiguous, but a view that starts one float into its storage: the
+        # kernel's bulk copies take 16-byte aligned addresses only
+        rows = torch.zeros(8 * 3 * (1 + K) + 1)[1:].view(8, 3, 1 + K)
+        assert rows.is_contiguous() and rows.data_ptr() % fm_k.ALIGN == 4
+    elif case == "mask-misaligned":
+        mask = torch.zeros(8 * 3 + 3)[3:].view(8, 3)
+        assert mask.is_contiguous() and mask.data_ptr() % fm_k.ALIGN == 12
     else:
         mask = torch.zeros(8, 3, device="meta")
     with pytest.raises((TypeError, ValueError)):
         fm_k._check_args(rows, mask)
     fm_k._check_args(torch.zeros(8, 3, fm_k.MAX_K + 1), torch.zeros(8, 3))
+
+
+def test_misaligned_view_is_taken_after_a_copy():
+    """The refusal names the alignment; a clone of the view is aligned and
+    passes, and the CPU path never needs it."""
+    rows = torch.randn(8 * 3 * (1 + K) + 1)[1:].view(8, 3, 1 + K)
+    mask = torch.ones(8, 3)
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        fm_k._check_args(rows, mask)
+    fm_k._check_args(rows.clone(), mask)
+    assert torch.equal(fm_k.fm_score_fwd(rows, mask), fm_k.fm_score_plain(rows, mask))
 
 
 @pytest.fixture(scope="module")

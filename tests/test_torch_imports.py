@@ -15,6 +15,7 @@ import numpy as np
 import deepctr_torch, deepctr_torch.cli, deepctr_torch.serving
 import deepctr_torch.optim, deepctr_torch.train, deepctr_torch.utils.metrics
 import deepctr_torch.ops.interaction, deepctr_torch.ops.kernels.interaction
+import deepctr_torch.models.snn
 from deepctr_torch.models import (DeepFMModel, FMModel, LRModel, MlpSpec, PNNModel,
                                   make_deepfm, make_fm, make_fnn, make_lr, make_pnn)
 from deepctr_torch.optim import SparseAdagrad, make_dense_optimizer
@@ -37,6 +38,12 @@ state = init_state(model, schema, sopt, dopt, seed=0, table_dtype="bf16")
 state, m = make_train_step(schema, sopt, dopt, l2=1e-6)(state, ds.ids, ds.labels,
                                                         np.ones(20, np.float32))
 assert state.step == 1 and np.isfinite(float(m.loss)), m
+from deepctr_torch.models import RbmPretrainer, SNNModel, make_snn
+from deepctr_torch.train import pretrain_snn
+table, b1 = pretrain_snn(RbmPretrainer(m=1), schema, 4, ds.ids, sparse_opt=sopt,
+                         batch_size=10, device="cpu")
+assert table.shape == (schema.padded_vocab_size, 4) and b1.shape == (4,)
+assert isinstance(make_snn(schema, hidden1=4, device="cpu"), SNNModel)
 for make in (make_lr, make_deepfm, make_pnn):
     assert isinstance(make(schema, device="cpu"), (LRModel, DeepFMModel, PNNModel))
 bad = sorted(m for m in sys.modules

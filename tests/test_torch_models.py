@@ -221,25 +221,30 @@ def test_pnn_trajectory_matches_jax(schema, data, name):
     ("lr", "LRModel", None), ("fm", "FMModel", None), ("fnn", "FNNModel", 16),
     ("deepfm", "DeepFMModel", 16), ("pnn", "PNNModel", 16 + 6),
     ("ipnn", "PNNModel", 16 + 6), ("opnn", "PNNModel", 16 + 4),
+    ("snn", "SNNModel", 200),
 ])
 def test_build_model_builds_the_family(schema, name, cls, in_dim):
     """The reference's names; the towers' input widths at F = 4 fields of
-    1 + k = 4 (IPNN adds F(F-1)/2 = 6 inner products, OPNN one D-vector)."""
+    1 + k = 4 (IPNN adds F(F-1)/2 = 6 inner products, OPNN one D-vector);
+    SNN's table and tower input are ``model.hidden1`` wide."""
     cfg = t_cli.RunConfig().apply_overrides([f"model.name={name}", f"model.k={K}"])
     model = t_cli.build_model(cfg, schema, "cpu")
     assert type(model).__name__ == cls
-    assert model.table.shape == (schema.padded_vocab_size, 1 if name == "lr" else 1 + K)
+    width = {"lr": 1, "snn": cfg.model.hidden1}.get(name, 1 + K)
+    assert model.table.shape == (schema.padded_vocab_size, width)
     if in_dim is not None:
         assert model.mlp.layers[0].w.shape[0] == in_dim
     if cls == "PNNModel":
         assert model.name == ("pnn_outer" if name == "opnn" else "pnn_inner")
 
 
-@pytest.mark.parametrize("name,error", [("snn", NotImplementedError),
+@pytest.mark.parametrize("name,error", [("dcn", ValueError),
                                         ("xgboost", ValueError)])
 def test_build_model_raises(schema, name, error):
+    """Every model of the reference's family is built; any other name is
+    the reference's error."""
     cfg = t_cli.RunConfig().apply_overrides([f"model.name={name}"])
-    with pytest.raises(error, match="ROADMAP" if name == "snn" else "unknown model"):
+    with pytest.raises(error, match="unknown model"):
         t_cli.build_model(cfg, schema, "cpu")
 
 

@@ -240,7 +240,7 @@ def test_cli_trains_and_both_packages_score_its_checkpoint(schema, tmp_path,
 
 @pytest.mark.parametrize("override", [
     "train.sharded=true", "train.distributed=true", "data.stream=true",
-    "train.pretrain=dae", "train.profile_dir=/nonexistent",
+    "train.profile_dir=/nonexistent",
     "train.resume=true", "train.debug_nans=true",
 ])
 def test_cli_raises_for_keys_not_ported(override):
