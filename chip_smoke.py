@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one GPU.
+"""Drive the PyTorch port's serving, training and retraining paths once on
+one GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``, and imports nothing of JAX.
@@ -16,8 +17,9 @@ Phases, each printing its own lines:
 3. kernel vs plain: ``mlp_tower_fwd`` against ``mlp_tower_plain`` on the
    card at the serving shape [8192, 176] with FNN widths 200-300-100 tanh,
    at [65536, 176], at a ragged batch, at SNN's [8192, 200] with its tower
-   300-100, and at small relu and sigmoid towers; the FNN shapes timed on
-   both with CUDA events;
+   300-100, and at small relu and sigmoid towers, each also with a NaN in
+   one input row (a NaN logit there, kernel and plain; the other rows'
+   bits unchanged); the FNN shapes timed on both with CUDA events;
 4. serving end to end: full-width iPinYou FNN parameters from a seed are
    written with the port's checkpoint writer, 65,536 synthetic requests are
    scored through ``deepctr_torch.cli --score``, and the output is held
@@ -74,7 +76,24 @@ Phases, each printing its own lines:
     fine-tune step and around RBM and DAE pretraining steps; the same run
     with ``train.pretrain=dae`` cut to 5 and 5 steps; the occurrence
     scatter's fixed-point sums at a DAE step's 557,056 rows of 200 floats
-    against float64; peak device memory.
+    against float64; peak device memory;
+13. the resumable, streamed retraining job: FNN from
+    ``configs/fnn_full_ipinyou.json`` (``model.init_from=none``, bf16
+    table, dropout 0.5) through the CLI on 4 yx shards of 81,920 rows from
+    ``synthetic.generate(seed=3)`` (40 steps an epoch) and a test file of
+    16,384 rows. Run A streams and prefetches 2 epochs; run B takes 1 and
+    B' resumes it to 2, and B''s final checkpoint must equal A's bit for
+    bit, with a ``resumed`` event at step 40, epoch 1; A's launch counts
+    (forward with dropout and backward once a step, the eval forward once
+    an eval batch). One in-RAM epoch with ``train.prefetch`` off and on, in
+    turns, bit-identical; the three CLI epoch rates (in RAM without and
+    with prefetch, streamed with prefetch); ``torch.profiler`` over warm
+    steps fed by numpy batches and by the prefetcher; run A's eval logits
+    through ``AucState`` on the card against ``exact_auc``, with two
+    device-to-host copies; 5 steps with ``train.profile_dir`` and
+    ``train.debug_nans`` (the trace must name the tower kernels), 5 with
+    ``optim.dense=adam``, and in a subprocess a run seeded with a NaN in a
+    row of the first batch, which must exit non-zero at step 1.
 Then one JSON line on the kernels (each with its least time on the card
 from the shapes: ``bound_ms`` against f32 on the CUDA cores, 67 TFLOP/s,
 and 3.35 TB/s, as ``bound_by`` and ``bound_kind`` say, and
@@ -128,6 +147,10 @@ SNN_HIDDEN1 = 200           # the config's bottom layer; its tower is 300-100
 SNN_HIDDEN = (300, 100)
 SNN_STEPS = 20              # RBM pretraining steps, and fine-tune steps
 SNN_DAE_STEPS = 5
+RETRAIN_SHARDS = 4          # phase 13: yx shards of the streamed retraining job
+RETRAIN_SHARD_ROWS = 81_920
+RETRAIN_TEST_ROWS = 16_384
+RETRAIN_SHORT_STEPS = 5     # the profiled and the Adam runs
 TEST_FRACTION = 0.15        # the configs' held-out share
 FM_CONFIG = "configs/fm_k10.json"
 FNN_CONFIG = "configs/fnn_full_ipinyou.json"
@@ -183,6 +206,30 @@ def _check_close(what, got, want, rtol=RTOL, atol=ATOL) -> float:
     if bad or not np.all(np.isfinite(got)):
         raise AssertionError(f"{what}: kernel and reference disagree")
     return max_err
+
+
+def _check_nan_row(what, x, layers, act) -> None:
+    """A NaN in one input row makes that row's logit NaN, in the kernel as in
+    the plain version, with and without dropout, and leaves every other row's
+    bits as they were (rows are independent)."""
+    import torch
+
+    from deepctr_torch.ops.kernels import mlp as mlp_k
+
+    bad = x.clone()
+    bad[3, 1] = float("nan")
+    rest = torch.arange(x.shape[0], device=x.device) != 3
+    for dropout in (0.0, DROPOUT):
+        got = mlp_k.mlp_tower_fwd(bad, layers, act, dropout, 7)
+        want = mlp_k.mlp_tower_plain(bad, layers, act, dropout, 7)
+        clean = mlp_k.mlp_tower_fwd(x, layers, act, dropout, 7)
+        if not (bool(torch.isnan(got[3])) and bool(torch.isnan(want[3]))
+                and bool(torch.isfinite(got[rest]).all())
+                and torch.equal(got[rest], clean[rest])):
+            raise AssertionError(f"{what}: a NaN input row, dropout {dropout}: "
+                                 f"kernel {got[3]}, plain {want[3]}")
+    print(f"{what}: a NaN in input row 3 gives a NaN logit there, kernel and "
+          f"plain, dropout 0 and {DROPOUT}; the other rows keep their bits")
 
 
 def _time_ms(fn, iters=50, warmup=5) -> float:
@@ -526,7 +573,7 @@ def _compare_states(what, a, b) -> None:
                          rtol=1e-4, atol=1e-5)
 
 
-def _profile_loop(run, n, tag) -> None:
+def _profile_loop(run, n, tag) -> dict:
     """Device time per op and the device's busy share of the wall time,
     under ``torch.profiler``, for ``run(0) .. run(n - 1)`` after the same
     calls as a warm-up."""
@@ -551,6 +598,8 @@ def _profile_loop(run, n, tag) -> None:
         if i < 14 or re.search(r"::(fm_score|tower_\w+)_kernel", key):
             name = key.replace("void ", "").replace("at::native::", "")
             print(f"  {us / n:9.2f} us/step  {count / n:5.1f}/step  {name[:120]}")
+    return {"device_us": busy_us / n, "wall_us": wall_us / n,
+            "busy": busy_us / wall_us}
 
 
 def _profile_steps(step, state, batches, seeds, tag) -> None:
@@ -1180,6 +1229,287 @@ def _phase12_snn(dev, root, tmp, schema, schema_path) -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def _retrain_run(dev, root, overrides, tag):
+    """One run of ``deepctr_torch.cli``'s ``run`` on ``configs/fnn_full_ipinyou
+    .json`` with ``overrides``, the kernel counts set to 0 just before it
+    and read just after. Returns (result, launches, wall s)."""
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch.config import RunConfig
+
+    cfg = RunConfig.load(os.path.join(root, FNN_CONFIG)).apply_overrides(overrides)
+    print(f"{tag}: python -m deepctr_torch.cli --config {FNN_CONFIG} "
+          f"{' '.join(overrides)} --device cuda")
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        result = cli.run(cfg, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    rates = [round(r["examples_per_s"]) for r in result["history"]
+             if "examples_per_s" in r]
+    print(f"{tag}: {result['state'].step} steps in {wall:.2f} s; launches {launches}; "
+          f"eval auc {[round(r['auc'], 5) for r in result['history']]}; epoch "
+          f"examples/s {rates} (host clock)")
+    return result, launches, wall
+
+
+def _ckpt_leaves(path) -> list:
+    with np.load(path, allow_pickle=False) as z:
+        manifest = json.loads(str(z["manifest"]))
+        return manifest, [z[f"leaf_{i}"] for i in range(manifest["n"])]
+
+
+def _same_state(a, b) -> bool:
+    """Two train states hold the same bits: step, table, both optimizers'
+    states, the tower and the dropout generator."""
+    import torch
+
+    from deepctr_torch.utils.checkpoint import _state_leaves
+
+    def leaves(state):
+        table, sparse, dense, dense_state = _state_leaves(state)
+        return [table, *sparse, *dense, *dense_state, state.generator.get_state()]
+
+    la, lb = leaves(a), leaves(b)
+    return (a.step == b.step and len(la) == len(lb)
+            and all(torch.equal(x, y) for x, y in zip(la, lb)))
+
+
+def _check_histogram_auc(dev, state, schema, te_ids, te_labels) -> None:
+    """Run A's eval logits, kept on the card, through ``AucState``: the
+    finalized AUC against ``exact_auc`` of the same logits, the histograms
+    against host bin counts, and the copies to the host during update and
+    finalize (two ``[4096]`` vectors)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepctr_torch.train import make_eval_step
+    from deepctr_torch.utils import metrics as M
+
+    eval_step = make_eval_step(schema)
+    logits = torch.cat([eval_step(state.model, te_ids[i:i + BATCH])
+                        for i in range(0, len(te_ids), BATCH)])
+    labels = torch.from_numpy(te_labels).to(dev)
+    weights = torch.ones_like(labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        st = M.auc_state_init(4096, device=dev)
+        for i in range(0, len(te_ids), BATCH):
+            sl = slice(i, i + BATCH)
+            M.auc_state_update(st, logits[sl], labels[sl], weights[sl])
+        got = M.auc_state_finalize(st)
+    copies = [(e.key, e.count) for e in prof.key_averages() if "DtoH" in e.key]
+    n_copies = sum(count for _, count in copies)
+    host = logits.cpu().numpy()
+    want = M.exact_auc(te_labels, 1.0 / (1.0 + np.exp(-host)))
+    bins = torch.clamp((torch.sigmoid(logits) * 4096).int(), 0, 4095).cpu().numpy()
+    same = (np.array_equal(st.pos.cpu().numpy(), np.bincount(
+        bins, weights=te_labels, minlength=4096).astype(np.float32))
+        and np.array_equal(st.neg.cpu().numpy(), np.bincount(
+            bins, weights=1.0 - te_labels, minlength=4096).astype(np.float32)))
+    print(f"retrain: histogram AUC on the card {got:.6f} vs exact {want:.6f} "
+          f"(|d| {abs(got - want):.2e}, at most 2e-3) over {len(te_ids)} eval "
+          f"logits; histograms equal to host bin counts: {same}; device-to-host "
+          f"copies in update and finalize: {copies}")
+    if not abs(got - want) < 2e-3 or not same:
+        raise AssertionError("retrain: the histogram AUC disagrees")
+    if n_copies != 2:
+        raise AssertionError(f"retrain: {n_copies} device-to-host copies, expected 2")
+
+
+def _profile_feeds(dev, root, schema, cfg_overrides, tr_ids, tr_labels) -> dict:
+    """Warm train steps of run A's configuration under ``torch.profiler``,
+    fed by numpy batches (copied in the step) and by the prefetcher: the
+    device's busy share and its time a step, each way."""
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch.config import RunConfig
+    from deepctr_torch.data import DevicePrefetcher, minibatches
+    from deepctr_torch.train import init_state, make_train_step
+
+    cfg = RunConfig.load(os.path.join(root, FNN_CONFIG)).apply_overrides(cfg_overrides)
+    model = cli.build_model(cfg, schema, dev)
+    sparse_opt, dense_opt = cli.build_optimizers(cfg)
+    state = init_state(model, schema, sparse_opt, dense_opt, seed=0,
+                       table_dtype="bf16")
+    step = make_train_step(schema, sparse_opt, dense_opt, l2=cfg.optim.l2)
+    out = {}
+    for feed in ("numpy", "prefetcher"):
+        it = minibatches(tr_ids, tr_labels, BATCH, schema=schema, seed=1,
+                         drop_remainder=True)
+        if feed == "prefetcher":
+            it = DevicePrefetcher(it, dev)
+
+        def run(i):
+            b = next(it)
+            step(state, b.ids, b.labels, b.weights)
+
+        out[feed] = _profile_loop(run, 5, f"retrain, batches from {feed}")
+        if feed == "prefetcher":
+            it.close()
+    return out
+
+
+def _phase13_retrain(dev, root, tmp, schema, schema_path) -> dict:
+    """The resumable, streamed retraining job at full width through the CLI:
+    shards streamed and prefetched, killed after an epoch and resumed to the
+    uninterrupted run's bits; prefetch on and off in RAM; the histogram AUC;
+    the profiler and the NaN check; Adam."""
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch.data import minibatches, synthetic
+    from deepctr_torch.utils.checkpoint import save_fm_embeddings
+
+    steps = RETRAIN_SHARD_ROWS * RETRAIN_SHARDS // BATCH
+    t0 = time.perf_counter()
+    ds = synthetic.generate(schema, num_examples=RETRAIN_SHARDS * RETRAIN_SHARD_ROWS
+                            + RETRAIN_TEST_ROWS, k=K, seed=3)
+    data = os.path.join(tmp, "retrain")
+    os.makedirs(data)
+    shards = []
+    for i in range(RETRAIN_SHARDS + 1):
+        sl = slice(i * RETRAIN_SHARD_ROWS, (i + 1) * RETRAIN_SHARD_ROWS)
+        path = os.path.join(data, f"shard_{i}.yx" if i < RETRAIN_SHARDS else "test.yx")
+        synthetic.write_yx_file(synthetic.SyntheticDataset(
+            schema, ds.ids[sl], ds.labels[sl], ds.bayes_logits[sl]), path)
+        shards.append(path)
+    test_path = shards.pop()
+    all_path = os.path.join(data, "all.yx")
+    with open(all_path, "wb") as out:
+        for path in shards:
+            with open(path, "rb") as f:
+                shutil.copyfileobj(f, out)
+    print(f"retrain: {RETRAIN_SHARDS} yx shards of {RETRAIN_SHARD_ROWS} rows ({steps} "
+          f"steps of {BATCH} an epoch), a test file of {RETRAIN_TEST_ROWS} rows and "
+          f"the shards joined into one file, made in {time.perf_counter() - t0:.1f} s")
+
+    base = ["model.init_from=none", f"data.schema_path={schema_path}",
+            f"train.batch_size={BATCH}", "train.table_dtype=bf16",
+            f"data.test_path={test_path}", "train.early_stop_patience=99",
+            "train.checkpoint_every=1"]
+    stream = base + ["data.stream=true", f"data.train_path={data}/shard_*.yx",
+                     "train.prefetch=true"]
+
+    # run A, uninterrupted; run B, one epoch, then B' resumed to two
+    a_ckpt, b_ckpt = os.path.join(tmp, "retrain_a.ckpt"), os.path.join(tmp, "retrain_b.ckpt")
+    b_metrics = os.path.join(tmp, "retrain_b.jsonl")
+    res_a, launches, _ = _retrain_run(
+        dev, root, stream + ["train.epochs=2", f"train.checkpoint_path={a_ckpt}"],
+        "retrain run A (streamed, prefetched, 2 epochs)")
+    if res_a["state"].step != 2 * steps:
+        raise AssertionError(f"retrain: run A took {res_a['state'].step} steps")
+    evals = 2 * -(-RETRAIN_TEST_ROWS // BATCH)
+    if (launches["fwd_dropout"] != 2 * steps or launches["bwd"] != 2 * steps
+            or launches["fwd_eval"] != evals):
+        raise AssertionError(f"retrain: run A launched {launches}; expected "
+                             f"{2 * steps} forward-with-dropout and backward, "
+                             f"{evals} eval forward")
+    print(f"retrain: run A launched the forward with dropout and the backward once "
+          f"a step ({2 * steps}), the eval forward once an eval batch ({evals})")
+    _retrain_run(dev, root, stream + ["train.epochs=1", f"train.checkpoint_path={b_ckpt}",
+                                      f"train.metrics_path={b_metrics}"],
+                 "retrain run B (1 epoch)")
+    _retrain_run(dev, root, stream + ["train.epochs=2", f"train.checkpoint_path={b_ckpt}",
+                                      f"train.metrics_path={b_metrics}",
+                                      "train.resume=true"],
+                 "retrain run B' (resumed to 2 epochs)")
+    with open(b_metrics) as f:
+        resumed = [e for e in map(json.loads, f) if e.get("event") == "resumed"]
+    if [(e["step"], e["epoch"]) for e in resumed] != [(steps, 1)]:
+        raise AssertionError(f"retrain: resumed events {resumed}")
+    (ma, la), (mb, lb) = _ckpt_leaves(a_ckpt), _ckpt_leaves(b_ckpt)
+    same = (ma["epoch"] == mb["epoch"] == 2 and len(la) == len(lb)
+            and all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(la, lb)))
+    print(f"retrain: resumed event at step {steps}, epoch 1; run B' final checkpoint "
+          f"vs run A's, {len(la)} leaves (step, bf16 table, accumulator, tower, "
+          f"dense accumulators, generator), epoch 2: bit-identical: {same}")
+    if not same:
+        raise AssertionError("retrain: the resumed run's bits differ from run A's")
+
+    # prefetch on and off, in RAM, in turns
+    in_ram = base + ["data.stream=false", f"data.train_path={all_path}", "train.epochs=1"]
+    states, rates = {}, {"off": [], "on": []}
+    for which in ("off", "on", "on", "off"):
+        res, _, _ = _retrain_run(dev, root, in_ram + [
+            f"train.prefetch={'true' if which == 'on' else 'false'}"],
+            f"retrain in RAM, prefetch {which}")
+        rates[which].append(res["history"][0]["examples_per_s"])
+        states.setdefault(which, res["state"])
+        del res
+    same = _same_state(states["on"], states["off"])
+    print(f"retrain: in RAM, prefetch on vs off after {steps} steps: table, "
+          f"accumulators, tower and generator bit-identical: {same}")
+    if not same:
+        raise AssertionError("retrain: prefetch on and off give other bits")
+    del states
+    epoch_rates = {"in RAM, no prefetch": rates["off"], "in RAM, prefetch": rates["on"],
+                   "streamed, prefetch": [res_a["history"][1]["examples_per_s"]]}
+    print("retrain: CLI epoch examples/s (host clock, the epoch's steps): " + "; ".join(
+        f"{k} {', '.join(f'{r:.0f}' for r in v)}" for k, v in epoch_rates.items()))
+
+    cfg = cli.RunConfig.load(os.path.join(root, FNN_CONFIG)).apply_overrides(in_ram)
+    _, tr_ids, tr_labels, te_ids, te_labels = cli.load_data(cfg)
+    feeds = _profile_feeds(dev, root, schema, in_ram, tr_ids, tr_labels)
+
+    # the NaN run in its own process, started now and read at the end
+    first = next(minibatches(tr_ids, tr_labels, BATCH, schema=schema, shuffle=True,
+                             seed=cfg.train.seed, drop_remainder=True))
+    row = int(first.ids[0, 0])
+    table = np.random.default_rng(SEED + 13).normal(
+        0.0, 0.01, (schema.padded_vocab_size, 1 + K)).astype(np.float32)
+    table[schema.pad_id] = 0.0
+    table[row, 1] = np.nan
+    nan_table = os.path.join(tmp, "nan.fm_table")
+    save_fm_embeddings(nan_table, table)
+    nan_argv = [sys.executable, "-m", "deepctr_torch.cli", "--config", FNN_CONFIG,
+                f"model.init_from={nan_table}", *base[1:], "data.stream=false",
+                f"data.train_path={all_path}", "train.epochs=1",
+                "train.debug_nans=true", "--device", "cuda"]
+    nan_proc = subprocess.Popen(nan_argv, cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        _check_histogram_auc(dev, res_a["state"], schema, te_ids, te_labels)
+        del res_a
+
+        prof_dir = os.path.join(tmp, "retrain_prof")
+        _, _, result, _, _ = _cli_train(
+            dev, root, tmp, FNN_CONFIG,
+            ["model.init_from=none", f"data.schema_path={schema_path}",
+             f"train.profile_dir={prof_dir}", "train.debug_nans=true"],
+            RETRAIN_SHORT_STEPS, "retrain profiled")
+        traces = os.listdir(prof_dir)
+        with open(os.path.join(prof_dir, traces[0])) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        kernels = sorted({m.group(1) for n in names
+                          for m in [re.search(r"(tower_\w+?_kernel)", n)] if m})
+        print(f"retrain: train.profile_dir wrote {traces} ({len(names)} event names), "
+              f"naming {kernels}; train.debug_nans ran {result['state'].step} steps")
+        if len(traces) != 1 or not {"tower_fwd_kernel", "tower_bwd_rows_kernel"} <= set(kernels):
+            raise AssertionError("retrain: the trace does not name the tower kernels")
+        _, _, result, _, _ = _cli_train(
+            dev, root, tmp, FNN_CONFIG,
+            ["model.init_from=none", f"data.schema_path={schema_path}",
+             "optim.dense=adam"], RETRAIN_SHORT_STEPS, "retrain adam")
+        print(f"retrain: optim.dense=adam, count {int(result['state'].dense_state.count)}, "
+              f"train loss {result['history'][0]['train_loss']:.5f}")
+        out, err = nan_proc.communicate(timeout=300)
+    finally:
+        if nan_proc.poll() is None:
+            nan_proc.kill()
+            nan_proc.wait()
+    tail = err.strip().splitlines()[-1] if err.strip() else ""
+    print(f"retrain: a NaN in table row {row}, which the first batch uses, with "
+          f"train.debug_nans=true: exit {nan_proc.returncode}, '{tail}'")
+    if nan_proc.returncode == 0 or "FloatingPointError: train step 1:" not in tail:
+        raise AssertionError(f"retrain: the NaN run was not refused at step 1: {err[-2000:]}")
+    return {"epoch_rates": epoch_rates, "feeds": feeds}
+
+
 def _template_args(mangled) -> str:
     """``<64, true>`` for a mangled ``ILi64ELb1EE``; '' for none."""
     if not mangled:
@@ -1305,6 +1635,7 @@ def main() -> int:
                            got.cpu(), want.cpu())
         if main_err is None:
             main_err = err
+        _check_nan_row(name, x, layers, act)
         if not timed:
             continue
         times = {"plain": [], "kernel": []}
@@ -1434,6 +1765,7 @@ def main() -> int:
         _phase10_deepfm(dev, root, tmp, schema, schema_path)
         _phase11_lr_ipnn(dev, tmp, schema)
         _phase12_snn(dev, root, tmp, schema, schema_path)
+        _phase13_retrain(dev, root, tmp, schema, schema_path)
 
     work = _tower_work(BATCH, fnn_dims)
     fm_rows = REQUESTS * 18 * (1 + K)   # the timed fm_score shape [65536, 18, 11]

@@ -3,26 +3,33 @@
 Port of ``deepctr_tpu/cli.py`` for LR, FM, FNN, SNN, DeepFM and PNN
 (IPNN/OPNN): it reads the same ``configs/*.json`` and dotted overrides
 (``deepctr_torch.config.RunConfig``, the port's copy of the reference's),
-trains (``run``: data, model, optimizers, the FM -> FNN hand-off, SNN's DAE
-or RBM pretraining (``train.pretrain``) and its hand-off, ``fit``,
-checkpoints, an FM run's ``.fm_table`` and JSONL metrics), or with
-``--score`` scores a yx file with a checkpoint written by either package,
-printing one probability per line.
+trains (``run``: data in RAM or streamed from shard files
+(``data.stream``), model, optimizers, a resumed train state
+(``train.resume``), the FM -> FNN hand-off, SNN's DAE or RBM pretraining
+(``train.pretrain``) and its hand-off, ``fit``, checkpoints, an FM run's
+``.fm_table`` and JSONL metrics), or with ``--score`` scores a yx file with
+a checkpoint written by either package, printing one probability per
+line; ``--print-config`` prints the resolved config and exits.
 ``--device`` names where the model runs, and the device alone picks the
 kernels: on CUDA the hand-written ones, on the CPU their plain versions.
 Asking for CUDA where there is none raises.
 
-Keys of the shared config that are TPU mechanisms are read and have no
-effect here: ``model.use_pallas`` (the device picks the kernels),
-``train.scan_steps`` (``lax.scan`` dispatch), ``train.split_threshold`` (the
-one-hot split plan) and ``train.prefetch`` (the JAX device prefetcher).
-Keys the port does not honour yet raise ``NotImplementedError`` when set
-away from their defaults (``UNPORTED_KEYS``).
+``train.prefetch`` (default true) stages the training batches on a
+background thread, onto the card through pinned buffers and a side stream
+(``data.DevicePrefetcher``). ``train.profile_dir`` writes a
+``torch.profiler`` trace of the training phase there; ``train.debug_nans``
+turns on autograd's anomaly mode and raises at the first step whose loss is
+not finite. Keys of the shared config that are TPU mechanisms are read and
+have no effect here: ``model.use_pallas`` (the device picks the kernels),
+``train.scan_steps`` (``lax.scan`` dispatch) and ``train.split_threshold``
+(the one-hot split plan). The multi-GPU keys raise ``NotImplementedError``
+when set away from their defaults (``UNPORTED_KEYS``).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import torch
@@ -33,10 +40,6 @@ from .config import RunConfig
 UNPORTED_KEYS = {
     "train.sharded": "slice 5, item 15 (row-sharded multi-GPU training)",
     "train.distributed": "slice 5, item 16 (multi-process runs)",
-    "data.stream": "slice 4, item 13 (streaming input to fit)",
-    "train.profile_dir": "slice 4, item 13 (the CLI's profiler hook)",
-    "train.resume": "slice 4, item 11 (train-state resume)",
-    "train.debug_nans": "slice 4, item 13 (the CLI's NaN check)",
 }
 
 
@@ -100,9 +103,26 @@ def check_ported(cfg) -> None:
             )
 
 
+def _process_group() -> tuple[int, int]:
+    """(world size, rank) of an initialised ``torch.distributed`` group,
+    else (1, 0)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
 def load_data(cfg):
     """Returns (schema, train_ids, train_labels, test_ids, test_labels), as
-    the reference's ``load_data`` without its streaming branch."""
+    the reference's ``load_data``.
+
+    With ``data.stream=true`` the second element is a
+    ``data.stream.StreamSource`` over the shard files of
+    ``data.train_path`` (a file, glob or comma list) and the third is None;
+    only the test set is read into RAM. In a ``torch.distributed`` group
+    each rank streams its own slice of every epoch's shards and makes its
+    share of the batch."""
     from .data import Schema, featindex, ipinyou_like_schema, parser, synthetic
     from .data.cache import cache_text_file, read_cache
     from .data.criteo import criteo_schema, parse_criteo_file
@@ -110,6 +130,9 @@ def load_data(cfg):
     d = cfg.data
     if d.format not in ("yx", "criteo"):
         raise ValueError(f"unknown data format {d.format!r} (yx|criteo)")
+    if d.stream and not d.train_path:
+        raise ValueError("data.stream=true requires data.train_path "
+                         "(shard file, glob, or comma list)")
     fi = None
     if d.featindex_path:
         if d.format != "yx":
@@ -148,6 +171,35 @@ def load_data(cfg):
             labels, ids = parser.parse_yx_file(path, schema)
         return ids, labels
 
+    if d.stream:
+        if not d.test_path:
+            raise ValueError(
+                "data.stream=true requires data.test_path (the eval set is "
+                "the only part materialized in RAM)"
+            )
+        from .data.stream import StreamSource
+
+        pc, pi = _process_group()
+        if cfg.train.batch_size % pc:
+            raise ValueError(
+                f"train.batch_size {cfg.train.batch_size} must divide by "
+                f"process_count {pc}"
+            )
+        source = StreamSource(
+            paths=d.train_path,
+            schema=schema,
+            batch_size=cfg.train.batch_size // pc,
+            fmt="yx-featindex" if fi is not None else d.format,
+            buffer_rows=d.stream_buffer_rows,
+            seed=cfg.train.seed,
+            use_native=d.use_native_parser,
+            featindex=fi,
+            process_index=pi,
+            process_count=pc,
+        )
+        te_ids, te_labels = read(d.test_path)
+        return schema, source, None, te_ids, te_labels
+
     tr_ids, tr_labels = read(d.train_path)
     if d.test_path:
         te_ids, te_labels = read(d.test_path)
@@ -161,33 +213,58 @@ def load_data(cfg):
 def run(cfg, device: torch.device) -> dict:
     """Train the configured model on ``device``; returns the best AUC, its
     epoch, the per-epoch history and the final ``TrainState``."""
+    check_ported(cfg)
+    with torch.autograd.set_detect_anomaly(cfg.train.debug_nans):
+        return _run(cfg, device)
+
+
+def _run(cfg, device: torch.device) -> dict:
+    from .data.stream import StreamSource
     from .train import fit, init_state, pretrain_snn
     from .utils.checkpoint import (
         init_fnn_from_fm,
         init_snn_from_pretrain,
         load_fm_embeddings,
+        load_train_state,
+        read_manifest,
         save_fm_embeddings,
         save_train_state,
     )
     from .utils.logging import MetricsLogger
+    from .utils.prof import trace
 
-    check_ported(cfg)
     schema, tr_ids, tr_labels, te_ids, te_labels = load_data(cfg)
+    train_source = tr_ids if isinstance(tr_ids, StreamSource) else None
+    if train_source is not None:
+        tr_ids = tr_labels = None
     model = build_model(cfg, schema, device)
     sparse_opt, dense_opt = build_optimizers(cfg)
     logger = MetricsLogger(cfg.train.metrics_path, echo=True)
     state = init_state(model, schema, sparse_opt, dense_opt, seed=cfg.train.seed,
                        table_dtype=cfg.train.table_dtype)
-    # the two-phase flows. The FM -> FNN hand-off: for other models
+    ckpt_path = cfg.train.checkpoint_path
+    resumed = bool(cfg.train.resume and ckpt_path and os.path.exists(ckpt_path))
+    start_epoch = 0
+    if resumed:
+        state = load_train_state(ckpt_path, state)
+        start_epoch = int(read_manifest(ckpt_path).get("epoch", 0))
+        logger.log({"event": "resumed", "path": ckpt_path, "step": state.step,
+                    "epoch": start_epoch})
+    # the two-phase flows, skipped when resuming (the checkpoint holds the
+    # seeded or pretrained table). The FM -> FNN hand-off: for other models
     # init_from means nothing, as in the reference
-    if cfg.model.name == "fnn" and cfg.model.init_from:
+    if not resumed and cfg.model.name == "fnn" and cfg.model.init_from:
         init_fnn_from_fm(model, load_fm_embeddings(cfg.model.init_from))
         logger.log({"event": "init_from_fm", "path": cfg.model.init_from})
-    # SNN's pretraining. data.stream, with which the reference refuses to
-    # pretrain, is refused above for every model until streaming is ported
-    if cfg.model.name == "snn" and cfg.train.pretrain:
+    if not resumed and cfg.model.name == "snn" and cfg.train.pretrain:
         from .models import DaePretrainer, RbmPretrainer
 
+        if train_source is not None:
+            raise ValueError(
+                "SNN pretraining iterates the training ids in RAM; use "
+                "data.stream=false (or pretrain on a subsample file first "
+                "and pass model.init_from)"
+            )
         if cfg.train.pretrain not in ("dae", "rbm"):
             raise ValueError(f"train.pretrain {cfg.train.pretrain!r} (dae|rbm)")
         pre = (DaePretrainer(m=cfg.train.pretrain_m,
@@ -207,32 +284,36 @@ def run(cfg, device: torch.device) -> dict:
 
     def on_epoch(epoch, st, rec):
         logger.log({"event": "heartbeat", "epoch": epoch, "step": st.step})
-        if (cfg.train.checkpoint_path
-                and (epoch + 1) % max(cfg.train.checkpoint_every, 1) == 0):
-            save_train_state(cfg.train.checkpoint_path, st, epoch=epoch + 1,
-                             meta=ckpt_meta, schema=schema)
+        if ckpt_path and (epoch + 1) % max(cfg.train.checkpoint_every, 1) == 0:
+            save_train_state(ckpt_path, st, epoch=epoch + 1, meta=ckpt_meta,
+                             schema=schema)
 
-    res = fit(
-        model, schema, tr_ids, tr_labels, te_ids, te_labels,
-        sparse_opt=sparse_opt,
-        dense_opt=dense_opt,
-        batch_size=cfg.train.batch_size,
-        epochs=cfg.train.epochs,
-        l2=cfg.optim.l2,
-        seed=cfg.train.seed,
-        early_stop_patience=cfg.train.early_stop_patience,
-        lr_decay=cfg.train.lr_decay,
-        state=state,
-        logger=logger,
-        on_epoch=on_epoch,
-    )
-    if cfg.train.checkpoint_path:
-        epochs_done = sum(1 for r in res.history if not r.get("eval_only"))
-        save_train_state(cfg.train.checkpoint_path, res.state, epoch=epochs_done,
-                         meta=ckpt_meta, schema=schema)
-        if cfg.model.name == "fm":
-            save_fm_embeddings(cfg.train.checkpoint_path + ".fm_table",
-                               res.state.table)
+    with trace(cfg.train.profile_dir):
+        res = fit(
+            model, schema, tr_ids, tr_labels, te_ids, te_labels,
+            sparse_opt=sparse_opt,
+            dense_opt=dense_opt,
+            batch_size=cfg.train.batch_size,
+            epochs=cfg.train.epochs,
+            l2=cfg.optim.l2,
+            seed=cfg.train.seed,
+            early_stop_patience=cfg.train.early_stop_patience,
+            lr_decay=cfg.train.lr_decay,
+            state=state,
+            logger=logger,
+            prefetch=cfg.train.prefetch,
+            on_epoch=on_epoch,
+            start_epoch=start_epoch,
+            train_source=train_source,
+            debug_nans=cfg.train.debug_nans,
+        )
+        if ckpt_path:
+            epochs_done = start_epoch + sum(
+                1 for r in res.history if not r.get("eval_only"))
+            save_train_state(ckpt_path, res.state, epoch=epochs_done,
+                             meta=ckpt_meta, schema=schema)
+            if cfg.model.name == "fm":
+                save_fm_embeddings(ckpt_path + ".fm_table", res.state.table)
     logger.log({"event": "done", "best_auc": res.best_auc})
     logger.close()
     return {"best_auc": res.best_auc, "best_epoch": res.best_epoch,
@@ -257,6 +338,8 @@ def main(argv=None):
         "overrides", nargs="*",
         help="dotted overrides, e.g. train.checkpoint_path=fnn.ckpt train.batch_size=8192",
     )
+    ap.add_argument("--print-config", action="store_true",
+                    help="print the resolved config as JSON and exit")
     ap.add_argument(
         "--score", metavar="YX_FILE",
         help="score a yx file with the checkpoint at train.checkpoint_path "
@@ -268,6 +351,9 @@ def main(argv=None):
 
     cfg = RunConfig.load(args.config) if args.config else RunConfig()
     cfg = cfg.apply_overrides(args.overrides)
+    if args.print_config:
+        print(cfg.to_json())
+        return 0
     if args.score:
         return score(cfg, args.score, resolve_device(args.device))
     run(cfg, resolve_device(args.device))

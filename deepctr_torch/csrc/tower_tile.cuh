@@ -97,12 +97,15 @@ __host__ __device__ __forceinline__ int act_ld(int width) {
 // interleave: tanh v = (e - 1) / (e + 1) with e = exp(2v), sigmoid v =
 // e / (e + 1) with e = exp(v) (two MUFU operations each, within 2.5e-7 of
 // tanh and sigmoid; the exponent is clamped at 80, where both are 1 in
-// f32), relu a select.
+// f32), relu a select. The clamp and relu are comparisons, not
+// fminf/fmaxf, which return the other operand for a NaN: a NaN goes
+// through, as through torch.tanh, torch.relu and the reference's jnp ops.
 __device__ __forceinline__ float activate(float v, int act) {
   const bool tanh = act == kTanh;
-  const float e = __expf(fminf(fmaxf(tanh ? 2.0f * v : v, -80.0f), 80.0f));
+  const float x = tanh ? 2.0f * v : v;
+  const float e = __expf(x < -80.0f ? -80.0f : (x > 80.0f ? 80.0f : x));
   const float y = __fdividef(tanh ? e - 1.0f : e, e + 1.0f);
-  return act == kRelu ? fmaxf(v, 0.0f) : y;
+  return act == kRelu ? (v < 0.0f ? 0.0f : v) : y;
 }
 
 // The activation's derivative from its output a = act(z), as the reference
@@ -116,11 +119,14 @@ __device__ __forceinline__ float activate_deriv(float a, int act) {
 
 // x = hi + lo, both rounded to TF32 as cvt.rna.tf32.f32 rounds a finite
 // value: half a TF32 ulp is added to the bits (ties away from zero) and the
-// 13 bits below TF32's are cleared, hi's first so that x - hi is exact.
-// Five instructions: the compiler's cvt.rna.tf32.f32 takes seven with its
-// inf and NaN guard.
+// 13 bits below TF32's are cleared, hi's first so that x - hi is exact. A
+// NaN's hi is the quiet NaN 0x7FC00000: the NaNs the device makes are
+// 0x7FFFFFFF, whose add would carry into the sign bit and give -0, so a
+// NaN activation would reach the next layer as 0 (its lo is then -0, and
+// hi carries the NaN). The compiler's cvt.rna.tf32.f32 has the same guard,
+// for inf as well.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  hi = x != x ? 0x7FC00000u : (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
   lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xFFFFE000u;
 }
 

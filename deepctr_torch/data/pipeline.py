@@ -1,11 +1,13 @@
-"""Host-side input pipeline: fixed-shape minibatches and yx streaming.
+"""Host-side input pipeline: fixed-shape minibatches, yx streaming, and the
+device prefetcher.
 
 Copy of ``minibatches``, ``epoch_iterator``, ``Batch`` and
 ``stream_yx_batches`` from ``deepctr_tpu/data/pipeline.py``. The port
 imports nothing of the JAX package, so it keeps this copy; its behaviour is
 meant to be identical, and ``tests/test_torch_data.py`` holds it to the
-original. The reference's ``DevicePrefetcher`` stages batches with JAX and
-is not copied.
+original. ``DevicePrefetcher`` is the reference's, written anew for CUDA
+streams (its ``sharding`` and ``process_axis`` belong to the multi-GPU
+runs, ROADMAP.md items 15-16).
 
 - iterates packed ``(ids, labels)`` arrays in shuffled minibatches with a
   static batch size (last partial batch padded with pad_id rows and weight 0
@@ -16,6 +18,8 @@ is not copied.
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -97,6 +101,119 @@ def epoch_iterator(
         ):
             yield epoch, b
         epoch += 1
+
+
+class DevicePrefetcher:
+    """Background-thread staging of host batches onto ``device``.
+
+    Overlaps host work (parse, shuffle, pack) and the host-to-device copy
+    with the device's work: while step N runs, batches N+1 .. N+depth are
+    being staged. Iterating it yields what the wrapped iterator yields,
+    in order.
+
+    On a CUDA device each ``Batch``'s arrays are copied into pinned host
+    buffers from a small ring, then to the card with ``non_blocking`` copies
+    on a side stream, followed by an event. The consumer's stream waits on
+    that event before the batch is handed out, and each tensor is marked
+    with ``record_stream`` so that the caching allocator does not give its
+    memory to a later batch while the step still reads it. A ring slot is
+    refilled only once its last copy has finished (the worker waits on the
+    slot's event), so no buffer is pinned per batch. A batch that cannot be
+    staged raises; nothing falls back to a synchronous copy. On the CPU
+    batches pass through unchanged.
+
+    An exception in the worker reaches the consumer. ``close()`` stops the
+    worker (``fit`` calls it when an epoch ends or raises); the worker is a
+    daemon thread, so a prefetcher abandoned by its consumer does not keep
+    the process alive.
+    """
+
+    _DONE = object()
+
+    def __init__(self, it, device, depth: int = 2):
+        import torch
+
+        self._device = torch.device(device)
+        self._cuda = self._device.type == "cuda"
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._err: BaseException | None = None
+        self._done = False
+        if self._cuda:
+            self._stream = torch.cuda.Stream(device=self._device)
+            # a slot per queued batch and one being staged
+            self._ring: list = [None] * (depth + 1)
+        self._t = threading.Thread(target=self._work, args=(iter(it),), daemon=True)
+        self._t.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _work(self, it) -> None:
+        try:
+            for n, item in enumerate(it):
+                if self._stop.is_set() or not self._put(
+                        self._stage(item, n) if self._cuda else item):
+                    return
+        except BaseException as e:  # propagate to the consumer
+            self._err = e
+        finally:
+            self._put(self._DONE)
+
+    def _stage(self, batch: Batch, n: int):
+        import torch
+
+        slot = n % len(self._ring)
+        arrays = [torch.from_numpy(np.ascontiguousarray(a))
+                  for a in (batch.ids, batch.labels, batch.weights)]
+        pinned, event = self._ring[slot] or (None, None)
+        if event is not None:
+            event.synchronize()   # the slot's last copy has finished
+        if pinned is None or any(p.shape != a.shape or p.dtype != a.dtype
+                                 for p, a in zip(pinned, arrays)):
+            pinned = [torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                      for a in arrays]
+        for p, a in zip(pinned, arrays):
+            p.copy_(a)
+        with torch.cuda.stream(self._stream):
+            staged = [p.to(self._device, non_blocking=True) for p in pinned]
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        self._ring[slot] = (pinned, event)
+        return Batch(*staged), event
+
+    def close(self) -> None:
+        """Stop the worker and wait for it (it stops between batches)."""
+        self._stop.set()
+        self._t.join()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._DONE if self._done else self._q.get()
+        if item is self._DONE:
+            self._done = True
+            if self._err is not None:
+                err, self._err = self._err, None
+                raise err
+            raise StopIteration
+        if not self._cuda:
+            return item
+        import torch
+
+        batch, event = item
+        consumer = torch.cuda.current_stream(self._device)
+        consumer.wait_event(event)
+        for t in (batch.ids, batch.labels, batch.weights):
+            t.record_stream(consumer)
+        return batch
 
 
 def stream_yx_batches(

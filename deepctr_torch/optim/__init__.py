@@ -1,6 +1,6 @@
 """Optimizers of the port: sparse per-row (table) and dense (tower)."""
 
-from .dense import Adagrad, Sgd, make_dense_optimizer
+from .dense import Adagrad, Adam, AdamState, Sgd, make_dense_optimizer
 from .sparse import (
     SparseAdagrad,
     SparseAdagradState,
@@ -11,6 +11,8 @@ from .sparse import (
 
 __all__ = [
     "Adagrad",
+    "Adam",
+    "AdamState",
     "Sgd",
     "make_dense_optimizer",
     "SparseAdagrad",

@@ -3,14 +3,18 @@
 Port of ``deepctr_tpu/train/loop.py`` (``evaluate``, ``fit`` on its
 per-step route, and ``pretrain_snn``). Epochs shuffle through
 ``data.minibatches`` with ``seed + epoch`` and drop the last partial batch
-(pretraining epochs too); the learning rate decays
+(pretraining epochs too), or stream shards through a
+``data.stream.StreamSource`` (``train_source``); the learning rate decays
 by ``lr_decay ** epoch``; training stops early when the held-out AUC has not
 improved for more than ``early_stop_patience`` epochs. ``start_epoch``
-continues the epoch schedule of a saved run.
+continues the epoch schedule of a saved run, so a killed and resumed run
+gives the uninterrupted run's bits. ``prefetch`` stages the training
+batches on a background thread (``data.DevicePrefetcher``); as in the
+reference, eval and ``pretrain_snn`` do not prefetch.
 
-Not here: the reference's ``lax.scan`` route (a JAX dispatch device), its
-background device prefetcher (ROADMAP.md slice 4) and streaming input
-(``train_source``, a later slice).
+Not here: the reference's ``lax.scan`` route (a JAX dispatch device;
+``scan_steps`` is not an argument, so a stream always feeds ``batches``,
+never ``scan_chunks``).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..data import Schema, minibatches
+from ..data import DevicePrefetcher, Schema, minibatches
 from ..utils import metrics as M
 from ..utils.logging import MetricsLogger
 from .step import (
@@ -81,11 +85,20 @@ def fit(
     on_epoch: Callable[[int, TrainState, dict], None] | None = None,
     start_epoch: int = 0,
     table_dtype: str = "f32",
+    prefetch: bool = True,
+    train_source=None,
+    debug_nans: bool = False,
 ) -> FitResult:
     """Train ``model`` (in place) with per-epoch eval and early stop on
     held-out AUC. Without ``state``, the model is initialised from
-    ``seed``."""
-    step = make_train_step(schema, sparse_opt, dense_opt, l2=l2)
+    ``seed``.
+
+    ``train_source`` (a ``data.stream.StreamSource``) replaces the in-RAM
+    ``train_ids``/``train_labels`` (pass None): each epoch is
+    ``train_source.batches(epoch)``. ``debug_nans`` raises
+    ``FloatingPointError`` at the first step whose loss is not finite."""
+    step = make_train_step(schema, sparse_opt, dense_opt, l2=l2,
+                           check_finite=debug_nans)
     eval_step = make_eval_step(schema)
     if state is None:
         state = init_state(model, schema, sparse_opt, dense_opt, seed=seed,
@@ -100,12 +113,20 @@ def fit(
         lr_scale = lr_decay**epoch
         n_batches = 0
         losses = []  # device scalars, read once per epoch
-        for b in minibatches(train_ids, train_labels, batch_size, schema=schema,
-                             shuffle=True, seed=seed + epoch,
-                             drop_remainder=True):
-            state, m = step(state, b.ids, b.labels, b.weights, lr_scale)
-            losses.append(m.loss)
-            n_batches += 1
+        it = (train_source.batches(epoch) if train_source is not None
+              else minibatches(train_ids, train_labels, batch_size, schema=schema,
+                               shuffle=True, seed=seed + epoch,
+                               drop_remainder=True))
+        if prefetch:
+            it = DevicePrefetcher(it, model.table.device)
+        try:
+            for b in it:
+                state, m = step(state, b.ids, b.labels, b.weights, lr_scale)
+                losses.append(m.loss)
+                n_batches += 1
+        finally:
+            if prefetch:
+                it.close()
         sync()
         train_time = time.perf_counter() - t0
         loss_sum = float(torch.stack(losses).sum()) if losses else 0.0

@@ -51,7 +51,7 @@ class TrainState:
     step: int
     model: nn.Module              # table and dense parameters, updated in place
     sparse_state: Any
-    dense_state: list[torch.Tensor]
+    dense_state: Any              # the dense optimizer's (a list, or AdamState)
     generator: torch.Generator    # dropout seeds, on the CPU
 
     @property
@@ -66,9 +66,18 @@ class TrainState:
             model=copy.deepcopy(self.model),
             sparse_state=type(self.sparse_state)(
                 *(t.clone() for t in self.sparse_state)),
-            dense_state=[t.clone() for t in self.dense_state],
+            dense_state=_clone_tree(self.dense_state),
             generator=generator,
         )
+
+
+def _clone_tree(node):
+    """A copy of a state made of tensors, lists and NamedTuples."""
+    if isinstance(node, torch.Tensor):
+        return node.clone()
+    if isinstance(node, tuple):
+        return type(node)(*(_clone_tree(sub) for sub in node))
+    return [_clone_tree(sub) for sub in node]
 
 
 class StepMetrics(NamedTuple):
@@ -107,14 +116,23 @@ def init_state(model: nn.Module, schema: Schema, sparse_opt, dense_opt,
 
 
 def _to_device(a, device, dtype) -> torch.Tensor:
+    """A numpy array or tensor on ``device`` in ``dtype``. A tensor already
+    there (a prefetched batch) is not copied again; a dtype change is then
+    an op on the device."""
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
     return t.to(device=device, dtype=dtype, non_blocking=True)
 
 
-def make_train_step(schema: Schema, sparse_opt, dense_opt, l2: float = 0.0):
+def make_train_step(schema: Schema, sparse_opt, dense_opt, l2: float = 0.0,
+                    check_finite: bool = False):
     """Build ``step(state, ids, labels, weights, lr_scale=1.0, seed=None)
     -> (state, StepMetrics)``. Batches are numpy arrays or tensors; they
-    go to the model's device."""
+    go to the model's device.
+
+    ``check_finite`` (the CLI's ``train.debug_nans``) reads the loss on the
+    host before the backward pass, a sync every step, and raises
+    ``FloatingPointError`` at the first step whose loss is not finite,
+    before anything is updated."""
     pad_id = schema.pad_id
 
     def step(state: TrainState, ids, labels, weights, lr_scale: float = 1.0,
@@ -133,6 +151,9 @@ def make_train_step(schema: Schema, sparse_opt, dense_opt, l2: float = 0.0):
         logits = model.apply_rows(rows, mask, train=True, seed=seed)
         loss = weighted_bce_with_logits(logits, labels, weights)
         loss = loss + lazy_l2(rows, mask, l2)
+        if check_finite and not bool(torch.isfinite(loss)):
+            raise FloatingPointError(f"train step {state.step + 1}: loss "
+                                     f"{float(loss.detach())} is not finite")
         g_rows, *g_dense = torch.autograd.grad(loss, [rows] + params)
 
         sparse_opt.update(model.table.data, state.sparse_state,

@@ -19,8 +19,8 @@ done here by hand:
   marker and hands FNN the raw uint16 bits of a bf16 FM table; the port's
   honours it.
 
-Resuming from a train-state checkpoint (``load_train_state``) is not ported
-yet (ROADMAP.md, slice 4, item 11).
+``load_train_state`` resumes from a train state that either package wrote
+(see its docstring for the dropout generator of a JAX-written file).
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from ..optim.dense import AdamState
 
 Tree = Any  # nested dicts and lists with array leaves
 
@@ -119,14 +121,9 @@ def save_train_state(path: str, state, epoch: int = 0,
     records the epochs completed. A bf16 table is stored as uint16 bits
     with the ``bf16_leaves`` marker, as ``save_pytree`` does; both
     packages' ``--score`` read the result."""
-    model = state.model
-    names = [key for key, _ in model.named_parameters() if key != "table"]
-    params = dict(model.named_parameters())
-    dense = jax_leaves(_nest((key, params[key]) for key in names))
-    dense_state = jax_leaves(_nest(zip(names, state.dense_state)))
-    sparse = list(state.sparse_state)
-    leaves = [np.int32(state.step), model.table, *sparse, *dense,
-              *dense_state, state.generator.get_state()]
+    table, sparse, dense, dense_state = _state_leaves(state)
+    leaves = [np.int32(state.step), table, *sparse, *dense, *dense_state,
+              state.generator.get_state()]
     _write(path, leaves, {
         "treedef": "deepctr_torch TrainState(step, table, sparse_state, "
                    "dense, dense_state, generator)",
@@ -134,6 +131,76 @@ def save_train_state(path: str, state, epoch: int = 0,
         "scoring": {"table_leaf": 1, "dense_start": 2 + len(sparse),
                     "n_dense": len(dense)},
     }, schema=schema, meta=meta)
+
+
+def _state_leaves(state) -> tuple:
+    """The tensors of a ``train.TrainState`` in the reference's leaf order:
+    ``(table, sparse state, dense, dense state)``. The dense parameters and
+    the dense optimizer's per-parameter tensors go in ``jax_leaves`` order
+    of the nested names (not ``named_parameters`` order); Adam's state goes
+    as optax's ``ScaleByAdamState``: count, every ``mu``, every ``nu``."""
+    model = state.model
+    params = dict(model.named_parameters())
+    names = [key for key in params if key != "table"]
+
+    def ordered(per_param):
+        return jax_leaves(_nest(zip(names, per_param)))
+
+    ds = state.dense_state
+    dense_state = ([ds.count, *ordered(ds.mu), *ordered(ds.nu)]
+                   if isinstance(ds, AdamState) else ordered(ds))
+    return (model.table, list(state.sparse_state),
+            ordered([params[key] for key in names]), dense_state)
+
+
+@torch.no_grad()
+def load_train_state(path: str, state):
+    """Restore a train-state checkpoint written by either package into
+    ``state`` (a ``train.TrainState`` built for the same model and
+    optimizers, as ``init_state`` gives it), in place, and return it.
+
+    Restored: ``step``; the table, whose dtype must be the state's (a bf16
+    table keeps its bits); the sparse optimizer's state; the dense
+    parameters; the dense optimizer's state; and the dropout generator. A
+    port-written file holds the generator's state in its last leaf. A
+    JAX-written one holds a PRNG key ``uint32[2]`` there, whose stream the
+    port does not reproduce: the generator is then seeded with the key's
+    two words as one 64-bit integer, ``(key[0] << 32) | key[1]``. A leaf
+    count, shape or dtype that does not match the state (another model,
+    optimizer or ``train.table_dtype``) raises ``ValueError``."""
+    table, sparse, dense, dense_state = _state_leaves(state)
+    targets = [table, *sparse, *dense, *dense_state]
+    manifest = read_manifest(path)
+    n = len(targets) + 2   # and the step first, the generator last
+    if manifest["n"] != n:
+        raise ValueError(
+            f"{path}: {manifest['n']} leaves, the train state expects {n} "
+            f"(step, table, {len(sparse)} sparse-state, {len(dense)} dense, "
+            f"{len(dense_state)} dense-state, generator): model or optimizer "
+            f"mismatch")
+    bf16 = set(manifest.get("bf16_leaves", ()))
+    with np.load(path, allow_pickle=False) as z:
+        for i, target in enumerate(targets, start=1):
+            a = z[f"leaf_{i}"]
+            got = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+                   if i in bf16 else torch.from_numpy(a))
+            if got.shape != target.shape or got.dtype != target.dtype:
+                raise ValueError(
+                    f"{path}: leaf {i} is {got.dtype}{list(got.shape)}, the "
+                    f"train state's is {target.dtype}{list(target.shape)}: "
+                    f"model, optimizer or train.table_dtype mismatch")
+            target.copy_(got)
+        step = int(z["leaf_0"])
+        rng = z[f"leaf_{n - 1}"]
+    if rng.dtype == np.uint8:
+        state.generator.set_state(torch.from_numpy(rng))
+    elif rng.dtype == np.uint32 and rng.shape == (2,):
+        state.generator.manual_seed((int(rng[0]) << 32) | int(rng[1]))
+    else:
+        raise ValueError(f"{path}: last leaf {rng.dtype}{list(rng.shape)} is "
+                         f"neither a generator state nor a JAX PRNG key")
+    state.step = step
+    return state
 
 
 def save_fm_embeddings(path: str, table) -> None:

@@ -16,6 +16,10 @@ import deepctr_torch, deepctr_torch.cli, deepctr_torch.serving
 import deepctr_torch.optim, deepctr_torch.train, deepctr_torch.utils.metrics
 import deepctr_torch.ops.interaction, deepctr_torch.ops.kernels.interaction
 import deepctr_torch.models.snn
+import deepctr_torch.data.stream, deepctr_torch.utils.prof
+from deepctr_torch.data import DevicePrefetcher, StreamSource
+from deepctr_torch.utils.checkpoint import load_train_state
+from deepctr_torch.utils.metrics import auc_state_finalize, auc_state_init
 from deepctr_torch.models import (DeepFMModel, FMModel, LRModel, MlpSpec, PNNModel,
                                   make_deepfm, make_fm, make_fnn, make_lr, make_pnn)
 from deepctr_torch.optim import SparseAdagrad, make_dense_optimizer
@@ -33,6 +37,9 @@ state = init_state(model, schema, sopt, dopt, seed=0, table_dtype="bf16")
 state, m = make_train_step(schema, sopt, dopt)(state, ds.ids, ds.labels,
                                                np.ones(20, np.float32))
 assert state.step == 1 and np.isfinite(float(m.loss)), m
+assert [b.ids.shape for b in DevicePrefetcher(
+    deepctr_torch.data.minibatches(ds.ids, ds.labels, 8, schema=schema), "cpu")] == [
+    (8, schema.num_slots)] * 3
 model = make_fm(schema, k=2, device="cpu")
 state = init_state(model, schema, sopt, dopt, seed=0, table_dtype="bf16")
 state, m = make_train_step(schema, sopt, dopt, l2=1e-6)(state, ds.ids, ds.labels,

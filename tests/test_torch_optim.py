@@ -187,5 +187,34 @@ def test_dense_adagrad_is_not_torch_adagrad():
 
 
 def test_unknown_dense_optimizer_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_dense.make_dense_optimizer("adam", 0.1)
+    """The reference's error type for a name optax does not have; the port
+    takes three names."""
+    with pytest.raises(ValueError, match="sgd | adagrad | adam"):
+        t_dense.make_dense_optimizer("rmsprop", 0.1)
+    assert isinstance(t_dense.make_dense_optimizer("adam", 0.1), t_dense.Adam)
+
+
+@pytest.mark.parametrize("lr_scale", [1.0, 0.7])
+def test_dense_adam_matches_optax(lr_scale):
+    """Five steps of ``Adam`` against ``optax.adam``, the update scaled by
+    ``lr_scale`` before it is added, as the train step does; gradients that
+    shrink by 10x a step bring ``sqrt(nu_hat)`` down towards ``eps``."""
+    rng = np.random.default_rng(5)
+    shapes = [(6, 4), (4,), (4, 1), (1,)]
+    params = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    jopt, topt = optax.adam(0.01), t_dense.Adam(0.01)
+    jparams = [jnp.asarray(p) for p in params]
+    tparams = [torch.from_numpy(p.copy()) for p in params]
+    jstate, tstate = jopt.init(jparams), topt.init(tparams)
+    for i in range(5):
+        grads = [(rng.normal(size=s) * 10.0 ** -i).astype(np.float32) for s in shapes]
+        updates, jstate = jopt.update([jnp.asarray(g) for g in grads], jstate, jparams)
+        jparams = optax.apply_updates(jparams, [u * lr_scale for u in updates])
+        tstate = topt.update(tparams, [torch.from_numpy(g) for g in grads], tstate,
+                             lr_scale=lr_scale)
+    assert tstate.count.dtype == torch.int32 and int(tstate.count) == 5
+    assert int(jstate[0].count) == 5
+    for t, j in zip(tparams, jparams, strict=True):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6, atol=1e-7)
+    for t, j in zip(tstate.mu + tstate.nu, jstate[0].mu + jstate[0].nu, strict=True):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6, atol=1e-12)

@@ -502,17 +502,43 @@ def test_jax_snn_checkpoint_scores_in_the_port(tiny_schema, tmp_path, capsys, ta
 
 @pytest.mark.parametrize("override,error", [
     ("train.sharded=true", NotImplementedError),
-    ("data.stream=true", NotImplementedError),
-    ("train.resume=true", NotImplementedError),
+    ("data.stream=true", ValueError),
     ("train.pretrain=cd2", ValueError),
 ])
 def test_cli_snn_still_refuses(tiny_schema, tmp_path, override, error):
     """What the SNN route does not take: the sharded multi-GPU run of
-    ``configs/snn_dae_multichip.json``, streaming input (with which the
-    reference refuses to pretrain, too), resuming, and an unknown
-    pretrainer."""
+    ``configs/snn_dae_multichip.json``, pretraining on streamed input (the
+    reference's refusal), and an unknown pretrainer."""
+    yx = str(tmp_path / "rows.yx")
+    synthetic.write_yx_file(synthetic.generate(tiny_schema, num_examples=200, k=3,
+                                               seed=2), yx)
     argv = [f"data.schema_path={_write_schema(tiny_schema, tmp_path)}",
             "data.synthetic_examples=200", "model.name=snn", f"model.hidden1={H1}",
             "model.hidden=8", "train.pretrain=dae", override, "--device", "cpu"]
-    with pytest.raises(error):
+    if override == "data.stream=true":
+        argv[-2:-2] = [f"data.train_path={yx}", f"data.test_path={yx}"]
+    with pytest.raises(error, match="SNN pretraining" if error is ValueError
+                       and override.startswith("data") else None):
         t_cli.main(argv)
+
+
+def test_cli_snn_resumes_without_pretraining_again(tiny_schema, tmp_path, capsys):
+    """A resumed SNN run skips pretraining and its hand-off, as the
+    reference's does, and continues the saved run."""
+    ckpt = str(tmp_path / "snn.ckpt")
+    metrics = tmp_path / "m.jsonl"
+    argv = [f"data.schema_path={_write_schema(tiny_schema, tmp_path)}",
+            "data.synthetic_examples=300", "model.name=snn", f"model.hidden1={H1}",
+            "model.hidden=8", "train.pretrain=rbm", f"train.batch_size={BATCH}",
+            f"train.checkpoint_path={ckpt}", f"train.metrics_path={metrics}"]
+    assert t_cli.main(argv + ["train.epochs=1", "--device", "cpu"]) == 0
+    assert t_cli.main(argv + ["train.epochs=2", "train.resume=true",
+                              "--device", "cpu"]) == 0
+    capsys.readouterr()
+    events = [json.loads(line) for line in metrics.read_text().splitlines()]
+    kinds = [e.get("event") or ("pretrain" if "pretrain_loss" in e else "epoch")
+             for e in events]
+    assert kinds.count("init_from_pretrain") == kinds.count("pretrain") == 1
+    assert kinds.count("resumed") == 1 and kinds.index("resumed") > kinds.index(
+        "init_from_pretrain")
+    assert t_ckpt.read_manifest(ckpt)["epoch"] == 2
