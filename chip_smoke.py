@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and retraining paths once on
-one GPU.
+"""Drive the PyTorch port's serving, training, retraining and sharded
+training paths once on one GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``, and imports nothing of JAX.
 
 Phases, each printing its own lines:
-1. device: the card's name and power limit, as nvidia-smi gives them;
+1. device: the card's name and power limit, as nvidia-smi gives them, and
+   ``nvidia-smi -L``;
 2. build: the CUDA kernels of ``deepctr_torch/csrc`` compiled from source,
    one nvcc per source in parallel, with ptxas registers, static shared
    memory, spills and any wgmma serialization warning per kernel, the tower
@@ -17,7 +18,8 @@ Phases, each printing its own lines:
 3. kernel vs plain: ``mlp_tower_fwd`` against ``mlp_tower_plain`` on the
    card at the serving shape [8192, 176] with FNN widths 200-300-100 tanh,
    at [65536, 176], at a ragged batch, at SNN's [8192, 200] with its tower
-   300-100, and at small relu and sigmoid towers, each also with a NaN in
+   300-100, at the Criteo configs' [8192, 663] with 512-256-128 (tanh, the
+   configs', and relu), and at small relu and sigmoid towers, each also with a NaN in
    one input row (a NaN logit there, kernel and plain; the other rows'
    bits unchanged); the FNN shapes timed on both with CUDA events;
 4. serving end to end: full-width iPinYou FNN parameters from a seed are
@@ -30,11 +32,12 @@ Phases, each printing its own lines:
 6. training kernels vs plain: the forward with dropout and the backward
    kernel against the plain tower and autograd through it, for FNN's tanh
    200-300-100 and DeepFM's relu 200-200, at [8192, 176] and [1000, 176],
-   and SNN's tanh 300-100 at [8192, 200],
+   SNN's tanh 300-100 at [8192, 200], and the Criteo tower 512-256-128 tanh
+   and relu at [8192, 663],
    dropout 0.5 and 0 (relu: rows at its derivative's step get no upstream
    gradient, see RELU_EDGE); a second backward launch compared bit for
    bit; the FNN tower's forward, backward and both timed against the plain
-   ones;
+   ones, and the Criteo tower's forward and backward with dropout 0.5;
 7. FM scorer kernel vs plain: ``fm_score_fwd`` against ``fm_score_plain``
    at [8192, 18, 11], [65536, 18, 11], a ragged [1000, 18, 11], a small odd
    [77, 5, 4], the Criteo configs' k=16 ([8192, 39, 17]), a batch that is
@@ -89,11 +92,39 @@ Phases, each printing its own lines:
     turns, bit-identical; the three CLI epoch rates (in RAM without and
     with prefetch, streamed with prefetch); ``torch.profiler`` over warm
     steps fed by numpy batches and by the prefetcher; run A's eval logits
-    through ``AucState`` on the card against ``exact_auc``, with two
-    device-to-host copies; 5 steps with ``train.profile_dir`` and
+    through ``AucState`` on the card against ``exact_auc``, the host waiting
+    on the card in no update and twice in finalize; 5 steps with ``train.profile_dir`` and
     ``train.debug_nans`` (the trace must name the tower kernels), 5 with
     ``optim.dense=adam``, and in a subprocess a run seeded with a NaN in a
-    row of the first batch, which must exit non-zero at step 1.
+    row of the first batch, which must exit non-zero at step 1;
+14. quantised serving: phase 9's trained FNN checkpoint scored over 65,536
+    rows (the run's held-out rows and the last of its training rows) by the
+    f32, bf16 and int8 ``Scorer``s: AUC within 0.002 of f32's, the int8
+    logits against a plain path on the card that quantises the f32
+    scorer's table itself (the reference's rule), dequantises the gathered
+    rows and runs the plain tower, each table's bytes (V·D·2, V·(D+4)) with the model's f32 table released,
+    the tower launches, host ms and device ms a batch;
+15. sharded training in a world of one NCCL rank (one card; NCCL refuses
+    two ranks on one GPU, so the multi-rank checks run on the CPU with gloo
+    in the tests): (a) from one state, 3 sharded steps against 3 unsharded
+    steps bit for bit (loss, table, Adagrad accumulator, dense parameters)
+    for FNN at full iPinYou width (bf16 table, dropout 0.5, dense mode) and
+    FM k=10 (the FM scorer kernel), and the world-1 eval logits against the
+    unsharded eval's; (b) the same 3 steps with ``exchange_dtype=bf16``
+    against the f32 wire, within the reference's band; (c)
+    ``configs/fnn_full_ipinyou.json`` with ``train.sharded=true`` through
+    the CLI, one epoch of 40 steps: launches 40 / 40 of the forward with
+    dropout and of the backward, no dropped ids, its checkpoint equal to
+    phase 9's unsharded run's leaf for leaf and through ``--score`` against
+    the eval step; (d) ``configs/criteo_sharded_stretch.json`` at full width
+    (``criteo_schema(1_000_000)``, a 26,000,833 x 17 f32 table and its
+    accumulator, sorted mode, tower 663-512-256-128 with dropout 0.5,
+    capacity 2.0), cut to one epoch of 40 steps of 8192: eval AUC above 0.5,
+    no dropped ids, launches 40 / 40, the CLI epoch's examples/s, the step
+    time (CUDA events), ``torch.profiler`` over warm steps (the NCCL
+    all-to-all named), the step's own pieces timed alone (bucketing, the
+    lookup and gradient exchanges, the sorted-mode scatter) and the peak
+    device memory.
 Then one JSON line on the kernels (each with its least time on the card
 from the shapes: ``bound_ms`` against f32 on the CUDA cores, 67 TFLOP/s,
 and 3.35 TB/s, as ``bound_by`` and ``bound_kind`` say, and
@@ -154,6 +185,25 @@ RETRAIN_SHORT_STEPS = 5     # the profiled and the Adam runs
 TEST_FRACTION = 0.15        # the configs' held-out share
 FM_CONFIG = "configs/fm_k10.json"
 FNN_CONFIG = "configs/fnn_full_ipinyou.json"
+CRITEO_CONFIG = "configs/criteo_sharded_stretch.json"
+# the Criteo configs' tower: FNN pools each of the 39 fields' (w | v) rows of
+# 1 + k = 17 (26 hashed and 13 bucketised fields) into 512-256-128; a row of
+# 663 floats is no 16-byte multiple, which the weight-gradient kernel's
+# tensor copies need (the backward copies x to a stride of 664 first)
+CRITEO_IN = 39 * 17
+CRITEO_HIDDEN = (512, 256, 128)
+# the reference's band for the bf16 wire against f32 (tests/test_parallel.py).
+# Rounding each occurrence's gradient to bf16 before duplicates are summed can
+# flip the sign of a sum that nearly cancels, and Adagrad's first update of a
+# coordinate, lr * g / (|g| + eps), then moves it by up to 2 lr the other way:
+# the reference's band allows about two such flips in its small table. A
+# systematic fault (a double cast, a lost gradient) moves most changed
+# elements; at most this share of them may lie outside the band
+WIRE_RTOL, WIRE_ATOL = 0.05, 0.025
+WIRE_SHARE = 0.01
+# quantised scoring against f32: the reference's serving band
+# (tests/test_serving.py) is 0.01; the chip holds the full-width model to
+AUC_BAND = 0.002
 PNN_HIDDEN = (200, 200)
 DEEPFM_HIDDEN = (200, 200)  # relu, dropout 0.5: the reference's DeepFM tower
 # FM scorer, kernel vs plain: both sum in f32 in other orders; the
@@ -386,7 +436,9 @@ def _phase6_training_kernels(dev, rng) -> dict:
                                       ("tanh", FNN_HIDDEN, 1000, in_dim),
                                       ("relu", DEEPFM_HIDDEN, BATCH, in_dim),
                                       ("relu", DEEPFM_HIDDEN, 1000, in_dim),
-                                      ("tanh", SNN_HIDDEN, BATCH, SNN_HIDDEN1)):
+                                      ("tanh", SNN_HIDDEN, BATCH, SNN_HIDDEN1),
+                                      ("tanh", CRITEO_HIDDEN, BATCH, CRITEO_IN),
+                                      ("relu", CRITEO_HIDDEN, BATCH, CRITEO_IN)):
         dims = (width,) + hidden + (1,)
         x = torch.from_numpy(rng.normal(size=(batch, width)).astype(np.float32)).to(dev)
         g = torch.from_numpy(rng.normal(size=batch).astype(np.float32)).to(dev)
@@ -461,6 +513,22 @@ def _phase6_training_kernels(dev, rng) -> dict:
           f"{bwd0['kernel']:.4f} ms, plain {bwd0['plain']:.4f} ms")
     out.update(fwd_drop_ms=fwd["kernel"], fwd_drop_plain_ms=fwd["plain"],
                bwd_ms=bwd["kernel"], bwd_plain_ms=bwd["plain"])
+
+    # the Criteo configs' tower, tanh with dropout 0.5
+    x = torch.from_numpy(rng.normal(size=(BATCH, CRITEO_IN)).astype(np.float32)).to(dev)
+    layers = _tower(rng, (CRITEO_IN,) + CRITEO_HIDDEN + (1,), dev)
+    fwd = _in_turns({
+        "plain": lambda: mlp_k.mlp_tower_plain(x, layers, "tanh", DROPOUT, seed),
+        "kernel": lambda: mlp_k.mlp_tower_fwd(x, layers, "tanh", DROPOUT, seed)})
+    bwd = _in_turns({
+        "plain": lambda: mlp_k.mlp_tower_bwd_plain(x, layers, g, "tanh", DROPOUT, seed),
+        "kernel": lambda: mlp_k.mlp_tower_bwd(x, layers, g, "tanh", DROPOUT, seed)})
+    for name, t in (("forward with dropout", fwd), ("backward", bwd)):
+        print(f"time [{BATCH}, {CRITEO_IN}] {'-'.join(map(str, CRITEO_HIDDEN))} tanh "
+              f"dropout {DROPOUT}, {name}: kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms")
+    out.update(criteo_fwd_drop_ms=fwd["kernel"], criteo_fwd_drop_plain_ms=fwd["plain"],
+               criteo_bwd_ms=bwd["kernel"], criteo_bwd_plain_ms=bwd["plain"])
     return out
 
 
@@ -595,7 +663,7 @@ def _profile_loop(run, n, tag) -> dict:
           f"us wall ({100 * busy_us / wall_us:.1f}%) for {n} steps")
     # the top ops, and the port's own kernels wherever they rank
     for i, (us, count, key) in enumerate(device):
-        if i < 14 or re.search(r"::(fm_score|tower_\w+)_kernel", key):
+        if i < 14 or re.search(r"::(fm_score|tower_\w+)_kernel|nccl", key):
             name = key.replace("void ", "").replace("at::native::", "")
             print(f"  {us / n:9.2f} us/step  {count / n:5.1f}/step  {name[:120]}")
     return {"device_us": busy_us / n, "wall_us": wall_us / n,
@@ -798,7 +866,8 @@ def _cli_train(dev, root, tmp, config, overrides, steps, tag, table_dtype="bf16"
     print(f"{tag} cli train: {state.step} steps in {wall:.2f} s (data, init, epoch, "
           f"eval, checkpoint); launches {launches}; train_loss "
           f"{rec['train_loss']:.5f}, eval auc {rec['auc']:.5f}, logloss "
-          f"{rec['logloss']:.5f}, rmse {rec['rmse']:.5f}; examples_per_s "
+          f"{rec['logloss']:.5f}, rmse {rec.get('rmse', float('nan')):.5f}; "
+          f"dropped_ids {rec.get('dropped_ids', 0)}; examples_per_s "
           f"{rec['examples_per_s']:.0f} (host clock, the epoch's steps)")
     if state.step != steps:
         raise AssertionError(f"{tag}: {state.step} steps, expected {steps}")
@@ -972,7 +1041,8 @@ def _phase9_fnn_training(dev, root, tmp, schema, schema_path, fm_table) -> dict:
     step_ms = _time_steps(kstep, pstep, state, batches, seeds, "fnn")
     _time_scatter_forms(dev, schema, batches[0][0])
     _profile_steps(kstep, state.clone(), batches[:5], seeds[:5], "fnn")
-    return {"launches": launches, "step_ms": step_ms}
+    return {"launches": launches, "step_ms": step_ms, "cfg": cfg, "ckpt": ckpt,
+            "overrides": overrides}
 
 
 def _phase10_deepfm(dev, root, tmp, schema, schema_path) -> dict:
@@ -1281,10 +1351,14 @@ def _same_state(a, b) -> bool:
 def _check_histogram_auc(dev, state, schema, te_ids, te_labels) -> None:
     """Run A's eval logits, kept on the card, through ``AucState``: the
     finalized AUC against ``exact_auc`` of the same logits, the histograms
-    against host bin counts, and the copies to the host during update and
-    finalize (two ``[4096]`` vectors)."""
+    against host bin counts, and the host's waits on the card during update
+    (none) and finalize (two: the copies of the two ``[4096]`` vectors),
+    counted by torch's sync debug mode, which warns at every synchronizing
+    CUDA operation. (A profiler's list of copies proved no gate: one run's
+    trace held none of them.)"""
+    import warnings
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from deepctr_torch.train import make_eval_step
     from deepctr_torch.utils import metrics as M
@@ -1295,14 +1369,26 @@ def _check_histogram_auc(dev, state, schema, te_ids, te_labels) -> None:
     labels = torch.from_numpy(te_labels).to(dev)
     weights = torch.ones_like(labels)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def host_syncs(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+    def update():
         st = M.auc_state_init(4096, device=dev)
         for i in range(0, len(te_ids), BATCH):
             sl = slice(i, i + BATCH)
             M.auc_state_update(st, logits[sl], labels[sl], weights[sl])
-        got = M.auc_state_finalize(st)
-    copies = [(e.key, e.count) for e in prof.key_averages() if "DtoH" in e.key]
-    n_copies = sum(count for _, count in copies)
+        return st
+
+    st, update_syncs = host_syncs(update)
+    got, finalize_syncs = host_syncs(lambda: M.auc_state_finalize(st))
     host = logits.cpu().numpy()
     want = M.exact_auc(te_labels, 1.0 / (1.0 + np.exp(-host)))
     bins = torch.clamp((torch.sigmoid(logits) * 4096).int(), 0, 4095).cpu().numpy()
@@ -1312,12 +1398,13 @@ def _check_histogram_auc(dev, state, schema, te_ids, te_labels) -> None:
             bins, weights=1.0 - te_labels, minlength=4096).astype(np.float32)))
     print(f"retrain: histogram AUC on the card {got:.6f} vs exact {want:.6f} "
           f"(|d| {abs(got - want):.2e}, at most 2e-3) over {len(te_ids)} eval "
-          f"logits; histograms equal to host bin counts: {same}; device-to-host "
-          f"copies in update and finalize: {copies}")
+          f"logits; histograms equal to host bin counts: {same}; host syncs in "
+          f"update {update_syncs}, in finalize {finalize_syncs}")
     if not abs(got - want) < 2e-3 or not same:
         raise AssertionError("retrain: the histogram AUC disagrees")
-    if n_copies != 2:
-        raise AssertionError(f"retrain: {n_copies} device-to-host copies, expected 2")
+    if (update_syncs, finalize_syncs) != (0, 2):
+        raise AssertionError(f"retrain: host syncs {update_syncs} in update and "
+                             f"{finalize_syncs} in finalize, expected 0 and 2")
 
 
 def _profile_feeds(dev, root, schema, cfg_overrides, tr_ids, tr_labels) -> dict:
@@ -1510,6 +1597,287 @@ def _phase13_retrain(dev, root, tmp, schema, schema_path) -> dict:
     return {"epoch_rates": epoch_rates, "feeds": feeds}
 
 
+def _phase14_quantized_scoring(dev, root, schema, fnn) -> dict:
+    """Phase 9's trained FNN checkpoint served by the f32, bf16 and int8
+    ``Scorer``s: AUC against f32's, the int8 logits against a plain
+    quantise, dequantise and f32 path on the card (its own int8 rows from
+    the f32 scorer's table, by the reference's rule), the tables' bytes,
+    and host and device ms a batch."""
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch.ops.kernels import mlp as mlp_k
+    from deepctr_torch.serving import Scorer
+    from deepctr_torch.utils.metrics import exact_auc
+
+    cfg = fnn["cfg"]
+    _, tr_ids, tr_labels, te_ids, te_labels = cli.load_data(cfg)
+    ids = np.concatenate([tr_ids, te_ids])[-REQUESTS:]
+    labels = np.concatenate([tr_labels, te_labels])[-REQUESTS:]
+    print(f"quantised scoring: {fnn['ckpt']} (phase 9's FNN), {REQUESTS} rows: the "
+          f"run's {len(te_ids)} held-out rows and the last "
+          f"{REQUESTS - len(te_ids)} of its training rows")
+    n_batches = REQUESTS // BATCH
+    ids_dev = torch.from_numpy(ids[:BATCH]).to(dev).long()
+    mask_dev = (ids_dev != schema.pad_id).float()
+    out, auc = {}, {}
+    for q in (None, "bf16", "int8"):
+        tag = q or "f32"
+        scorer = Scorer.from_checkpoint(fnn["ckpt"], cli.build_model(cfg, schema, dev),
+                                        batch_size=BATCH, quantize=q)
+        v, d = schema.padded_vocab_size, 1 + cfg.model.k
+        want_bytes = {"f32": v * d * 4, "bf16": v * d * 2, "int8": v * (d + 4)}[tag]
+        if scorer.table_bytes != want_bytes or (q and scorer.model.table.numel()):
+            raise AssertionError(f"{tag} scorer: table {scorer.table_bytes} B (expected "
+                                 f"{want_bytes}), model table {scorer.model.table.shape}")
+        _reset_counts()
+        logits = scorer.logits(ids)
+        launches = _counts()["fwd_eval"]
+        if launches != n_batches:
+            raise AssertionError(f"{tag} scorer: {launches} tower launches for "
+                                 f"{n_batches} batches")
+        auc[tag] = exact_auc(labels, 1.0 / (1.0 + np.exp(-np.clip(logits, -30, 30))))
+        if q is None:
+            table32 = scorer.model.table.detach().clone()
+        if q == "int8":
+            # the reference's rule, written here apart from the scorer's:
+            # scale = max(|row|, 1e-12) / 127, q = clip(round(x / scale), ±127)
+            scale = torch.clamp(table32.abs().amax(dim=1), min=1e-12) / 127.0
+            q8 = torch.clamp(torch.round(table32 / scale[:, None]), -127, 127)
+            del table32
+            model = scorer.model
+            with torch.inference_mode():
+                plain = np.concatenate([mlp_k.mlp_tower_plain(
+                    model.tower_input(q8[b] * scale[b][..., None],
+                                      (b != schema.pad_id).float()),
+                    model.mlp.params(), model.mlp.spec.activation).cpu().numpy()
+                    for b in (torch.from_numpy(ids[i:i + BATCH]).to(dev).long()
+                              for i in range(0, REQUESTS, BATCH))])
+            del q8
+            _check_close("int8 scorer: kernel logits vs plain quantise, dequantise "
+                         "and f32 path on the card", logits, plain, atol=1e-5)
+        host = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            scorer.logits(ids)
+            host.append((time.perf_counter() - t0) * 1e3 / n_batches)
+        with torch.inference_mode():
+            device_ms = _time_ms(lambda: scorer.model.apply_rows(scorer.rows(ids_dev),
+                                                                 mask_dev))
+        out[tag] = {"auc": auc[tag], "table_bytes": scorer.table_bytes,
+                    "host_ms": host, "device_ms": device_ms}
+        print(f"{tag} scorer: AUC {auc[tag]:.6f}, table {scorer.table_bytes} B, "
+              f"{launches} tower launches; host {', '.join(f'{h:.3f}' for h in host)} "
+              f"ms a batch (batching, H2D, forward, D2H); device {device_ms:.4f} ms a "
+              f"batch (gather or dequantise, pool, tower; CUDA events)")
+        del scorer
+    for tag in ("bf16", "int8"):
+        if abs(auc[tag] - auc["f32"]) > AUC_BAND:
+            raise AssertionError(f"{tag} scorer: AUC {auc[tag]} vs f32 {auc['f32']}")
+        print(f"{tag} scorer: |AUC - f32 AUC| {abs(auc[tag] - auc['f32']):.2e} "
+              f"(at most {AUC_BAND})")
+    return out
+
+
+def _sharded_world_one(dev, root, schema, schema_path, tag, config, extra) -> None:
+    """From one state, 3 steps of the sharded step in a world of one (NCCL)
+    against 3 unsharded steps, bit for bit; the world-1 eval logits against
+    the unsharded eval's; and 3 steps with the bf16 wire against the f32
+    wire, within the reference's band."""
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch import parallel as par
+    from deepctr_torch.config import RunConfig
+    from deepctr_torch.data import synthetic
+    from deepctr_torch.train import init_state, make_eval_step, make_train_step
+
+    cfg = RunConfig.load(os.path.join(root, config)).apply_overrides(
+        [f"data.schema_path={schema_path}", *extra])
+    ds = synthetic.generate(schema, num_examples=4 * BATCH, k=K, seed=SEED + 11)
+    batches = [(torch.from_numpy(ds.ids[i * BATCH:(i + 1) * BATCH]).to(dev).long(),
+                torch.from_numpy(ds.labels[i * BATCH:(i + 1) * BATCH]).to(dev),
+                torch.ones(BATCH, device=dev)) for i in range(4)]
+    sopt, dopt = cli.build_optimizers(cfg)
+    base = init_state(cli.build_model(cfg, schema, dev), schema, sopt, dopt, seed=SEED,
+                      table_dtype="bf16")
+    single = base.clone()
+    step1 = make_train_step(schema, sopt, dopt, l2=cfg.optim.l2)
+    losses1 = [step1(single, *batches[i])[1].loss for i in range(3)]
+    with par.process_group(dev) as group:
+        tables = {}
+        for wire in ("f32", "bf16"):
+            sst = par.sharded_state_from_state(base.clone(), group)
+            step_n = par.make_sharded_train_step(
+                schema, sopt, dopt, group, l2=cfg.optim.l2,
+                capacity_factor=cfg.train.capacity_factor, exchange_dtype=wire)
+            losses, drops = zip(*(step_n(sst, *batches[i])[1] for i in range(3)))
+            host = par.host_state_from_sharded(sst, group)
+            tables[wire] = host.table
+            if sum(int(d) for d in drops):
+                raise AssertionError(f"{tag} world 1, {wire} wire: dropped {drops}")
+            if wire == "bf16":
+                continue
+            same = {
+                "loss": all(torch.equal(a, b) for a, b in zip(losses, losses1)),
+                "table": torch.equal(host.table, single.table),
+                "accumulator": torch.equal(host.sparse_state.acc,
+                                           single.sparse_state.acc),
+                "dense": all(torch.equal(p, q) for p, q in
+                             zip(host.model.parameters(), single.model.parameters())),
+                "step": host.step == single.step == 3,
+            }
+            print(f"{tag} world 1 (NCCL), 3 sharded steps vs 3 unsharded steps from one "
+                  f"state, bit for bit: {same}")
+            if not all(same.values()):
+                raise AssertionError(f"{tag}: the world-1 sharded step is not the "
+                                     f"unsharded step")
+            eval_n = par.make_sharded_eval_step(schema, group)(sst.model, batches[3][0])
+            eval_1 = make_eval_step(schema)(single.model, batches[3][0])
+            print(f"{tag} world 1: eval logits equal the unsharded eval's bit for bit: "
+                  f"{torch.equal(eval_n, eval_1)}")
+            if not torch.equal(eval_n, eval_1):
+                raise AssertionError(f"{tag}: world-1 eval differs")
+    f32, b16 = tables["f32"].float(), tables["bf16"].float()
+    err = (b16 - f32).abs()
+    outside = int((err > WIRE_ATOL + WIRE_RTOL * f32.abs()).sum())
+    changed = int((f32 != base.table.float()).sum())
+    print(f"{tag} world 1: 3 steps, bf16 wire vs f32 wire: table max |d| "
+          f"{float(err.max()):.3e}, {int((err > 0).sum())} elements differ, {outside} "
+          f"beyond rtol {WIRE_RTOL:g} atol {WIRE_ATOL:g} (allowed: {WIRE_SHARE:g} of "
+          f"the {changed} elements the steps changed)")
+    if outside > WIRE_SHARE * changed or torch.equal(b16, f32):
+        raise AssertionError(f"{tag}: the bf16 wire's table is off the f32 wire's")
+
+
+def _exchange_pieces(schema, cfg, state, ids) -> dict:
+    """Device ms of the sharded step's own pieces at a step's shape (CUDA
+    events behind a sleep kernel): the owner bucketing, the lookup exchange
+    (ids and rows all-to-all, the shard's gather, the unsort), the gradient
+    exchange, and the sorted-mode scatter (``ops/scatter.py::
+    dedupe_grads``) that the sparse optimizer runs on the received ids."""
+    import torch
+
+    from deepctr_torch import parallel as par
+    from deepctr_torch.ops.scatter import dedupe_grads
+    from deepctr_torch.parallel import sharded
+
+    flat = ids.reshape(-1)
+    n = state.num_shards
+    cap = par.exchange_capacity(flat.numel(), n, cfg.train.capacity_factor)
+    sentinel = par.shard_rows(schema.padded_vocab_size, n)
+    b = par.bucket_by_owner(flat, n, sentinel, cap)
+    table = state.model.table.detach()
+    _, recv = sharded.exchange_lookup(table, b, cap)
+    g = torch.randn(flat.numel(), table.shape[1], device=table.device) * 1e-3
+    g_recv = sharded.exchange_scatter_grads(g, b)
+    pieces = {
+        "bucketing": lambda: par.bucket_by_owner(flat, n, sentinel, cap),
+        "lookup exchange": lambda: sharded.exchange_lookup(table, b, cap),
+        "gradient exchange": lambda: sharded.exchange_scatter_grads(g, b),
+        "sorted-mode scatter": lambda: dedupe_grads(recv, g_recv),
+    }
+    out = {name: _time_ms(fn, iters=20) for name, fn in pieces.items()}
+    print(f"criteo sharded step's pieces on the card ({flat.numel()} occurrences "
+          f"of {table.shape[1]} floats, capacity {cap}, CUDA events): "
+          + ", ".join(f"{name} {ms:.4f} ms" for name, ms in out.items()))
+    return out
+
+
+def _phase15_sharded(dev, root, tmp, schema, schema_path, fnn, fm_table) -> dict:
+    """Row-sharded training in a world of one (one card; NCCL refuses two
+    ranks on one GPU): the exchange path with no peer. (a, b) FNN and FM
+    steps against unsharded steps; (c) FNN through the CLI with
+    ``train.sharded=true``, bit-identical to phase 9's unsharded run; (d)
+    ``configs/criteo_sharded_stretch.json`` at full width."""
+    import copy
+    import types
+
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch import parallel as par
+    from deepctr_torch.data import Schema
+
+    print("sharded: a world of one NCCL rank on cuda:0 (one card; NCCL refuses two "
+          "ranks on one GPU, so the multi-rank checks run on the CPU with gloo)")
+    _sharded_world_one(dev, root, schema, schema_path, "fnn", FNN_CONFIG,
+                       ["model.init_from=none", "optim.sparse_mode=dense"])
+    _sharded_world_one(dev, root, schema, schema_path, "fm", FM_CONFIG,
+                       ["optim.sparse_mode=dense"])
+
+    # (c) the FNN run of phase 9 again, sharded
+    ckpt = os.path.join(tmp, "fnn_sharded.ckpt")
+    overrides = [*fnn["overrides"][:2], f"train.checkpoint_path={ckpt}",
+                 "train.sharded=true"]
+    _, overrides, result, launches, _ = _cli_train(
+        dev, root, tmp, FNN_CONFIG, overrides, TRAIN_STEPS, "fnn-sharded")
+    rec, state = result["history"][0], result["state"]
+    if (launches["fwd_dropout"], launches["bwd"]) != (TRAIN_STEPS, TRAIN_STEPS):
+        raise AssertionError(f"fnn sharded: launches {launches} in {TRAIN_STEPS} steps")
+    if rec["dropped_ids"] or rec["auc"] <= 0.5:
+        raise AssertionError(f"fnn sharded: {rec}")
+    (_, got), (_, want) = _ckpt_leaves(ckpt), _ckpt_leaves(fnn["ckpt"])
+    same = [np.array_equal(a, b) for a, b in zip(got, want, strict=True)]
+    print(f"fnn sharded: checkpoint leaves equal phase 9's unsharded run's: {same}")
+    if not all(same):
+        raise AssertionError("fnn sharded: the world-1 run is not the unsharded run")
+    host = copy.deepcopy(state.model)
+    host.table.data = par.unpack_table(state.model.table.data, state.vocab_padded, 1)
+    _, _, _, te_ids, te_labels = cli.load_data(fnn["cfg"])
+    _check_cli_score(os.path.join(root, FNN_CONFIG), overrides,
+                     types.SimpleNamespace(model=host), schema, te_ids, te_labels,
+                     tmp, "fnn-sharded")
+    del host, state, result
+
+    # (d) the Criteo config at full width
+    torch.cuda.reset_peak_memory_stats()
+    cfg, _, result, c_launches, _ = _cli_train(dev, root, tmp, CRITEO_CONFIG, [],
+                                               TRAIN_STEPS, "criteo-sharded",
+                                               table_dtype="f32")
+    rec, state = result["history"][0], result["state"]
+    peak = torch.cuda.max_memory_allocated()
+    shard = state.model.table
+    print(f"criteo sharded: table shard {tuple(shard.shape)} {shard.dtype} "
+          f"({shard.numel() * shard.element_size() / 1e9:.3f} GB, and as much again "
+          f"for the Adagrad accumulator), vocabulary {state.vocab_padded} rows; peak "
+          f"device memory {peak / 2**30:.2f} GiB")
+    if (c_launches["fwd_dropout"], c_launches["bwd"]) != (TRAIN_STEPS, TRAIN_STEPS):
+        raise AssertionError(f"criteo sharded: launches {c_launches}")
+    if rec["dropped_ids"] or rec["auc"] <= 0.5:
+        raise AssertionError(f"criteo sharded: {rec}")
+    schema_c, tr_ids, tr_labels, _, _ = cli.load_data(cfg)
+    assert isinstance(schema_c, Schema)
+    sopt, dopt = cli.build_optimizers(cfg)
+    batches = [(torch.from_numpy(tr_ids[i * BATCH:(i + 1) * BATCH]).to(dev).long(),
+                torch.from_numpy(tr_labels[i * BATCH:(i + 1) * BATCH]).to(dev),
+                torch.ones(BATCH, device=dev))
+               for i in range(min(10, len(tr_ids) // BATCH))]
+    with par.process_group(dev) as group:
+        step = par.make_sharded_train_step(schema_c, sopt, dopt, group,
+                                           capacity_factor=cfg.train.capacity_factor)
+        for i in range(2):
+            step(state, *batches[i])
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for b in batches:
+            step(state, *b)
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / len(batches)
+        print(f"criteo sharded train step on the card ({BATCH} rows, 39 slots, CUDA "
+              f"events over {len(batches)} steps): {step_ms:.4f} ms; CLI epoch "
+              f"{rec['examples_per_s']:.0f} examples/s (host clock)")
+        prof = _profile_loop(lambda i: step(state, *batches[i]), min(5, len(batches)),
+                             "criteo sharded train step")
+        pieces = _exchange_pieces(schema_c, cfg, state, batches[0][0])
+    return {"launches": launches, "criteo_launches": c_launches, "step_ms": step_ms,
+            "examples_per_s": rec["examples_per_s"], "peak_bytes": peak,
+            "auc": rec["auc"], "pieces": pieces, **prof}
+
+
 def _template_args(mangled) -> str:
     """``<64, true>`` for a mangled ``ILi64ELb1EE``; '' for none."""
     if not mangled:
@@ -1558,8 +1926,10 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card)
+    print(subprocess.run(["nvidia-smi", "-L"], check=True, capture_output=True,
+                         text=True, timeout=60).stdout.strip())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}")
+          f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
     # 2. build
     from deepctr_torch.ops.kernels import _build
@@ -1589,7 +1959,8 @@ def main() -> int:
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_size_t)]
     lib.mlp_tower_wgrad_smem_bytes.restype = ctypes.c_size_t
     for what, dims in (("FNN 176-200-300-100-1", (176,) + FNN_HIDDEN + (1,)),
-                       ("DeepFM 176-200-200-1", (176,) + DEEPFM_HIDDEN + (1,))):
+                       ("DeepFM 176-200-200-1", (176,) + DEEPFM_HIDDEN + (1,)),
+                       ("Criteo 663-512-256-128-1", (CRITEO_IN,) + CRITEO_HIDDEN + (1,))):
         for back, kernel in ((0, "tower_fwd_kernel"), (1, "tower_bwd_rows_kernel")):
             lib.mlp_tower_block_shape(len(dims) - 1, (ctypes.c_int * len(dims))(*dims), back,
                                       ctypes.byref(rows), ctypes.byref(stages),
@@ -1618,6 +1989,8 @@ def main() -> int:
         ("fnn tanh, 8 batches", REQUESTS, fnn_dims, "tanh", True),
         ("fnn tanh ragged", 1000, fnn_dims, "tanh", True),
         ("snn tanh", BATCH, (SNN_HIDDEN1,) + SNN_HIDDEN + (1,), "tanh", False),
+        ("criteo tanh", BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,), "tanh", True),
+        ("criteo relu", BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,), "relu", False),
         ("small relu", 300, (24, 32, 16, 1), "relu", False),
         ("small sigmoid", 77, (24, 32, 16, 1), "sigmoid", False),
     ]
@@ -1644,13 +2017,13 @@ def main() -> int:
             times[which].append(_time_ms(lambda: fn(x, layers, act)))
         kernel_ms = float(np.mean(times["kernel"]))
         plain_ms = float(np.mean(times["plain"]))
-        tower_times[batch] = (kernel_ms, plain_ms)
+        tower_times[name] = (kernel_ms, plain_ms)
         flop = 2 * batch * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
         print(f"time [{batch}, {dims[0]}]: kernel {kernel_ms:.4f} ms "
               f"({flop / kernel_ms / 1e9:.2f} TFLOP/s), plain "
               f"{plain_ms:.4f} ms ({flop / plain_ms / 1e9:.2f} TFLOP/s); "
               f"runs {times}")
-    kernel_ms, plain_ms = tower_times[BATCH]
+    kernel_ms, plain_ms = tower_times["fnn tanh"]
 
     # 4. the slice end to end, through the CLI
     from deepctr_torch import cli
@@ -1766,8 +2139,12 @@ def main() -> int:
         _phase11_lr_ipnn(dev, tmp, schema)
         _phase12_snn(dev, root, tmp, schema, schema_path)
         _phase13_retrain(dev, root, tmp, schema, schema_path)
+        _phase14_quantized_scoring(dev, root, schema, train)
+        sharded = _phase15_sharded(dev, root, tmp, schema, schema_path, train,
+                                   fm["fm_table"])
 
     work = _tower_work(BATCH, fnn_dims)
+    criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))
     fm_rows = REQUESTS * 18 * (1 + K)   # the timed fm_score shape [65536, 18, 11]
     fm_bound = _bound(4 * fm_rows, 4 * (fm_rows + REQUESTS * 18 + REQUESTS))
     report = {"kernels": [{
@@ -1781,6 +2158,9 @@ def main() -> int:
         "plain_ms": plain_ms,
         **_bound(*work["fwd"]),
         "library_ms": None,
+        "ms_criteo": tower_times["criteo tanh"][0],
+        "plain_ms_criteo": tower_times["criteo tanh"][1],
+        "bound_ms_criteo": _bound(*criteo["fwd"])["bound_ms"],
     }, {
         "name": "mlp_tower_fwd (dropout branch)",
         "route": "cuda",
@@ -1792,6 +2172,11 @@ def main() -> int:
         "plain_ms": train_k["fwd_drop_plain_ms"],
         **_bound(*work["fwd"]),
         "library_ms": None,
+        "launches_sharded": sharded["launches"]["fwd_dropout"],
+        "launches_criteo": sharded["criteo_launches"]["fwd_dropout"],
+        "ms_criteo": train_k["criteo_fwd_drop_ms"],
+        "plain_ms_criteo": train_k["criteo_fwd_drop_plain_ms"],
+        "bound_ms_criteo": _bound(*criteo["fwd"])["bound_ms"],
     }, {
         "name": "mlp_tower_bwd",
         "route": "cuda",
@@ -1803,6 +2188,11 @@ def main() -> int:
         "plain_ms": train_k["bwd_plain_ms"],
         **_bound(*work["bwd"]),
         "library_ms": None,
+        "launches_sharded": sharded["launches"]["bwd"],
+        "launches_criteo": sharded["criteo_launches"]["bwd"],
+        "ms_criteo": train_k["criteo_bwd_ms"],
+        "plain_ms_criteo": train_k["criteo_bwd_plain_ms"],
+        "bound_ms_criteo": _bound(*criteo["bwd"])["bound_ms"],
     }, {
         "name": "fm_score",
         "route": "cuda",

@@ -14,6 +14,16 @@ line; ``--print-config`` prints the resolved config and exits.
 kernels: on CUDA the hand-written ones, on the CPU their plain versions.
 Asking for CUDA where there is none raises.
 
+``train.sharded`` trains with the table row-sharded over a
+``torch.distributed`` group (``parallel/``): one process per device, under
+``torchrun --standalone --nproc_per_node=N -m deepctr_torch.cli ...``
+(NCCL on ``--device cuda``, rank r on ``cuda:{LOCAL_RANK}``; gloo on
+``--device cpu``), or as a world of one without a launcher. Every rank
+prepares the same state (initialisation, resume, the FM hand-off, SNN's
+pretraining) and takes its slice of every batch; rank 0 alone writes
+metrics and checkpoints, which keep the single-device layout.
+``train.num_devices``, when set, must equal the world size.
+
 ``train.prefetch`` (default true) stages the training batches on a
 background thread, onto the card through pinned buffers and a side stream
 (``data.DevicePrefetcher``). ``train.profile_dir`` writes a
@@ -22,8 +32,8 @@ turns on autograd's anomaly mode and raises at the first step whose loss is
 not finite. Keys of the shared config that are TPU mechanisms are read and
 have no effect here: ``model.use_pallas`` (the device picks the kernels),
 ``train.scan_steps`` (``lax.scan`` dispatch) and ``train.split_threshold``
-(the one-hot split plan). The multi-GPU keys raise ``NotImplementedError``
-when set away from their defaults (``UNPORTED_KEYS``).
+(the one-hot split plan). ``train.distributed`` (multi-host runs) raises
+``NotImplementedError`` when set (``UNPORTED_KEYS``).
 """
 
 from __future__ import annotations
@@ -38,7 +48,6 @@ from .config import RunConfig
 
 # config key -> the ROADMAP.md item that will honour it
 UNPORTED_KEYS = {
-    "train.sharded": "slice 5, item 15 (row-sharded multi-GPU training)",
     "train.distributed": "slice 5, item 16 (multi-process runs)",
 }
 
@@ -103,16 +112,6 @@ def check_ported(cfg) -> None:
             )
 
 
-def _process_group() -> tuple[int, int]:
-    """(world size, rank) of an initialised ``torch.distributed`` group,
-    else (1, 0)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
-    return 1, 0
-
-
 def load_data(cfg):
     """Returns (schema, train_ids, train_labels, test_ids, test_labels), as
     the reference's ``load_data``.
@@ -120,9 +119,10 @@ def load_data(cfg):
     With ``data.stream=true`` the second element is a
     ``data.stream.StreamSource`` over the shard files of
     ``data.train_path`` (a file, glob or comma list) and the third is None;
-    only the test set is read into RAM. In a ``torch.distributed`` group
-    each rank streams its own slice of every epoch's shards and makes its
-    share of the batch."""
+    only the test set is read into RAM. In a sharded run every rank streams
+    every shard and makes the same global batches, of which it trains on its
+    rows (``_sharded_parts``): the ranks step alike however the shards'
+    lengths differ."""
     from .data import Schema, featindex, ipinyou_like_schema, parser, synthetic
     from .data.cache import cache_text_file, read_cache
     from .data.criteo import criteo_schema, parse_criteo_file
@@ -179,23 +179,15 @@ def load_data(cfg):
             )
         from .data.stream import StreamSource
 
-        pc, pi = _process_group()
-        if cfg.train.batch_size % pc:
-            raise ValueError(
-                f"train.batch_size {cfg.train.batch_size} must divide by "
-                f"process_count {pc}"
-            )
         source = StreamSource(
             paths=d.train_path,
             schema=schema,
-            batch_size=cfg.train.batch_size // pc,
+            batch_size=cfg.train.batch_size,
             fmt="yx-featindex" if fi is not None else d.format,
             buffer_rows=d.stream_buffer_rows,
             seed=cfg.train.seed,
             use_native=d.use_native_parser,
             featindex=fi,
-            process_index=pi,
-            process_count=pc,
         )
         te_ids, te_labels = read(d.test_path)
         return schema, source, None, te_ids, te_labels
@@ -212,13 +204,19 @@ def load_data(cfg):
 
 def run(cfg, device: torch.device) -> dict:
     """Train the configured model on ``device``; returns the best AUC, its
-    epoch, the per-epoch history and the final ``TrainState``."""
+    epoch, the per-epoch history and the final ``TrainState`` (with
+    ``train.sharded``, this rank's ``parallel.ShardedTrainState``)."""
     check_ported(cfg)
     with torch.autograd.set_detect_anomaly(cfg.train.debug_nans):
-        return _run(cfg, device)
+        if not cfg.train.sharded:
+            return _run(cfg, device)
+        from .parallel import process_group
+
+        with process_group(device, cfg.train.num_devices) as group:
+            return _run(cfg, group.device, group)
 
 
-def _run(cfg, device: torch.device) -> dict:
+def _run(cfg, device: torch.device, group=None) -> dict:
     from .data.stream import StreamSource
     from .train import fit, init_state, pretrain_snn
     from .utils.checkpoint import (
@@ -230,16 +228,19 @@ def _run(cfg, device: torch.device) -> dict:
         save_fm_embeddings,
         save_train_state,
     )
+    from .parallel import host_state_from_sharded, rank_zero_first
     from .utils.logging import MetricsLogger
     from .utils.prof import trace
 
-    schema, tr_ids, tr_labels, te_ids, te_labels = load_data(cfg)
+    with rank_zero_first(group):   # rank 0 writes the data cache the others read
+        schema, tr_ids, tr_labels, te_ids, te_labels = load_data(cfg)
     train_source = tr_ids if isinstance(tr_ids, StreamSource) else None
     if train_source is not None:
         tr_ids = tr_labels = None
     model = build_model(cfg, schema, device)
     sparse_opt, dense_opt = build_optimizers(cfg)
-    logger = MetricsLogger(cfg.train.metrics_path, echo=True)
+    lead = group is None or group.rank == 0
+    logger = MetricsLogger(cfg.train.metrics_path if lead else None, echo=lead)
     state = init_state(model, schema, sparse_opt, dense_opt, seed=cfg.train.seed,
                        table_dtype=cfg.train.table_dtype)
     ckpt_path = cfg.train.checkpoint_path
@@ -281,12 +282,26 @@ def _run(cfg, device: torch.device) -> dict:
         logger.log({"event": "init_from_pretrain", "kind": cfg.train.pretrain})
 
     ckpt_meta = {"sparse_opt": cfg.optim.sparse, "model": cfg.model.name}
+    sharded = {}
+    if group is not None:
+        sharded = _sharded_parts(cfg, schema, group, state, sparse_opt, dense_opt,
+                                 te_ids, te_labels)
+        state = sharded.pop("state")
+
+    def save(st, epoch: int, final: bool = False) -> None:
+        # a sharded run's shards are gathered (every rank takes part) and
+        # rank 0 writes the single-device layout
+        host = st if group is None else host_state_from_sharded(st, group)
+        if host is None:
+            return
+        save_train_state(ckpt_path, host, epoch=epoch, meta=ckpt_meta, schema=schema)
+        if final and cfg.model.name == "fm":
+            save_fm_embeddings(ckpt_path + ".fm_table", host.table)
 
     def on_epoch(epoch, st, rec):
         logger.log({"event": "heartbeat", "epoch": epoch, "step": st.step})
         if ckpt_path and (epoch + 1) % max(cfg.train.checkpoint_every, 1) == 0:
-            save_train_state(ckpt_path, st, epoch=epoch + 1, meta=ckpt_meta,
-                             schema=schema)
+            save(st, epoch + 1)
 
     with trace(cfg.train.profile_dir):
         res = fit(
@@ -306,18 +321,79 @@ def _run(cfg, device: torch.device) -> dict:
             start_epoch=start_epoch,
             train_source=train_source,
             debug_nans=cfg.train.debug_nans,
+            **sharded,
         )
         if ckpt_path:
             epochs_done = start_epoch + sum(
                 1 for r in res.history if not r.get("eval_only"))
-            save_train_state(ckpt_path, res.state, epoch=epochs_done,
-                             meta=ckpt_meta, schema=schema)
-            if cfg.model.name == "fm":
-                save_fm_embeddings(ckpt_path + ".fm_table", res.state.table)
+            save(res.state, epochs_done, final=True)
     logger.log({"event": "done", "best_auc": res.best_auc})
     logger.close()
     return {"best_auc": res.best_auc, "best_epoch": res.best_epoch,
             "history": res.history, "state": res.state}
+
+
+def _sharded_parts(cfg, schema, group, state, sparse_opt, dense_opt, te_ids,
+                   te_labels) -> dict:
+    """What ``fit`` runs in place of its single-device parts in a sharded
+    run, the reference's ``_run_sharded`` on its per-step route: the
+    prepared state (checked equal on every rank) packed into this rank's
+    shard, the sharded step, eval on the ranks' slices of every eval batch
+    with the AUC histograms and the logloss sums all-reduced (every rank
+    finalises them, so early stopping decides alike everywhere), and this
+    rank's slice of every training batch (a stream gives every rank the
+    same global batches)."""
+    import torch.distributed as dist
+
+    from .data import minibatches
+    from .parallel import (
+        check_ranks_agree,
+        local_batch,
+        make_sharded_eval_step,
+        make_sharded_train_step,
+        sharded_state_from_state,
+    )
+    from .utils import metrics as M
+
+    batch_size = cfg.train.batch_size
+    if batch_size % group.world:
+        raise ValueError(f"train.batch_size {batch_size} must divide by the "
+                         f"world size {group.world}")
+    check_ranks_agree(state, group)
+    state = sharded_state_from_state(state, group)
+    eval_step = make_sharded_eval_step(
+        schema, group, capacity_factor=cfg.train.capacity_factor,
+        exchange_dtype=cfg.train.exchange_dtype)
+    device = group.device
+
+    def sharded_eval(st) -> dict:
+        auc = M.auc_state_init(device=device)
+        sums = torch.zeros(2, dtype=torch.float64, device=device)  # logloss, weight
+        for b in minibatches(te_ids, te_labels, batch_size, schema=schema,
+                             shuffle=False, drop_remainder=False):
+            b = local_batch(b, group)
+            logits = eval_step(st.model, b.ids)
+            labels = torch.from_numpy(b.labels).to(device)
+            weights = torch.from_numpy(b.weights).to(device)
+            M.auc_state_update(auc, logits, labels, weights)
+            ll = -(labels * torch.nn.functional.logsigmoid(logits)
+                   + (1 - labels) * torch.nn.functional.logsigmoid(-logits))
+            sums += torch.stack([(ll * weights).sum(), weights.sum()]).double()
+        for t in (auc.pos, auc.neg, sums):
+            dist.all_reduce(t)
+        return {"auc": M.auc_state_finalize(auc),
+                "logloss": float(sums[0]) / max(float(sums[1]), 1.0)}
+
+    return {
+        "state": state,
+        "step": make_sharded_train_step(
+            schema, sparse_opt, dense_opt, group, l2=cfg.optim.l2,
+            capacity_factor=cfg.train.capacity_factor,
+            exchange_dtype=cfg.train.exchange_dtype,
+            check_finite=cfg.train.debug_nans),
+        "evaluate_state": sharded_eval,
+        "batch_transform": lambda b: local_batch(b, group),
+    }
 
 
 def resolve_device(name: str) -> torch.device:

@@ -44,7 +44,11 @@
 //    (TMA) a step bring the rows (per-row copies were bound by the copy
 //    engine's issue rate, about 65 cycles each); a warpgroup writes gh as
 //    the K-major B image with 16-byte stores (its first version, one
-//    element a thread, set the pace at 1.7 us a step).
+//    element a thread, set the pace at 1.7 us a step). Tensor copies take
+//    rows of 16-byte multiples only: an input width that is not a multiple
+//    of 4 (Criteo's 663 = 39 x 17) is first copied into the workspace at
+//    the next such stride, one more launch (the per-thread copies that
+//    served such widths before took half the step at [8192, 663]).
 // 4. reduce kernel: each element of every gW_l and gb_l sums its groups'
 //    partials in group order.
 // No atomics anywhere, and the split depends only on B, the tower and the
@@ -85,9 +89,9 @@ struct Scratch {
 };
 
 struct WgradLayer {
-  const float* a;   // layer input [batch, k_dim]
+  const float* a;   // layer input [batch, k_dim], row stride a_ld
   const float* gh;  // output gradient, row stride gh_ld, gh_cols nonzero columns
-  int k_dim, n_dim, gh_ld, gh_cols;
+  int k_dim, n_dim, a_ld, gh_ld, gh_cols;
   int tile0;        // first output tile of this layer
   size_t part_off;  // offset of its [k_dim + 1, n_dim] block in a partial slot
   bool tma;         // a and gh come by tensor copies (maps a and gh below)
@@ -385,7 +389,7 @@ __device__ __forceinline__ void wgrad_copy(const WgradLayer& L, float* slot, int
     const int r = r0 + rr;
     if (c < a_cols) {
       const bool in = r < r_end;
-      cp_async4(A + q, in ? L.a + static_cast<size_t>(r) * L.k_dim + k0 + c : L.a, in);
+      cp_async4(A + q, in ? L.a + static_cast<size_t>(r) * L.a_ld + k0 + c : L.a, in);
     }
   }
   for (int q = t; q < kWr * kWn; q += 32) {
@@ -638,11 +642,11 @@ bool encode_maps(const WgradLayer& L, int batch, CUtensorMap& a, CUtensorMap& gh
   const auto aligned = [](const float* p, int ld) {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && (ld & 3) == 0;
   };
-  if (!aligned(L.a, L.k_dim)) return false;
+  if (!aligned(L.a, L.a_ld)) return false;
   const cuuint64_t a_dims[2] = {static_cast<cuuint64_t>(L.k_dim),
                                 static_cast<cuuint64_t>(batch)};
   const cuuint32_t a_box[2] = {kWm, kWr};
-  if (!encode(a, L.a, 2, a_dims, L.k_dim, a_box)) return false;
+  if (!encode(a, L.a, 2, a_dims, L.a_ld, a_box)) return false;
   if (L.gh_cols == 1) {  // the logit's column: contiguous over the rows
     const cuuint64_t dims[1] = {static_cast<cuuint64_t>(batch)};
     const cuuint32_t box[1] = {kWr};
@@ -655,10 +659,27 @@ bool encode_maps(const WgradLayer& L, int batch, CUtensorMap& a, CUtensorMap& gh
   return encode(gh, L.gh, 2, g_dims, L.gh_ld, g_box);
 }
 
-// floats of the rows kernel's workspace, of the partial slots and of the
-// weight images; false where the tower is too wide for the rows kernel
+// Row stride of the weight-gradient kernel's copy of x: the input width
+// rounded up to 4 floats, so that tensor copies take its rows (16-byte
+// strides). An input of a width that is already a multiple of 4 is read in
+// place (stride 0 here).
+int x_copy_ld(const Tower& t) { return t.dims[0] % 4 == 0 ? 0 : (t.dims[0] + 3) / 4 * 4; }
+
+// x [batch, k] into rows ld floats apart; the columns past k are not read.
+__global__ void tower_x_copy_kernel(const float* __restrict__ x, int batch, int k,
+                                    int ld, float* __restrict__ out) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<size_t>(batch) * k) return;
+  const size_t r = i / k;
+  out[r * ld + (i - r * k)] = x[i];
+}
+
+// floats of the rows kernel's workspace, of the partial slots, of the
+// weight images and of the copy of x; false where the tower is too wide
+// for the rows kernel
 bool workspace_floats(const Tower& t, int batch, size_t& scratch,
-                      size_t& partials, size_t& packed) {
+                      size_t& partials, size_t& packed, size_t& x_copy) {
+  x_copy = static_cast<size_t>(batch) * x_copy_ld(t);  // a multiple of 4
   scratch = 0;
   for (int l = 0; l + 1 < t.num_layers; ++l) {
     scratch += 2 * static_cast<size_t>(batch) * t.dims[l + 1];
@@ -685,12 +706,12 @@ extern "C" size_t mlp_tower_wgrad_smem_bytes() { return kWsmem; }
 extern "C" size_t mlp_tower_bwd_workspace(int batch, int num_layers,
                                           const void* dims) {
   Tower t;
-  size_t scratch, partials, packed;
+  size_t scratch, partials, packed, x_copy;
   if (batch < 1 || !make_tower(num_layers, dims, nullptr, nullptr, t) ||
-      !workspace_floats(t, batch, scratch, partials, packed)) {
+      !workspace_floats(t, batch, scratch, partials, packed, x_copy)) {
     return 0;
   }
-  return sizeof(float) * (packed + scratch + partials);
+  return sizeof(float) * (packed + x_copy + scratch + partials);
 }
 
 // x: f32 [batch, dims[0]]; g: f32 [batch], the gradient of the logits.
@@ -711,9 +732,11 @@ extern "C" int mlp_tower_bwd(const void* x, int batch, int num_layers,
       !make_tower(num_layers, dims, weights, biases, t)) {
     return cudaErrorInvalidValue;
   }
-  size_t scratch_floats, partial_floats, packed_floats;
-  if (!workspace_floats(t, batch, scratch_floats, partial_floats, packed_floats) ||
-      workspace_bytes < sizeof(float) * (packed_floats + scratch_floats + partial_floats) ||
+  size_t scratch_floats, partial_floats, packed_floats, x_copy_floats;
+  if (!workspace_floats(t, batch, scratch_floats, partial_floats, packed_floats,
+                        x_copy_floats) ||
+      workspace_bytes <
+          sizeof(float) * (packed_floats + x_copy_floats + scratch_floats + partial_floats) ||
       (reinterpret_cast<uintptr_t>(workspace) & 15) != 0) {
     return cudaErrorInvalidValue;
   }
@@ -721,7 +744,8 @@ extern "C" int mlp_tower_bwd(const void* x, int batch, int num_layers,
   const Dropout drop = {dropout_on != 0, seed, threshold, scale, 0u};
 
   float* packed = static_cast<float*>(workspace);
-  float* scratch = packed + packed_floats;
+  float* x_copy = packed + packed_floats;
+  float* scratch = x_copy + x_copy_floats;
   float* partials = scratch + scratch_floats;
   Scratch ws = {};
   {
@@ -754,7 +778,16 @@ extern "C" int mlp_tower_bwd(const void* x, int batch, int num_layers,
                               ws, gxf, st);
   if (err != cudaSuccess) return err;
 
-  // 2. weight gradients per group of rows
+  // 2. weight gradients per group of rows, layer 0's from x, or from its
+  // copy at a stride tensor copies take
+  const int x_ld = x_copy_ld(t);
+  if (x_ld != 0) {
+    const size_t n = static_cast<size_t>(batch) * t.dims[0];
+    tower_x_copy_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+        xf, batch, t.dims[0], x_ld, x_copy);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   const Split split = split_of(batch, t);
   Wgrad wg = {};
   WgradMaps maps = {};
@@ -765,10 +798,11 @@ extern "C" int mlp_tower_bwd(const void* x, int batch, int num_layers,
   for (int l = 0; l < num_layers; ++l) {
     WgradLayer& L = wg.layer[l];
     const bool last = l == num_layers - 1;
-    L.a = l == 0 ? static_cast<const float*>(x) : ws.a[l - 1];
+    L.a = l > 0 ? ws.a[l - 1] : x_ld != 0 ? x_copy : xf;
     L.gh = last ? static_cast<const float*>(g) : ws.gh[l];
     L.k_dim = t.dims[l];
     L.n_dim = t.dims[l + 1];
+    L.a_ld = l == 0 && x_ld != 0 ? x_ld : L.k_dim;
     L.gh_ld = last ? 1 : L.n_dim;
     L.gh_cols = last ? 1 : L.n_dim;
     L.tile0 = tiles;

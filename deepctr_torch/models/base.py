@@ -135,16 +135,23 @@ def apply_model(model: nn.Module, ids: torch.Tensor, pad_id: int) -> torch.Tenso
 
 
 def weighted_bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
-                             weights: torch.Tensor) -> torch.Tensor:
-    """Mean binary cross-entropy over weighted examples (pad rows weight 0)."""
+                             weights: torch.Tensor,
+                             weight_sum: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean binary cross-entropy over weighted examples (pad rows weight 0).
+    ``weight_sum`` replaces ``weights.sum()`` as the divisor: a sharded
+    step's share of the global mean divides by the global sum."""
     per = -(labels * nn.functional.logsigmoid(logits)
             + (1.0 - labels) * nn.functional.logsigmoid(-logits))
-    return (per * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    if weight_sum is None:
+        weight_sum = weights.sum()
+    return (per * weights).sum() / torch.clamp(weight_sum, min=1.0)
 
 
-def lazy_l2(rows: torch.Tensor, mask: torch.Tensor, coeff: float) -> torch.Tensor:
+def lazy_l2(rows: torch.Tensor, mask: torch.Tensor, coeff: float,
+            batch: int | None = None) -> torch.Tensor:
     """L2 on the rows this batch touches only (the sparse analogue of weight
-    decay, applied where gradients flow)."""
+    decay, applied where gradients flow), divided by the batch's rows, or
+    by ``batch`` (a sharded step's global batch)."""
     if coeff == 0.0:
         return rows.new_zeros(())
-    return coeff * (rows.square() * mask[..., None]).sum() / rows.shape[0]
+    return coeff * (rows.square() * mask[..., None]).sum() / (batch or rows.shape[0])

@@ -1,0 +1,125 @@
+"""Process-group set-up: the port's counterpart of
+``deepctr_tpu/parallel/mesh.py``.
+
+JAX drives N devices from one process through a 1-D ``data`` mesh. A
+PyTorch run is one process per GPU: rank r drives ``cuda:{LOCAL_RANK}``
+through an NCCL group, or, with ``--device cpu``, the CPU through a gloo
+group. The dense tower is replicated on every rank with its gradients
+all-reduced; the table is row-sharded over the ranks
+(``parallel/sharded.py``).
+
+:func:`process_group` starts the group where none is running: under
+``torchrun`` from the rank and world size in its environment, and without
+a launcher as a world of one through a ``file://`` store in a temporary
+directory. A failure to start it raises; a CUDA run never falls back to
+gloo. :func:`local_batch` cuts rank r's rows ``[r·B/N, (r+1)·B/N)`` out of
+a global batch, the role of the reference's ``shard_batch_arrays``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import shutil
+import tempfile
+from typing import Iterator
+
+import torch
+import torch.distributed as dist
+
+from ..data import Batch
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """This process's place in the ``torch.distributed`` group."""
+
+    rank: int
+    world: int
+    device: torch.device
+
+
+def _backend(device: torch.device) -> str:
+    return "nccl" if device.type == "cuda" else "gloo"
+
+
+def _torchrun_command(world: int) -> str:
+    return (f"torchrun --standalone --nproc_per_node={world} -m "
+            f"deepctr_torch.cli --config <config.json> train.sharded=true ...")
+
+
+@contextlib.contextmanager
+def process_group(device: torch.device | str,
+                  num_devices: int | None = None) -> Iterator[Group]:
+    """The process group of a sharded run on ``device``'s type.
+
+    A group that is already running is used as it is; its backend must be
+    the device's (NCCL for CUDA, gloo for the CPU). Otherwise one is
+    started, and destroyed on exit: under ``torchrun`` (``RANK`` and
+    ``WORLD_SIZE`` in the environment) with rank r on ``cuda:{LOCAL_RANK}``
+    for a CUDA device, else a world of one through a ``file://`` store.
+    ``num_devices`` (``train.num_devices``), when set, must equal the world
+    size."""
+    device = torch.device(device)
+    backend = _backend(device)
+    started, store_dir = False, None
+    try:
+        if not dist.is_initialized():
+            if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+                device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+                init = "env://"
+            else:
+                store_dir = tempfile.mkdtemp(prefix="deepctr_group_")
+                init = f"file://{os.path.join(store_dir, 'store')}"
+            kwargs = {"device_id": device} if device.type == "cuda" else {}
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+            dist.init_process_group(
+                backend, init_method=init,
+                rank=int(os.environ.get("RANK", 0)),
+                world_size=int(os.environ.get("WORLD_SIZE", 1)), **kwargs)
+            started = True
+        elif dist.get_backend() != backend:
+            raise RuntimeError(
+                f"a {dist.get_backend()} process group is running; a sharded "
+                f"run on {device} needs {backend}")
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if num_devices is not None and num_devices != world:
+            raise ValueError(
+                f"train.num_devices={num_devices} but the process group has "
+                f"{world} rank(s): one process drives one device; start "
+                f"{num_devices} processes, e.g. {_torchrun_command(num_devices)}")
+        yield Group(rank=rank, world=world, device=device)
+    finally:
+        if started:
+            dist.destroy_process_group()
+        if store_dir is not None:
+            shutil.rmtree(store_dir, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def rank_zero_first(group: Group | None) -> Iterator[None]:
+    """Run the body on rank 0 first and on the other ranks after it: work
+    that writes a file every rank then reads, such as the data cache."""
+    if group is not None and group.rank != 0:
+        dist.barrier()
+    yield
+    if group is not None and group.world > 1 and group.rank == 0:
+        dist.barrier()
+
+
+def rank_rows(batch_size: int, group: Group) -> slice:
+    """Rank r's rows ``[r·B/N, (r+1)·B/N)`` of a global batch of B rows."""
+    if batch_size % group.world:
+        raise ValueError(f"batch of {batch_size} rows does not split over "
+                         f"{group.world} ranks")
+    n = batch_size // group.world
+    return slice(group.rank * n, (group.rank + 1) * n)
+
+
+def local_batch(b: Batch, group: Group) -> Batch:
+    """This rank's share of a global batch."""
+    rows = rank_rows(b.ids.shape[0], group)
+    return Batch(ids=b.ids[rows], labels=b.labels[rows], weights=b.weights[rows])

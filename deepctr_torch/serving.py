@@ -1,13 +1,23 @@
-"""Batch scoring: the port of ``deepctr_tpu/serving.py::Scorer`` (f32).
+"""Batch scoring: the port of ``deepctr_tpu/serving.py::Scorer``.
 
 Load a checkpoint into a model, then stream scores for packed id batches or
 yx text files. Batches have a fixed size; the last one is padded with
 ``pad_id`` rows whose scores are dropped, as in the JAX package.
 
+``quantize`` stores the served table narrower, as the reference's does:
+``"bf16"`` rounds it to bfloat16 (2 bytes an element); ``"int8"`` keeps an
+int8 ``[V, D]`` table and an f32 ``[V]`` row scale, ``max(|row|, 1e-12) /
+127``, with each element ``round(x / scale)`` (half to even) clipped to
+±127, D + 4 bytes a row. Only the gathered rows are widened (bf16) or
+dequantised (int8, ``q · scale``); the model's math stays f32. The model's
+own f32 table is released, so the quantised one is the only copy on the
+device. The reference packs each int8 row and its scale into 32-bit words,
+a TPU gather device; the port's layout is the plain one, and its
+dequantised rows equal the reference's bit for bit.
+
 The JAX scorer reads small fields through a split plan of one-hot matmuls
 (``ops/split_embed.py``), a TPU gather mechanism. Here one row gather on the
 full table is the same math: pad slots are zeroed by the mask either way.
-bf16 and int8 serving come later (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -17,7 +27,6 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from .models.base import apply_model
 from .data import Schema, minibatches, stream_yx_batches
 from .utils.checkpoint import (
     dense_structure,
@@ -32,21 +41,67 @@ def _sigmoid(logits: np.ndarray) -> np.ndarray:
     return 1.0 / (1.0 + np.exp(-x))
 
 
+QUANTIZE = (None, "bf16", "int8")
+
+
+@torch.no_grad()
+def quantize_int8(table: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(q int8[V, D], scale f32[V])`` of an f32 table, by the reference's
+    rule: ``scale = max(|row|, 1e-12) / 127``, ``q = clip(round(x / scale),
+    -127, 127)``."""
+    table = table.float()
+    scale = torch.clamp(table.abs().amax(dim=1, keepdim=True), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(table / scale), -127, 127).to(torch.int8)
+    return q, scale[:, 0].contiguous()
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
+                    ids: torch.Tensor) -> torch.Tensor:
+    """The f32 rows of ``ids`` from an int8 table: ``q[ids] · scale[ids]``."""
+    return q[ids].float() * scale[ids][..., None]
+
+
 class Scorer:
     """Batch scorer for a model whose parameters are loaded. It scores on
-    the device the model's parameters lie on."""
+    the device the model's parameters lie on. ``quantize`` is None (f32),
+    ``"bf16"`` or ``"int8"``; with either of the last two the model's table
+    is replaced by the quantised one."""
 
     def __init__(self, model: torch.nn.Module, schema: Schema,
-                 batch_size: int = 8192):
+                 batch_size: int = 8192, quantize: str | None = None):
+        if quantize not in QUANTIZE:
+            raise ValueError(f"quantize {quantize!r} (None|bf16|int8)")
         self.model = model
         self.schema = schema
         self.batch_size = batch_size
+        self.quantize = quantize
         self.device = model.table.device
+        table = model.table.detach()
+        if quantize == "int8":
+            self._q, self._scale = quantize_int8(table)
+        else:
+            self._table = table.to(torch.bfloat16) if quantize == "bf16" else table
+        if quantize is not None:   # the quantised table is the only copy
+            model.table.data = model.table.data.new_empty((0, table.shape[1]))
+
+    @property
+    def table_bytes(self) -> int:
+        """Device bytes of the served table: V·D·4 (f32), V·D·2 (bf16) or
+        V·(D + 4) (int8)."""
+        tables = (self._q, self._scale) if self.quantize == "int8" else (self._table,)
+        return sum(t.numel() * t.element_size() for t in tables)
+
+    def rows(self, ids: torch.Tensor) -> torch.Tensor:
+        """The f32 rows ``[B, S, D]`` of ids on the scorer's device."""
+        if self.quantize == "int8":
+            return dequantize_rows(self._q, self._scale, ids)
+        return self._table[ids].float()
 
     @staticmethod
     def from_checkpoint(path: str, model: torch.nn.Module,
                         schema: Schema | None = None,
-                        batch_size: int = 8192) -> "Scorer":
+                        batch_size: int = 8192,
+                        quantize: str | None = None) -> "Scorer":
         """Load a checkpoint written by either package into ``model``.
 
         The manifest carries the training Schema (``schema_json``). A
@@ -72,15 +127,16 @@ class Scorer:
             )
         table, dense = load_scoring_params(path, dense_structure(model))
         model.load_state_dict(params_from_jax(table, dense))
-        return Scorer(model, schema, batch_size=batch_size)
+        return Scorer(model, schema, batch_size=batch_size, quantize=quantize)
 
     # ---- scoring ----------------------------------------------------------
 
     def _batch_logits(self, ids: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
             ids_t = torch.from_numpy(ids).to(self.device).long()
-            logits = apply_model(self.model, ids_t, self.schema.pad_id)
-            return logits.cpu().numpy()
+            rows = self.rows(ids_t)
+            mask = (ids_t != self.schema.pad_id).to(rows.dtype)
+            return self.model.apply_rows(rows, mask).cpu().numpy()
 
     def logits(self, ids: np.ndarray) -> np.ndarray:
         """Score packed ``int32[N, S]`` ids -> logit per row."""

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..data import DevicePrefetcher, Schema, minibatches
+from ..data import Batch, DevicePrefetcher, Schema, minibatches
 from ..utils import metrics as M
 from ..utils.logging import MetricsLogger
 from .step import (
@@ -88,6 +88,9 @@ def fit(
     prefetch: bool = True,
     train_source=None,
     debug_nans: bool = False,
+    step: Callable | None = None,
+    evaluate_state: Callable[[TrainState], dict] | None = None,
+    batch_transform: Callable[[Batch], Batch] | None = None,
 ) -> FitResult:
     """Train ``model`` (in place) with per-epoch eval and early stop on
     held-out AUC. Without ``state``, the model is initialised from
@@ -96,10 +99,23 @@ def fit(
     ``train_source`` (a ``data.stream.StreamSource``) replaces the in-RAM
     ``train_ids``/``train_labels`` (pass None): each epoch is
     ``train_source.batches(epoch)``. ``debug_nans`` raises
-    ``FloatingPointError`` at the first step whose loss is not finite."""
-    step = make_train_step(schema, sparse_opt, dense_opt, l2=l2,
-                           check_finite=debug_nans)
-    eval_step = make_eval_step(schema)
+    ``FloatingPointError`` at the first step whose loss is not finite.
+
+    A sharded run (``cli._sharded_parts``) replaces three parts: ``step``
+    (``(state, ids, labels, weights, lr_scale) -> (state, metrics)``; a
+    ``dropped`` field in its metrics puts the epoch's sum in the record as
+    ``dropped_ids``), ``evaluate_state`` (``state -> {auc, ...}``, in place
+    of the full-dataset :func:`evaluate` of ``test_ids``) and
+    ``batch_transform`` (applied to every training batch before the
+    prefetcher stages it)."""
+    if step is None:
+        step = make_train_step(schema, sparse_opt, dense_opt, l2=l2,
+                               check_finite=debug_nans)
+    if evaluate_state is None:
+        eval_step = make_eval_step(schema)
+
+        def evaluate_state(st):
+            return evaluate(eval_step, st.model, test_ids, test_labels, schema)
     if state is None:
         state = init_state(model, schema, sparse_opt, dense_opt, seed=seed,
                            table_dtype=table_dtype)
@@ -112,17 +128,21 @@ def fit(
         t0 = time.perf_counter()
         lr_scale = lr_decay**epoch
         n_batches = 0
-        losses = []  # device scalars, read once per epoch
+        losses, drops = [], []  # device scalars, read once per epoch
         it = (train_source.batches(epoch) if train_source is not None
               else minibatches(train_ids, train_labels, batch_size, schema=schema,
                                shuffle=True, seed=seed + epoch,
                                drop_remainder=True))
+        if batch_transform is not None:
+            it = map(batch_transform, it)
         if prefetch:
             it = DevicePrefetcher(it, model.table.device)
         try:
             for b in it:
                 state, m = step(state, b.ids, b.labels, b.weights, lr_scale)
                 losses.append(m.loss)
+                if hasattr(m, "dropped"):
+                    drops.append(m.dropped)
                 n_batches += 1
         finally:
             if prefetch:
@@ -130,10 +150,11 @@ def fit(
         sync()
         train_time = time.perf_counter() - t0
         loss_sum = float(torch.stack(losses).sum()) if losses else 0.0
-        ev = evaluate(eval_step, state.model, test_ids, test_labels, schema)
+        ev = evaluate_state(state)
         rec = {
             "epoch": epoch,
             "train_loss": loss_sum / max(n_batches, 1),
+            **({"dropped_ids": int(torch.stack(drops).sum())} if drops else {}),
             "examples_per_s": n_batches * batch_size / max(train_time, 1e-9),
             **ev,
         }
@@ -149,7 +170,7 @@ def fit(
             if since_best > early_stop_patience:
                 break
     if not history:  # resumed past the epoch target: evaluate only
-        ev = evaluate(eval_step, state.model, test_ids, test_labels, schema)
+        ev = evaluate_state(state)
         rec = {"epoch": start_epoch, "eval_only": True, **ev}
         history.append(rec)
         if logger is not None:

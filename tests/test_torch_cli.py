@@ -61,7 +61,16 @@ def test_cli_print_config(capsys):
 
 
 def test_unported_keys_are_only_the_multi_gpu_ones():
-    assert set(t_cli.UNPORTED_KEYS) == {"train.sharded", "train.distributed"}
+    assert set(t_cli.UNPORTED_KEYS) == {"train.distributed"}
+    with pytest.raises(NotImplementedError, match="train.distributed"):
+        t_cli.check_ported(t_cli.RunConfig().apply_overrides(["train.distributed=true"]))
+
+
+@pytest.mark.parametrize("name", sorted(os.listdir(os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs"))))
+def test_every_bundled_config_starts_on_the_port(name):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    t_cli.check_ported(t_cli.RunConfig.load(os.path.join(root, "configs", name)))
 
 
 @pytest.mark.parametrize("name", ["rmsprop", "Adam", "sgdd"])

@@ -26,11 +26,24 @@ from deepctr_torch.optim import SparseAdagrad, make_dense_optimizer
 from deepctr_torch.serving import Scorer
 from deepctr_torch.train import init_state, make_train_step
 from deepctr_torch.data import make_schema, synthetic
+import deepctr_torch.parallel.comm, deepctr_torch.parallel.dp
+import deepctr_torch.parallel.group, deepctr_torch.parallel.sharded
+from deepctr_torch import parallel
 schema = make_schema([("a", 4), ("tags", 10, 3)])
 model = make_fnn(schema, k=2, mlp=MlpSpec(hidden=(8,)), device="cpu")
 ds = synthetic.generate(schema, num_examples=20, k=2, seed=0)
 probs = Scorer(model, schema, batch_size=16).predict(ds.ids)
 assert probs.shape == (20,) and np.allclose(probs, 0.5), probs
+for q in ("bf16", "int8"):
+    m = make_fnn(schema, k=2, mlp=MlpSpec(hidden=(8,)), device="cpu")
+    assert np.allclose(Scorer(m, schema, batch_size=16, quantize=q).predict(ds.ids), 0.5)
+with parallel.process_group("cpu") as group:
+    m = make_fnn(schema, k=2, mlp=MlpSpec(hidden=(8,), dropout=0.5), device="cpu")
+    sopt, dopt = SparseAdagrad(0.05), make_dense_optimizer("adagrad", 0.02)
+    sst = parallel.init_sharded_state(m, schema, sopt, dopt, group)
+    sst, (loss, dropped) = parallel.make_sharded_train_step(schema, sopt, dopt, group)(
+        sst, ds.ids, ds.labels, np.ones(20, np.float32))
+    assert np.isfinite(float(loss)) and int(dropped) == 0
 model = make_fnn(schema, k=2, mlp=MlpSpec(hidden=(8,), dropout=0.5), device="cpu")
 sopt, dopt = SparseAdagrad(0.05), make_dense_optimizer("adagrad", 0.02)
 state = init_state(model, schema, sopt, dopt, seed=0, table_dtype="bf16")

@@ -36,6 +36,7 @@ from deepctr_tpu.optim import sparse as j_sparse
 from deepctr_tpu.train import init_state as j_init_state
 from deepctr_tpu.train import make_train_step as j_make_train_step
 from deepctr_tpu.utils import checkpoint as j_ckpt
+from test_torch_ranks import torchrun
 
 # tests/test_torch_train.py's: f32 on both sides, sums in other orders
 RTOL, ATOL = 1e-4, 1e-5
@@ -217,6 +218,64 @@ def test_cli_kill_and_resume_matches_uninterrupted(schema, tmp_path, capsys, mod
     capsys.readouterr()
     assert c["history"][0].get("eval_only") and c["state"].step == 2 * steps_per_epoch
     assert t_ckpt.read_manifest(b_ckpt)["epoch"] == 2
+
+
+def test_sharded_cli_kill_and_resume_matches_uninterrupted(schema, tmp_path):
+    """Two gloo ranks under ``torchrun`` (``train.sharded``, FNN with
+    dropout 0.5, bf16 table): run A trains 3 epochs; run B trains 2, and B'
+    resumes it to 3. B''s final checkpoint equals A's leaf for leaf, bit for
+    bit, and rank 0 alone writes the metrics, with the ``resumed`` event."""
+    sp = tmp_path / "schema.json"
+    sp.write_text(schema.to_json())
+    a_ckpt, b_ckpt = str(tmp_path / "a.ckpt"), str(tmp_path / "b.ckpt")
+    b_metrics = tmp_path / "b.jsonl"
+    extra = ["model.name=fnn", "model.dropout=0.5", "train.sharded=true",
+             "train.capacity_factor=8.0", "train.lr_decay=0.7"]
+
+    def run(ckpt, metrics, more):
+        torchrun(_cli_argv(sp, ckpt, metrics, extra + more) + ["--device", "cpu"])
+
+    run(a_ckpt, tmp_path / "a.jsonl", ["train.epochs=3", "train.num_devices=2"])
+    run(b_ckpt, b_metrics, ["train.epochs=2", "train.prefetch=false"])
+    run(b_ckpt, b_metrics, ["train.epochs=3", "train.resume=true"])
+    got, want = _checkpoint_leaves(b_ckpt), _checkpoint_leaves(a_ckpt)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    steps_per_epoch = int(700 * 0.85) // BATCH
+    assert int(got[0]) == 3 * steps_per_epoch
+    assert t_ckpt.read_manifest(b_ckpt)["epoch"] == 3
+    events = [json.loads(line) for line in b_metrics.read_text().splitlines()]
+    assert [e["epoch"] for e in events if "auc" in e] == [0, 1, 2]
+    assert [(e["step"], e["epoch"]) for e in events if e.get("event") == "resumed"] == [
+        (2 * steps_per_epoch, 2)]
+    assert all(e["dropped_ids"] == 0 for e in events if "auc" in e)
+
+
+@pytest.mark.parametrize("first,then", [("sharded", "unsharded"),
+                                        ("unsharded", "sharded")])
+def test_checkpoints_move_between_sharded_and_unsharded(schema, tmp_path, capsys,
+                                                        first, then):
+    """A world of one gives the single-device step's bits, so a checkpoint
+    written by one route and resumed by the other ends bit-identical to an
+    uninterrupted unsharded run."""
+    sp = tmp_path / "schema.json"
+    sp.write_text(schema.to_json())
+    a_ckpt, b_ckpt = str(tmp_path / "a.ckpt"), str(tmp_path / "b.ckpt")
+    extra = ["model.name=fnn", "model.dropout=0.5"]
+
+    def run(ckpt, route, more):
+        sharded = ["train.sharded=true"] if route == "sharded" else []
+        cfg = t_cli.RunConfig().apply_overrides(
+            _cli_argv(sp, ckpt, tmp_path / "m.jsonl", extra + sharded + more))
+        return t_cli.run(cfg, torch.device("cpu"))
+
+    run(a_ckpt, "unsharded", ["train.epochs=2"])
+    run(b_ckpt, first, ["train.epochs=1"])
+    run(b_ckpt, then, ["train.epochs=2", "train.resume=true"])
+    capsys.readouterr()
+    for g, w in zip(_checkpoint_leaves(b_ckpt), _checkpoint_leaves(a_ckpt), strict=True):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
 
 
 def test_cli_resume_from_checkpoint(tmp_path, capsys):

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
+import torch
 
 from deepctr_torch import cli as t_cli
 from deepctr_torch.models import MlpSpec as TMlpSpec
@@ -146,3 +147,106 @@ def test_from_checkpoint_rejects_other_schema(schema, tmp_path):
     other = make_schema([("a", 4), ("b", 8), ("c", 17), ("tags", 10, 3)])
     with pytest.raises(ValueError, match="schema mismatch"):
         TScorer.from_checkpoint(ckpt, _port_model(other), other)
+
+
+# ---------------------------------------------------------------------------
+# The quantised scorer (bf16, int8) against the JAX package's
+# ---------------------------------------------------------------------------
+
+# tests/test_serving.py:73: a quantised table's AUC against f32's
+AUC_BAND = 0.01
+# the int8 logits: both packages dequantise to the same rows and run the
+# tower in f32, summing in other orders
+INT8_ATOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def trained(schema):
+    """An FM trained by the JAX package (``tests/test_serving.py``'s
+    fixture), its held-out rows and labels."""
+    from deepctr_tpu.models import FMModel
+    from deepctr_tpu.train import fit
+
+    ds = synthetic.generate(schema, num_examples=4096, k=3, noise=0.3, seed=1)
+    res = fit(FMModel(k=4), schema, ds.ids[:3000], ds.labels[:3000], ds.ids[3000:],
+              ds.labels[3000:], sparse_opt=SparseAdagrad(0.1),
+              dense_opt=optax.adagrad(0.05), batch_size=256, epochs=4, prefetch=False)
+    table = np.asarray(res.state.table, np.float32)
+    dense = jax.tree_util.tree_map(np.asarray, res.state.dense)
+    return table, dense, ds.ids[3000:], ds.labels[3000:]
+
+
+def _fm_scorers(schema, trained, quantize):
+    from deepctr_tpu.models import FMModel
+
+    from deepctr_torch.models import make_fm as t_make_fm
+
+    table, dense, _, _ = trained
+    want = Scorer(model=FMModel(k=4), schema=schema, table=table, dense=dense,
+                  batch_size=512, quantize=quantize)
+    model = t_make_fm(schema, k=4, device="cpu")
+    model.load_state_dict(params_from_jax(table, dense))
+    return TScorer(model, schema, batch_size=512, quantize=quantize), want
+
+
+def _jax_int8_rows(scorer, d):
+    """The JAX scorer's int8 table unpacked from its 32-bit words: the int8
+    payload and the f32 row scale, dequantised."""
+    packed = np.asarray(scorer._table).view(np.int8).reshape(scorer._table.shape[0], -1)
+    pad = -(d + 4) % 4
+    scale = packed[:, d + pad:].copy().view(np.float32)
+    return packed[:, :d].astype(np.float32) * scale
+
+
+@pytest.mark.parametrize("quantize", ["bf16", "int8"])
+def test_quantized_scorer_matches_jax(schema, trained, quantize):
+    from deepctr_tpu.utils.metrics import exact_auc
+
+    got, want = _fm_scorers(schema, trained, quantize)
+    _, _, ids, labels = trained
+    rtol, atol = (0.0, INT8_ATOL) if quantize == "int8" else (RTOL, ATOL)
+    np.testing.assert_allclose(got.logits(ids), want.logits(ids), rtol=rtol, atol=atol)
+    f32, _ = _fm_scorers(schema, trained, None)
+    auc, auc_f32 = (exact_auc(labels, s.predict(ids)) for s in (got, f32))
+    assert auc > 0.6 and abs(auc - auc_f32) < AUC_BAND, (auc, auc_f32)
+
+
+def test_int8_rows_are_the_jax_scorers_bit_for_bit(schema, trained):
+    got, want = _fm_scorers(schema, trained, "int8")
+    table = trained[0]
+    rows = got.rows(torch.arange(table.shape[0])).numpy()
+    np.testing.assert_array_equal(rows, _jax_int8_rows(want, table.shape[1]))
+    scale = np.maximum(np.abs(table).max(axis=1), 1e-12) / 127.0
+    np.testing.assert_array_equal(got._scale.numpy(), scale.astype(np.float32))
+    assert np.abs(rows - table).max() <= scale.max() * 0.5 + 1e-7
+
+
+@pytest.mark.parametrize("quantize,row_bytes", [(None, lambda d: 4 * d),
+                                                ("bf16", lambda d: 2 * d),
+                                                ("int8", lambda d: d + 4)],
+                         ids=["f32", "bf16", "int8"])
+def test_quantized_table_bytes_and_the_f32_table_released(schema, trained, quantize,
+                                                          row_bytes):
+    scorer, _ = _fm_scorers(schema, trained, quantize)
+    v, d = trained[0].shape
+    assert scorer.table_bytes == v * row_bytes(d)
+    assert scorer.model.table.numel() == (v * d if quantize is None else 0)
+
+
+def test_quantized_scorer_from_a_jax_checkpoint(schema, ids, tmp_path):
+    """``from_checkpoint(..., quantize="int8")`` on a train state the JAX
+    package wrote scores as the JAX scorer does with the same quantisation."""
+    jmodel = _jax_model(schema)
+    state = init_state(jmodel, schema, SparseAdagrad(0.1), optax.adagrad(0.05), seed=0)
+    table, dense = _params(schema)
+    state = state._replace(table=jnp.asarray(table),
+                           dense=jax.tree_util.tree_map(jnp.asarray, dense))
+    ckpt = str(tmp_path / "fnn.ckpt")
+    save_train_state(ckpt, state, epoch=1, meta={"model": "fnn"}, schema=schema)
+    want = Scorer.from_checkpoint(ckpt, jmodel, batch_size=BATCH, quantize="int8")
+    got = TScorer.from_checkpoint(ckpt, _port_model(schema), batch_size=BATCH,
+                                  quantize="int8")
+    np.testing.assert_allclose(got.logits(ids), want.logits(ids), rtol=0.0,
+                               atol=INT8_ATOL)
+    with pytest.raises(ValueError, match="quantize"):
+        TScorer(_port_model(schema), schema, quantize="int4")

@@ -506,9 +506,11 @@ def test_jax_snn_checkpoint_scores_in_the_port(tiny_schema, tmp_path, capsys, ta
     ("train.pretrain=cd2", ValueError),
 ])
 def test_cli_snn_still_refuses(tiny_schema, tmp_path, override, error):
-    """What the SNN route does not take: the sharded multi-GPU run of
-    ``configs/snn_dae_multichip.json``, pretraining on streamed input (the
-    reference's refusal), and an unknown pretrainer."""
+    """What the SNN route does not take: the multi-host run of
+    ``configs/snn_dae_multichip.json`` (``train.sharded`` with
+    ``train.distributed``; the sharded run on one host is taken, as
+    ``tests/test_torch_sharded_cli.py`` tests), pretraining on streamed
+    input (the reference's refusal), and an unknown pretrainer."""
     yx = str(tmp_path / "rows.yx")
     synthetic.write_yx_file(synthetic.generate(tiny_schema, num_examples=200, k=3,
                                                seed=2), yx)
@@ -517,6 +519,8 @@ def test_cli_snn_still_refuses(tiny_schema, tmp_path, override, error):
             "model.hidden=8", "train.pretrain=dae", override, "--device", "cpu"]
     if override == "data.stream=true":
         argv[-2:-2] = [f"data.train_path={yx}", f"data.test_path={yx}"]
+    if override == "train.sharded=true":
+        argv[-2:-2] = ["train.distributed=true"]
     with pytest.raises(error, match="SNN pretraining" if error is ValueError
                        and override.startswith("data") else None):
         t_cli.main(argv)

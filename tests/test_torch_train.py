@@ -244,11 +244,13 @@ def test_cli_trains_and_both_packages_score_its_checkpoint(schema, tmp_path,
     "train.resume=true", "train.debug_nans=true",
 ])
 def test_cli_raises_for_keys_not_ported(override):
-    """The multi-GPU keys still raise; the others are honoured now
-    (``tests/test_torch_cli.py``, ``test_torch_resume.py`` and
-    ``test_torch_stream.py`` test what they do) and pass the check."""
+    """The multi-host key still raises; the others are honoured now
+    (``tests/test_torch_cli.py``, ``test_torch_resume.py``,
+    ``test_torch_stream.py`` and, for ``train.sharded``,
+    ``test_torch_parallel.py`` and ``test_torch_sharded_cli.py`` test what
+    they do) and pass the check."""
     key = override.split("=")[0]
-    if key in ("train.sharded", "train.distributed"):
+    if key == "train.distributed":
         assert key in t_cli.UNPORTED_KEYS
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_cli.main([override, "--device", "cpu"])
