@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, retraining and sharded
-training paths once on one GPU.
+"""Drive the PyTorch port's serving, training, retraining, sharded and
+multi-process training paths once on one GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``, and imports nothing of JAX.
@@ -124,7 +124,22 @@ Phases, each printing its own lines:
     time (CUDA events), ``torch.profiler`` over warm steps (the NCCL
     all-to-all named), the step's own pieces timed alone (bucketing, the
     lookup and gradient exchanges, the sorted-mode scatter) and the peak
-    device memory.
+    device memory;
+16. ``train.distributed=true`` in a world of one NCCL rank: (a) phase 13's
+    streamed FNN job with ``train.sharded=true train.distributed=true``
+    (rank-local stream, agreed step counts, per-rank shard checkpoints
+    ``<ckpt>.hostshards/proc0.npz``): run A takes 2 epochs, run B 1 and B'
+    resumes from B's host shards to 2; B''s shard file must equal A's bit
+    for bit, with a ``resumed_hostshards`` event at epoch 1; A's shard file,
+    sentinel rows dropped, must equal phase 13's run A checkpoint leaf for
+    leaf; launches 80 / 80 and one eval forward an eval batch;
+    ``rows_skipped`` 0; no portable checkpoint and no ``.fm_table``; the
+    shard file's bytes, the row count's rows/s, the CLI epochs' examples/s,
+    and the FNN state's save and load; (b) phase 15 (d)'s Criteo state
+    (26,000,833 x 17 f32 and its accumulator) through ``save_host_shards``
+    and ``load_host_shards`` into a freshly packed state, bit for bit, with
+    the temporary directory's free space, the bytes, seconds and GB/s each
+    way and the peak host RSS.
 Then one JSON line on the kernels (each with its least time on the card
 from the shapes: ``bound_ms`` against f32 on the CUDA cores, 67 TFLOP/s,
 and 3.35 TB/s, as ``bound_by`` and ``bound_kind`` say, and
@@ -1594,7 +1609,8 @@ def _phase13_retrain(dev, root, tmp, schema, schema_path) -> dict:
           f"train.debug_nans=true: exit {nan_proc.returncode}, '{tail}'")
     if nan_proc.returncode == 0 or "FloatingPointError: train step 1:" not in tail:
         raise AssertionError(f"retrain: the NaN run was not refused at step 1: {err[-2000:]}")
-    return {"epoch_rates": epoch_rates, "feeds": feeds}
+    return {"epoch_rates": epoch_rates, "feeds": feeds, "a_ckpt": a_ckpt,
+            "stream": stream, "steps": steps}
 
 
 def _phase14_quantized_scoring(dev, root, schema, fnn) -> dict:
@@ -1875,7 +1891,209 @@ def _phase15_sharded(dev, root, tmp, schema, schema_path, fnn, fm_table) -> dict
         pieces = _exchange_pieces(schema_c, cfg, state, batches[0][0])
     return {"launches": launches, "criteo_launches": c_launches, "step_ms": step_ms,
             "examples_per_s": rec["examples_per_s"], "peak_bytes": peak,
-            "auc": rec["auc"], "pieces": pieces, **prof}
+            "auc": rec["auc"], "pieces": pieces, "criteo": (cfg, schema_c, state),
+            **prof}
+
+
+class _PeakRss:
+    """The process's largest resident set while the block runs, sampled
+    from ``/proc/self/statm`` every 5 ms on a thread."""
+
+    def __enter__(self):
+        import threading
+
+        self._stop = threading.Event()
+        page = os.sysconf("SC_PAGE_SIZE")
+
+        def rss():
+            with open("/proc/self/statm") as f:
+                return int(f.read().split()[1]) * page
+
+        self.start = self.peak = rss()
+
+        def sample():
+            while not self._stop.wait(0.005):
+                self.peak = max(self.peak, rss())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def _host_shard_trip(dev, state, like, dirpath, tag) -> dict:
+    """``save_host_shards`` of ``state`` and ``load_host_shards`` into
+    ``like`` (a freshly packed state) in a world of one, timed on the host
+    clock with the card synchronised, and the two compared leaf for leaf,
+    bit for bit (step, table, sparse state, tower, dense state, generator).
+    Returns the bytes, seconds, GB/s and peak host RSS each way."""
+    import torch
+
+    from deepctr_torch import parallel as par
+
+    group = par.Group(rank=0, world=1, device=dev)
+    torch.cuda.synchronize()
+    with _PeakRss() as rss_save:
+        t0 = time.perf_counter()
+        path = par.save_host_shards(dirpath, state, group, epoch=7)
+        save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    with _PeakRss() as rss_load:
+        t0 = time.perf_counter()
+        like, epoch = par.load_host_shards(dirpath, like, group)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    same = epoch == 7 and _same_state(state, like)
+    out = {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+           "save_gb_s": nbytes / save_s / 1e9, "load_gb_s": nbytes / load_s / 1e9,
+           "rss_save": rss_save.peak, "rss_load": rss_load.peak}
+    gib = [x / 2**30 for x in (rss_save.peak, rss_save.peak - rss_save.start,
+                               rss_load.peak, rss_load.peak - rss_load.start)]
+    print(f"{tag}: {os.path.basename(path)} {nbytes} bytes; save {save_s:.3f} s "
+          f"({out['save_gb_s']:.3f} GB/s), load into a fresh packed state "
+          f"{load_s:.3f} s ({out['load_gb_s']:.3f} GB/s), host clock with the card "
+          f"synchronised; peak host RSS {gib[0]:.2f} GiB saving ({gib[1]:.2f} above "
+          f"its start), {gib[2]:.2f} GiB loading ({gib[3]:.2f} above); every leaf "
+          f"equal bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"{tag}: the loaded state differs from the saved one")
+    return out
+
+
+def _phase16_distributed(dev, root, tmp, retrain, criteo) -> dict:
+    """``train.distributed=true`` in a world of one NCCL rank: (a) phase 13's
+    streamed FNN job with rank-local streaming and per-rank shard
+    checkpoints, 2 epochs straight (A) and 1 then a host-shard resume to 2
+    (B, B'), against phase 13's run A; (b) phase 15 (d)'s Criteo state
+    through ``save_host_shards`` and ``load_host_shards``."""
+    import resource
+
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch import parallel as par
+
+    t_phase = time.perf_counter()
+    steps = retrain["steps"]
+    base = retrain["stream"] + ["train.sharded=true", "train.distributed=true"]
+    print("distributed: train.sharded=true train.distributed=true in a world of one "
+          "NCCL rank on cuda:0 (NCCL refuses two ranks on one GPU; the multi-rank "
+          "gates run on the CPU with gloo in the tests)")
+
+    # (a) run A, 2 epochs; run B, 1 epoch; B' resumes from B's host shards to 2
+    a_ckpt, b_ckpt = (os.path.join(tmp, f"dist_{x}.ckpt") for x in "ab")
+    a_metrics, b_metrics = (os.path.join(tmp, f"dist_{x}.jsonl") for x in "ab")
+    res_a, launches, _ = _retrain_run(
+        dev, root, base + ["train.epochs=2", f"train.checkpoint_path={a_ckpt}",
+                           f"train.metrics_path={a_metrics}"],
+        "distributed run A (rank-local stream, prefetched, 2 epochs)")
+    _retrain_run(dev, root, base + ["train.epochs=1", f"train.checkpoint_path={b_ckpt}",
+                                    f"train.metrics_path={b_metrics}"],
+                 "distributed run B (1 epoch)")
+    _retrain_run(dev, root, base + ["train.epochs=2", f"train.checkpoint_path={b_ckpt}",
+                                    f"train.metrics_path={b_metrics}"],
+                 "distributed run B' (resumed from B's host shards to 2 epochs)")
+    with open(a_metrics) as f:
+        a_events = [json.loads(line) for line in f]
+    with open(b_metrics) as f:
+        b_events = [json.loads(line) for line in f]
+    agreed = [(e["epoch"], e["steps"], e["rows_skipped"]) for e in a_events
+              if e.get("event") == "epoch_steps"]
+    resumed = [(e["step"], e["epoch"]) for e in b_events
+               if e.get("event") == "resumed_hostshards"]
+    print(f"distributed: run A's epochs (epoch, steps, rows_skipped) {agreed}; run "
+          f"B''s resumed_hostshards (step, epoch) {resumed}")
+    if agreed != [(0, steps, 0), (1, steps, 0)]:
+        raise AssertionError(f"distributed: agreed steps {agreed}, expected {steps} "
+                             f"an epoch and no row skipped")
+    if resumed != [(steps, 1)]:
+        raise AssertionError(f"distributed: resumed events {resumed}")
+    evals = 2 * -(-RETRAIN_TEST_ROWS // BATCH)
+    if (launches["fwd_dropout"], launches["bwd"], launches["fwd_eval"]) != (
+            2 * steps, 2 * steps, evals):
+        raise AssertionError(f"distributed: run A launched {launches}; expected "
+                             f"{2 * steps} / {2 * steps} / {evals}")
+    print(f"distributed: run A launched the forward with dropout and the backward "
+          f"once a step ({2 * steps} / {2 * steps}), the eval forward once an eval "
+          f"batch ({evals})")
+    portable = [p for c in (a_ckpt, b_ckpt) for p in (c, c + ".fm_table")
+                if os.path.exists(p)]
+    if portable:
+        raise AssertionError(f"distributed: portable files written: {portable}")
+    with np.load(os.path.join(a_ckpt + ".hostshards", "proc0.npz")) as za, \
+            np.load(os.path.join(b_ckpt + ".hostshards", "proc0.npz")) as zb:
+        a_file = {k: za[k] for k in za.files}
+        b_file = {k: zb[k] for k in zb.files}
+    same_b = sorted(a_file) == sorted(b_file) and all(
+        a_file[k].dtype == b_file[k].dtype and np.array_equal(a_file[k], b_file[k])
+        for k in a_file)
+    print(f"distributed: run B''s proc0.npz vs run A's, {len(a_file)} entries "
+          f"({int(a_file['__nleaves'])} leaves), bit for bit: {same_b}")
+    if not same_b:
+        raise AssertionError("distributed: the resumed run's shard file differs")
+    # against phase 13's run A: the same stream, seeds and dropout seeds, and
+    # a world-1 step is the unsharded step (phase 15 (a))
+    manifest, leaves = _ckpt_leaves(retrain["a_ckpt"])
+    n = int(a_file["__nleaves"])
+    mine = [a_file[f"s{i}__0_0"][:-1] if f"s{i}__0_0" in a_file else a_file[f"r{i}"]
+            for i in range(n)]     # the shards without their sentinel row
+    equal = [x.dtype == y.dtype and np.array_equal(x, y)
+             for x, y in zip(mine, leaves, strict=True)]
+    print(f"distributed: run A's shard file vs phase 13's run A checkpoint, leaf for "
+          f"leaf (step, bf16 table bits and accumulator without the sentinel row, "
+          f"tower, dense accumulators, generator): {equal}")
+    if not all(equal) or list(a_file["__bf16_leaves"]) != [1]:
+        raise AssertionError("distributed: run A is not phase 13's run A")
+    rates = [round(r["examples_per_s"]) for r in res_a["history"]]
+    a_bytes = os.path.getsize(os.path.join(a_ckpt + ".hostshards", "proc0.npz"))
+    print(f"distributed: run A's CLI epochs {rates} examples/s (host clock); its "
+          f"shard file {a_bytes} bytes")
+
+    # the row count alone, on the 4 shards, and the FNN state's round trip
+    cfg = cli.RunConfig.load(os.path.join(root, FNN_CONFIG)).apply_overrides(base)
+    group1 = par.Group(rank=0, world=1, device=dev)
+    schema_f, source, *_ = cli.load_data(cfg, group1)
+    t0 = time.perf_counter()
+    rows = par.count_shard_rows(source, group1)
+    count_s = time.perf_counter() - t0
+    total = sum(rows.values())
+    print(f"distributed: row count of the {len(rows)} shards ({total} rows, "
+          f"{sum(os.path.getsize(p) for p in rows) / 1e6:.1f} MB) in {count_s:.4f} s: "
+          f"{total / count_s:.0f} rows/s (host clock)")
+    if total != RETRAIN_SHARDS * RETRAIN_SHARD_ROWS:
+        raise AssertionError(f"distributed: counted {total} rows")
+    sopt, dopt = cli.build_optimizers(cfg)
+    fresh = par.init_sharded_state(cli.build_model(cfg, schema_f, dev), schema_f, sopt,
+                                   dopt, group1, seed=SEED + 16, table_dtype="bf16")
+    fnn_trip = _host_shard_trip(dev, res_a["state"], fresh,
+                                os.path.join(tmp, "dist_fnn.hostshards"),
+                                "distributed fnn host shards")
+    del res_a, fresh
+
+    # (b) Criteo at full width: phase 15 (d)'s final sharded state
+    c_cfg, c_schema, c_state = criteo
+    free = shutil.disk_usage(tmp).free
+    held = sum(t.numel() * t.element_size()
+               for t in (c_state.model.table, *c_state.sparse_state))
+    print(f"distributed criteo: {tmp} has {free} bytes free; the state holds "
+          f"{held} bytes of table and accumulator shards")
+    c_sopt, c_dopt = cli.build_optimizers(c_cfg)
+    c_fresh = par.init_sharded_state(cli.build_model(c_cfg, c_schema, dev), c_schema,
+                                     c_sopt, c_dopt, group1, seed=SEED + 16,
+                                     table_dtype="f32")
+    c_dir = os.path.join(tmp, "dist_criteo.hostshards")
+    criteo_trip = _host_shard_trip(dev, c_state, c_fresh, c_dir,
+                                   "distributed criteo host shards")
+    shutil.rmtree(c_dir)
+    del c_fresh, c_state
+    print(f"distributed: process peak host RSS so far "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB "
+          f"(ru_maxrss); phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "examples_per_s": rates, "fnn": fnn_trip,
+            "criteo": criteo_trip, "count_rows_per_s": total / count_s}
 
 
 def _template_args(mangled) -> str:
@@ -2138,10 +2356,12 @@ def main() -> int:
         _phase10_deepfm(dev, root, tmp, schema, schema_path)
         _phase11_lr_ipnn(dev, tmp, schema)
         _phase12_snn(dev, root, tmp, schema, schema_path)
-        _phase13_retrain(dev, root, tmp, schema, schema_path)
+        retrain = _phase13_retrain(dev, root, tmp, schema, schema_path)
         _phase14_quantized_scoring(dev, root, schema, train)
         sharded = _phase15_sharded(dev, root, tmp, schema, schema_path, train,
                                    fm["fm_table"])
+        distributed = _phase16_distributed(dev, root, tmp, retrain,
+                                           sharded.pop("criteo"))
 
     work = _tower_work(BATCH, fnn_dims)
     criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))
@@ -2158,6 +2378,7 @@ def main() -> int:
         "plain_ms": plain_ms,
         **_bound(*work["fwd"]),
         "library_ms": None,
+        "launches_distributed": distributed["launches"]["fwd_eval"],
         "ms_criteo": tower_times["criteo tanh"][0],
         "plain_ms_criteo": tower_times["criteo tanh"][1],
         "bound_ms_criteo": _bound(*criteo["fwd"])["bound_ms"],
@@ -2174,6 +2395,7 @@ def main() -> int:
         "library_ms": None,
         "launches_sharded": sharded["launches"]["fwd_dropout"],
         "launches_criteo": sharded["criteo_launches"]["fwd_dropout"],
+        "launches_distributed": distributed["launches"]["fwd_dropout"],
         "ms_criteo": train_k["criteo_fwd_drop_ms"],
         "plain_ms_criteo": train_k["criteo_fwd_drop_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["fwd"])["bound_ms"],
@@ -2190,6 +2412,7 @@ def main() -> int:
         "library_ms": None,
         "launches_sharded": sharded["launches"]["bwd"],
         "launches_criteo": sharded["criteo_launches"]["bwd"],
+        "launches_distributed": distributed["launches"]["bwd"],
         "ms_criteo": train_k["criteo_bwd_ms"],
         "plain_ms_criteo": train_k["criteo_bwd_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["bwd"])["bound_ms"],

@@ -18,11 +18,33 @@ Asking for CUDA where there is none raises.
 ``torch.distributed`` group (``parallel/``): one process per device, under
 ``torchrun --standalone --nproc_per_node=N -m deepctr_torch.cli ...``
 (NCCL on ``--device cuda``, rank r on ``cuda:{LOCAL_RANK}``; gloo on
-``--device cpu``), or as a world of one without a launcher. Every rank
-prepares the same state (initialisation, resume, the FM hand-off, SNN's
-pretraining) and takes its slice of every batch; rank 0 alone writes
-metrics and checkpoints, which keep the single-device layout.
-``train.num_devices``, when set, must equal the world size.
+``--device cpu``; over M hosts ``torchrun --nnodes=M --nproc_per_node=G
+--rdzv_backend=c10d --rdzv_endpoint=<host:port>``), or as a world of one
+without a launcher. Every rank prepares the same state (initialisation,
+resume, the FM hand-off, SNN's pretraining) and takes its slice of every
+batch; rank 0 alone writes metrics and checkpoints, which keep the
+single-device layout. ``train.num_devices``, when set, must equal the
+world size.
+
+``train.distributed``: JAX drives many devices from one process and
+switches its multi-controller branches on ``jax.process_count() > 1``. A
+sharded run of the port is already one process per device, so the key
+itself selects the multi-controller contract, with ``train.sharded``, at
+any world size (a world of one too):
+- a stream is rank-local: rank r parses only shard files
+  ``epoch_order[r::N]`` and makes B/N rows a step, and the ranks agree on
+  each epoch's step count first (``parallel.RankLocalStream``; an
+  ``epoch_steps`` event gives the steps and ``rows_skipped``). Data in RAM
+  is held by every rank, which takes its rows of each batch, as without
+  the key;
+- checkpoints are per-rank shard files, ``<ckpt>.hostshards/proc<r>.npz``
+  (``parallel/hostckpt.py``); no portable checkpoint and no ``.fm_table``
+  is written;
+- a run resumes from ``<ckpt>.hostshards`` when that directory exists,
+  whatever ``train.resume`` says (the reference's rule), skipping the FM
+  hand-off and SNN's pretraining, and logs ``resumed_hostshards``.
+Without ``train.sharded`` the key has no effect, as in the reference's
+single process; a ``distributed_ignored`` event says so.
 
 ``train.prefetch`` (default true) stages the training batches on a
 background thread, onto the card through pinned buffers and a side stream
@@ -32,24 +54,19 @@ turns on autograd's anomaly mode and raises at the first step whose loss is
 not finite. Keys of the shared config that are TPU mechanisms are read and
 have no effect here: ``model.use_pallas`` (the device picks the kernels),
 ``train.scan_steps`` (``lax.scan`` dispatch) and ``train.split_threshold``
-(the one-hot split plan). ``train.distributed`` (multi-host runs) raises
-``NotImplementedError`` when set (``UNPORTED_KEYS``).
+(the one-hot split plan).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import sys
 
 import torch
 
 from .config import RunConfig
-
-# config key -> the ROADMAP.md item that will honour it
-UNPORTED_KEYS = {
-    "train.distributed": "slice 5, item 16 (multi-process runs)",
-}
 
 
 def build_model(cfg, schema, device: torch.device | str):
@@ -99,30 +116,19 @@ def build_optimizers(cfg):
     return sparse, make_dense_optimizer(cfg.optim.dense, cfg.optim.dense_lr)
 
 
-def check_ported(cfg) -> None:
-    """Raise for a key the port does not honour yet, set away from its
-    default."""
-    default = RunConfig()
-    for key, item in UNPORTED_KEYS.items():
-        section, name = key.split(".")
-        if getattr(getattr(cfg, section), name) != getattr(getattr(default, section), name):
-            raise NotImplementedError(
-                f"{key} is not ported to deepctr_torch yet (ROADMAP.md, "
-                f"'Modules still to port', {item})"
-            )
-
-
-def load_data(cfg):
+def load_data(cfg, group=None):
     """Returns (schema, train_ids, train_labels, test_ids, test_labels), as
     the reference's ``load_data``.
 
     With ``data.stream=true`` the second element is a
     ``data.stream.StreamSource`` over the shard files of
     ``data.train_path`` (a file, glob or comma list) and the third is None;
-    only the test set is read into RAM. In a sharded run every rank streams
-    every shard and makes the same global batches, of which it trains on its
-    rows (``_sharded_parts``): the ranks step alike however the shards'
-    lengths differ."""
+    only the test set is read into RAM. Under ``train.distributed`` in a
+    sharded run (``group``, this rank's place) the source is rank r's:
+    shards ``epoch_order[r::N]`` in batches of B/N rows, the reference's
+    process-local source. Without the key every rank streams every shard
+    and makes the same global batches, of which it trains on its rows
+    (``_sharded_parts``)."""
     from .data import Schema, featindex, ipinyou_like_schema, parser, synthetic
     from .data.cache import cache_text_file, read_cache
     from .data.criteo import criteo_schema, parse_criteo_file
@@ -179,15 +185,22 @@ def load_data(cfg):
             )
         from .data.stream import StreamSource
 
+        rank, world = ((group.rank, group.world) if group is not None
+                       and cfg.train.distributed else (0, 1))
+        if cfg.train.batch_size % world:
+            raise ValueError(f"train.batch_size {cfg.train.batch_size} must "
+                             f"divide by the world size {world}")
         source = StreamSource(
             paths=d.train_path,
             schema=schema,
-            batch_size=cfg.train.batch_size,
+            batch_size=cfg.train.batch_size // world,
             fmt="yx-featindex" if fi is not None else d.format,
             buffer_rows=d.stream_buffer_rows,
             seed=cfg.train.seed,
             use_native=d.use_native_parser,
             featindex=fi,
+            process_index=rank,
+            process_count=world,
         )
         te_ids, te_labels = read(d.test_path)
         return schema, source, None, te_ids, te_labels
@@ -206,7 +219,6 @@ def run(cfg, device: torch.device) -> dict:
     """Train the configured model on ``device``; returns the best AUC, its
     epoch, the per-epoch history and the final ``TrainState`` (with
     ``train.sharded``, this rank's ``parallel.ShardedTrainState``)."""
-    check_ported(cfg)
     with torch.autograd.set_detect_anomaly(cfg.train.debug_nans):
         if not cfg.train.sharded:
             return _run(cfg, device)
@@ -228,25 +240,42 @@ def _run(cfg, device: torch.device, group=None) -> dict:
         save_fm_embeddings,
         save_train_state,
     )
-    from .parallel import host_state_from_sharded, rank_zero_first
+    from .parallel import (
+        RankLocalStream,
+        count_shard_rows,
+        host_state_from_sharded,
+        load_host_shards,
+        rank_zero_first,
+        save_host_shards,
+    )
     from .utils.logging import MetricsLogger
     from .utils.prof import trace
 
+    lead = group is None or group.rank == 0
+    logger = MetricsLogger(cfg.train.metrics_path if lead else None, echo=lead)
+    distributed = group is not None and cfg.train.distributed
+    if cfg.train.distributed and group is None:
+        logger.log({"event": "distributed_ignored", "reason":
+                    "train.distributed has no effect without train.sharded"})
     with rank_zero_first(group):   # rank 0 writes the data cache the others read
-        schema, tr_ids, tr_labels, te_ids, te_labels = load_data(cfg)
+        schema, tr_ids, tr_labels, te_ids, te_labels = load_data(cfg, group)
     train_source = tr_ids if isinstance(tr_ids, StreamSource) else None
     if train_source is not None:
         tr_ids = tr_labels = None
+        if distributed:
+            train_source = RankLocalStream(
+                train_source, group, count_shard_rows(train_source, group), logger.log)
     model = build_model(cfg, schema, device)
     sparse_opt, dense_opt = build_optimizers(cfg)
-    lead = group is None or group.rank == 0
-    logger = MetricsLogger(cfg.train.metrics_path if lead else None, echo=lead)
     state = init_state(model, schema, sparse_opt, dense_opt, seed=cfg.train.seed,
                        table_dtype=cfg.train.table_dtype)
     ckpt_path = cfg.train.checkpoint_path
-    resumed = bool(cfg.train.resume and ckpt_path and os.path.exists(ckpt_path))
+    shards_dir = ckpt_path + ".hostshards" if distributed and ckpt_path else None
+    from_shards = shards_dir is not None and os.path.isdir(shards_dir)
+    resumed = from_shards or bool(cfg.train.resume and ckpt_path
+                                  and os.path.exists(ckpt_path))
     start_epoch = 0
-    if resumed:
+    if resumed and not from_shards:
         state = load_train_state(ckpt_path, state)
         start_epoch = int(read_manifest(ckpt_path).get("epoch", 0))
         logger.log({"event": "resumed", "path": ckpt_path, "step": state.step,
@@ -285,10 +314,21 @@ def _run(cfg, device: torch.device, group=None) -> dict:
     sharded = {}
     if group is not None:
         sharded = _sharded_parts(cfg, schema, group, state, sparse_opt, dense_opt,
-                                 te_ids, te_labels)
+                                 te_ids, te_labels,
+                                 rank_local=isinstance(train_source, RankLocalStream))
         state = sharded.pop("state")
+    if from_shards:
+        state, start_epoch = load_host_shards(shards_dir, state, group)
+        logger.log({"event": "resumed_hostshards", "path": shards_dir,
+                    "step": state.step, "epoch": start_epoch})
 
     def save(st, epoch: int, final: bool = False) -> None:
+        if distributed:   # every rank writes its own shard file
+            save_host_shards(shards_dir, st, group, epoch=epoch)
+            if final:
+                logger.log({"event": "saved_hostshards", "path": shards_dir,
+                            "epoch": epoch})
+            return
         # a sharded run's shards are gathered (every rank takes part) and
         # rank 0 writes the single-device layout
         host = st if group is None else host_state_from_sharded(st, group)
@@ -334,15 +374,17 @@ def _run(cfg, device: torch.device, group=None) -> dict:
 
 
 def _sharded_parts(cfg, schema, group, state, sparse_opt, dense_opt, te_ids,
-                   te_labels) -> dict:
+                   te_labels, rank_local: bool = False) -> dict:
     """What ``fit`` runs in place of its single-device parts in a sharded
     run, the reference's ``_run_sharded`` on its per-step route: the
     prepared state (checked equal on every rank) packed into this rank's
     shard, the sharded step, eval on the ranks' slices of every eval batch
     with the AUC histograms and the logloss sums all-reduced (every rank
     finalises them, so early stopping decides alike everywhere), and this
-    rank's slice of every training batch (a stream gives every rank the
-    same global batches)."""
+    rank's slice of every training batch of B rows. A rank-local stream's
+    batches (``rank_local``) are this rank's B/N rows already and pass as
+    they are; each batch's size is checked, since B/N rows that divide by
+    N again would be cut a second time without error."""
     import torch.distributed as dist
 
     from .data import minibatches
@@ -392,8 +434,19 @@ def _sharded_parts(cfg, schema, group, state, sparse_opt, dense_opt, te_ids,
             exchange_dtype=cfg.train.exchange_dtype,
             check_finite=cfg.train.debug_nans),
         "evaluate_state": sharded_eval,
-        "batch_transform": lambda b: local_batch(b, group),
+        "batch_transform": functools.partial(
+            _local_rows if rank_local else local_batch, group=group,
+            global_rows=batch_size),
     }
+
+
+def _local_rows(b, group, global_rows: int):
+    """A rank-local batch, checked to hold this rank's B/N rows."""
+    if b.ids.shape[0] != global_rows // group.world:
+        raise ValueError(f"a rank-local batch of {b.ids.shape[0]} rows; rank "
+                         f"{group.rank} of {group.world} takes "
+                         f"{global_rows // group.world} of every {global_rows}")
+    return b
 
 
 def resolve_device(name: str) -> torch.device:

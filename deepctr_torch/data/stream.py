@@ -4,8 +4,11 @@ Copy of ``deepctr_tpu/data/stream.py`` (numpy and the data layer only; the
 port imports nothing of the JAX package). Its behaviour is meant to be
 identical, and ``tests/test_torch_stream.py`` holds it to the original. The
 port's ``fit`` takes ``batches``; ``scan_chunks`` (the reference's
-``lax.scan`` feed) and ``process_index``/``process_count`` come along for
-the multi-process runs of ROADMAP.md item 16. The original's text follows.
+``lax.scan`` feed) comes along unused. Two additions serve the port's
+multi-process runs (``parallel/group.py::RankLocalStream``):
+``epoch_order``, the per-epoch permutation every process slices, and
+``count_rows``, a shard's row count by the parsers' own rule, without
+parsing. The original's text follows.
 
 The reference loads the full dataset into host RAM and slices minibatches
 (SURVEY.md §1 data layer, §3.1 hot loop) — fine for the bundled iPinYou
@@ -61,6 +64,7 @@ from __future__ import annotations
 import dataclasses
 import glob as _glob
 import queue as _queue
+import re
 import threading
 from collections import deque
 from typing import Iterator, Sequence
@@ -69,6 +73,12 @@ import numpy as np
 
 from .pipeline import Batch
 from .schema import Schema
+
+
+# lines the parsers skip, each with its newline, and the bytes such a line
+# starts with (``count_rows``)
+_BLANK_YX = (re.compile(rb"^[ \t\r]*\n", re.M), np.frombuffer(b" \t\r\n", np.uint8))
+_BLANK_CRITEO = (re.compile(rb"^\r*\n", re.M), np.frombuffer(b"\r\n", np.uint8))
 
 
 def expand_shards(pattern_or_paths) -> list[str]:
@@ -201,6 +211,16 @@ class StreamSource:
                     self.stats.chunks_parsed += 1
                 yield labels[s : s + rows_per_chunk], chunk_ids
             return
+        for raw in self._line_chunks(path):
+            labels, ids = self._parse(raw)
+            if len(labels):
+                with self._lock:
+                    self.stats.chunks_parsed += 1
+                yield labels, ids
+
+    def _line_chunks(self, path: str) -> Iterator[bytes]:
+        """A text shard's bytes, ``chunk_bytes`` at a time, cut at line
+        ends; chunks of whitespace only are skipped."""
         with open(path, "rb") as f:
             tail = b""
             while True:
@@ -219,11 +239,34 @@ class StreamSource:
                     raw, tail = raw[: nl + 1], raw[nl + 1 :]
                 if not raw.strip():
                     continue
-                labels, ids = self._parse(raw)
-                if len(labels):
-                    with self._lock:
-                        self.stats.chunks_parsed += 1
-                    yield labels, ids
+                yield raw
+
+    def count_rows(self, path: str) -> int:
+        """The rows ``batches`` takes from one shard, counted without
+        parsing: a ``.npz`` shard's labels, or a text shard's lines that
+        the parser of ``fmt`` keeps. A yx line is kept when it holds a byte
+        other than space, tab and CR (the native parser's rule); a Criteo
+        line when it is not empty once its trailing CRs are cut (the rule
+        of its parsers, the native one falling back to the Python one on a
+        line of blanks). Chunks are cut as ``_file_chunks`` cuts them."""
+        if path.endswith(".npz"):
+            with np.load(path) as z:
+                return int(z["labels"].shape[0])
+        blank, starts = _BLANK_CRITEO if self.fmt == "criteo" else _BLANK_YX
+        rows = 0
+        for raw in self._line_chunks(path):
+            # every chunk but a shard's unterminated last line ends in "\n"
+            if not raw.endswith(b"\n"):
+                raw += b"\n"
+            buf = np.frombuffer(raw, np.uint8)
+            ends = np.flatnonzero(buf == ord("\n"))
+            rows += ends.size
+            # the regex scans at a tenth of numpy's rate: only where a line
+            # starts with a byte that a blank line may start with
+            heads = buf[np.concatenate(([0], ends[:-1] + 1))]
+            if np.isin(heads, starts).any():
+                rows -= len(blank.findall(raw))
+        return rows
 
     def _chunks(self, paths: Sequence[str]):
         """Chunks of ``paths`` in order; parse runs ``prefetch_files`` files
@@ -303,13 +346,15 @@ class StreamSource:
 
     # ---- epoch iteration ---------------------------------------------------
 
+    def epoch_order(self, epoch: int) -> list[str]:
+        """The epoch's global shard permutation, the same in every process."""
+        rng = np.random.default_rng(self.seed + epoch)
+        return [self.paths[i] for i in rng.permutation(len(self.paths))]
+
     def _epoch_paths(self, epoch: int) -> list[str]:
         """Per-epoch shard order; each process takes a disjoint slice of the
         same global permutation (multi-host exactly-once)."""
-        rng = np.random.default_rng(self.seed + epoch)
-        order = rng.permutation(len(self.paths))
-        paths = [self.paths[i] for i in order]
-        return paths[self.process_index :: self.process_count]
+        return self.epoch_order(epoch)[self.process_index :: self.process_count]
 
     def _runs(self, epoch: int) -> Iterator[tuple[np.ndarray, np.ndarray]]:
         """Yield shuffled (ids [R, S], labels [R]) runs, one epoch.

@@ -1,17 +1,28 @@
 """Row-sharded multi-GPU training: the port of ``deepctr_tpu/parallel``.
 
 One process drives one device (``group.py``, the counterpart of the
-reference's ``mesh.py``); the table is row-sharded over the ranks with
+reference's ``mesh.py``, with a rank-local stream whose ranks agree on each
+epoch's step count); the table is row-sharded over the ranks with
 all-to-all id and row exchange (``sharded.py``), or replicated with the
-batch split (``dp.py``); ``comm.py`` counts the bytes a step exchanges.
-The reference's per-host shard checkpoints (``hostckpt.py``), its
-process-local batch assembly and ``predict_scaling`` are not ported yet
-(ROADMAP.md, item 16).
+batch split (``dp.py``); ``comm.py`` counts the bytes a step exchanges;
+``hostckpt.py`` writes and reloads each rank's shard files; ``drill.py``
+(``python -m deepctr_torch.parallel.drill``) kills a rank and restores
+from them. The reference's ``predict_scaling`` (a TPU interconnect model)
+is not ported.
 """
 
 from .comm import CommVolume, comm_volume, dense_param_bytes, exchange_capacity
 from .dp import make_dp_train_step, replicate_state
-from .group import Group, local_batch, process_group, rank_rows, rank_zero_first
+from .group import (
+    Group,
+    RankLocalStream,
+    count_shard_rows,
+    local_batch,
+    process_group,
+    rank_rows,
+    rank_zero_first,
+)
+from .hostckpt import load_host_shards, save_host_shards
 from .sharded import (
     ShardedTrainState,
     bucket_by_owner,
@@ -34,6 +45,10 @@ __all__ = [
     "make_dp_train_step",
     "replicate_state",
     "Group",
+    "RankLocalStream",
+    "count_shard_rows",
+    "load_host_shards",
+    "save_host_shards",
     "local_batch",
     "process_group",
     "rank_rows",

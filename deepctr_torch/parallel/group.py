@@ -14,6 +14,12 @@ a launcher as a world of one through a ``file://`` store in a temporary
 directory. A failure to start it raises; a CUDA run never falls back to
 gloo. :func:`local_batch` cuts rank r's rows ``[r·B/N, (r+1)·B/N)`` out of
 a global batch, the role of the reference's ``shard_batch_arrays``.
+
+:class:`RankLocalStream` takes the role of the reference's
+``assemble_process_local`` for a stream: rank r parses only its shard
+files and makes only its B/N rows a step, and the ranks agree on each
+epoch's step count before it starts, so that none waits in a collective
+that another never enters.
 """
 
 from __future__ import annotations
@@ -23,12 +29,13 @@ import dataclasses
 import os
 import shutil
 import tempfile
-from typing import Iterator
+from typing import Callable, Iterator
 
 import torch
 import torch.distributed as dist
 
 from ..data import Batch
+from ..data.stream import StreamSource
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,7 +126,75 @@ def rank_rows(batch_size: int, group: Group) -> slice:
     return slice(group.rank * n, (group.rank + 1) * n)
 
 
-def local_batch(b: Batch, group: Group) -> Batch:
-    """This rank's share of a global batch."""
+def local_batch(b: Batch, group: Group, global_rows: int | None = None) -> Batch:
+    """This rank's share of a global batch. ``global_rows``, when given, is
+    the size every global batch has: a batch that is already a rank's
+    share would otherwise be cut again without error."""
+    if global_rows is not None and b.ids.shape[0] != global_rows:
+        raise ValueError(f"a batch of {b.ids.shape[0]} rows where the global "
+                         f"batch has {global_rows}: is it a rank's share already?")
     rows = rank_rows(b.ids.shape[0], group)
     return Batch(ids=b.ids[rows], labels=b.labels[rows], weights=b.weights[rows])
+
+
+def count_shard_rows(source: StreamSource, group: Group) -> dict[str, int]:
+    """Every shard file's rows (``StreamSource.count_rows``), the same dict
+    on every rank: rank r counts files ``paths[r::N]``, and one
+    ``all_gather_object`` joins the counts."""
+    rows = {p: source.count_rows(p) for p in source.paths[group.rank::group.world]}
+    if group.world == 1:
+        return rows
+    every = [None] * group.world
+    dist.all_gather_object(every, rows)
+    return {p: n for part in every for p, n in part.items()}
+
+
+class RankLocalStream:
+    """Rank r's stream of a multi-process run, with the step count every
+    rank agrees on.
+
+    ``source`` is rank r's ``StreamSource`` (``process_index=r``,
+    ``process_count=N``, B/N rows a batch): each epoch it streams shards
+    ``epoch_order(epoch)[r::N]``. ``rows`` holds every shard file's rows
+    (:func:`count_shard_rows`), so each epoch's permutation tells every rank
+    every rank's rows, with no further communication: the epoch runs
+    ``min_r floor(rows_r / (B/N))`` steps (``StreamSource`` emits
+    ``floor(rows/(B/N))`` full batches), and :meth:`batches` stops there and
+    closes the stream (its parser threads end). ``log`` receives one event
+    an epoch with ``rows_skipped``: the rows of full batches that longer
+    ranks leave (each rank's last partial batch is dropped as in one
+    process)."""
+
+    def __init__(self, source: StreamSource, group: Group, rows: dict[str, int],
+                 log: Callable[[dict], None] | None = None):
+        if source.process_index != group.rank or source.process_count != group.world:
+            raise ValueError(
+                f"the source streams for process {source.process_index} of "
+                f"{source.process_count}; this is rank {group.rank} of {group.world}")
+        self.source, self.group, self.rows, self.log = source, group, rows, log
+
+    def epoch_steps(self, epoch: int) -> tuple[int, int]:
+        """``(steps, rows_skipped)`` of ``epoch``, the same on every rank."""
+        order, n = self.source.epoch_order(epoch), self.group.world
+        b = self.source.batch_size
+        full = [sum(self.rows[p] for p in order[r::n]) // b for r in range(n)]
+        steps = min(full)
+        return steps, (sum(full) - n * steps) * b
+
+    def batches(self, epoch: int) -> Iterator[Batch]:
+        steps, skipped = self.epoch_steps(epoch)
+        if self.log is not None:
+            self.log({"event": "epoch_steps", "epoch": epoch, "steps": steps,
+                      "rows_skipped": skipped})
+        it = self.source.batches(epoch)
+        try:
+            for i in range(steps):
+                b = next(it, None)
+                if b is None:
+                    raise RuntimeError(
+                        f"rank {self.group.rank}'s stream ended after {i} of "
+                        f"{steps} batches: its shards' row counts differ from "
+                        f"what the parser reads")
+                yield b
+        finally:
+            it.close()

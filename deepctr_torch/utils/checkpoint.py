@@ -191,16 +191,23 @@ def load_train_state(path: str, state):
                     f"model, optimizer or train.table_dtype mismatch")
             target.copy_(got)
         step = int(z["leaf_0"])
-        rng = z[f"leaf_{n - 1}"]
+        _restore_generator(state.generator, z[f"leaf_{n - 1}"], path)
+    state.step = step
+    return state
+
+
+def _restore_generator(generator: torch.Generator, rng: np.ndarray,
+                       path: str) -> None:
+    """Restore the dropout generator from a file's last leaf: a port-written
+    generator state, or a JAX PRNG key ``uint32[2]``, whose two words seed
+    the generator as one 64-bit integer."""
     if rng.dtype == np.uint8:
-        state.generator.set_state(torch.from_numpy(rng))
+        generator.set_state(torch.from_numpy(rng))
     elif rng.dtype == np.uint32 and rng.shape == (2,):
-        state.generator.manual_seed((int(rng[0]) << 32) | int(rng[1]))
+        generator.manual_seed((int(rng[0]) << 32) | int(rng[1]))
     else:
         raise ValueError(f"{path}: last leaf {rng.dtype}{list(rng.shape)} is "
                          f"neither a generator state nor a JAX PRNG key")
-    state.step = step
-    return state
 
 
 def save_fm_embeddings(path: str, table) -> None:

@@ -60,17 +60,33 @@ def test_cli_print_config(capsys):
     assert json.loads(got) == json.loads(want)
 
 
-def test_unported_keys_are_only_the_multi_gpu_ones():
-    assert set(t_cli.UNPORTED_KEYS) == {"train.distributed"}
-    with pytest.raises(NotImplementedError, match="train.distributed"):
-        t_cli.check_ported(t_cli.RunConfig().apply_overrides(["train.distributed=true"]))
+def test_unported_keys_are_only_the_multi_gpu_ones(argv, tmp_path):
+    """No key is left unported: ``train.distributed`` without
+    ``train.sharded`` runs the single-device route, as in the reference's
+    single process, and logs one event saying the key has no effect."""
+    assert not hasattr(t_cli, "UNPORTED_KEYS") and not hasattr(t_cli, "check_ported")
+    metrics = tmp_path / "m.jsonl"
+    res = _run(argv + ["train.distributed=true", f"train.metrics_path={metrics}"])
+    assert res["state"].step == 400 * 85 // 100 // BATCH
+    assert not hasattr(res["state"], "num_shards")
+    events = [json.loads(line) for line in metrics.read_text().splitlines()]
+    ignored = [e for e in events if e.get("event") == "distributed_ignored"]
+    assert len(ignored) == 1 and "train.sharded" in ignored[0]["reason"]
 
 
 @pytest.mark.parametrize("name", sorted(os.listdir(os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs"))))
-def test_every_bundled_config_starts_on_the_port(name):
+def test_every_bundled_config_starts_on_the_port(name, schema):
+    """Each bundled config resolves, and its model and optimizers build on
+    a tiny schema (its widths, any model of the family)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    t_cli.check_ported(t_cli.RunConfig.load(os.path.join(root, "configs", name)))
+    cfg = t_cli.RunConfig.load(os.path.join(root, "configs", name))
+    model = t_cli.build_model(cfg, schema, "cpu")
+    sparse, dense = t_cli.build_optimizers(cfg)
+    state = init_state(model, schema, sparse, dense, seed=0,
+                       table_dtype=cfg.train.table_dtype)
+    assert state.table.shape[0] == schema.padded_vocab_size
+    assert all(torch.isfinite(p).all() for p in model.parameters())
 
 
 @pytest.mark.parametrize("name", ["rmsprop", "Adam", "sgdd"])

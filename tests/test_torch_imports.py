@@ -28,6 +28,7 @@ from deepctr_torch.train import init_state, make_train_step
 from deepctr_torch.data import make_schema, synthetic
 import deepctr_torch.parallel.comm, deepctr_torch.parallel.dp
 import deepctr_torch.parallel.group, deepctr_torch.parallel.sharded
+import deepctr_torch.parallel.hostckpt, deepctr_torch.parallel.drill
 from deepctr_torch import parallel
 schema = make_schema([("a", 4), ("tags", 10, 3)])
 model = make_fnn(schema, k=2, mlp=MlpSpec(hidden=(8,)), device="cpu")

@@ -501,16 +501,12 @@ def test_jax_snn_checkpoint_scores_in_the_port(tiny_schema, tmp_path, capsys, ta
 
 
 @pytest.mark.parametrize("override,error", [
-    ("train.sharded=true", NotImplementedError),
     ("data.stream=true", ValueError),
     ("train.pretrain=cd2", ValueError),
 ])
 def test_cli_snn_still_refuses(tiny_schema, tmp_path, override, error):
-    """What the SNN route does not take: the multi-host run of
-    ``configs/snn_dae_multichip.json`` (``train.sharded`` with
-    ``train.distributed``; the sharded run on one host is taken, as
-    ``tests/test_torch_sharded_cli.py`` tests), pretraining on streamed
-    input (the reference's refusal), and an unknown pretrainer."""
+    """What the SNN route does not take: pretraining on streamed input (the
+    reference's refusal) and an unknown pretrainer."""
     yx = str(tmp_path / "rows.yx")
     synthetic.write_yx_file(synthetic.generate(tiny_schema, num_examples=200, k=3,
                                                seed=2), yx)
@@ -519,11 +515,39 @@ def test_cli_snn_still_refuses(tiny_schema, tmp_path, override, error):
             "model.hidden=8", "train.pretrain=dae", override, "--device", "cpu"]
     if override == "data.stream=true":
         argv[-2:-2] = [f"data.train_path={yx}", f"data.test_path={yx}"]
-    if override == "train.sharded=true":
-        argv[-2:-2] = ["train.distributed=true"]
     with pytest.raises(error, match="SNN pretraining" if error is ValueError
                        and override.startswith("data") else None):
         t_cli.main(argv)
+
+
+def test_cli_snn_dae_multichip_runs_distributed(tiny_schema, tmp_path, capsys):
+    """``configs/snn_dae_multichip.json`` shrunk, with ``train.distributed``:
+    DAE pretraining, the hand-off, then the sharded fine-tune in a world of
+    one, which writes its shard file in place of a portable checkpoint and
+    resumes from it without pretraining again."""
+    import os
+
+    ckpt = str(tmp_path / "snn.ckpt")
+    metrics = tmp_path / "m.jsonl"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    argv = ["--config", os.path.join(root, "configs", "snn_dae_multichip.json"),
+            f"data.schema_path={_write_schema(tiny_schema, tmp_path)}",
+            "data.synthetic_examples=600", f"model.hidden1={H1}", "model.hidden=8",
+            f"train.batch_size={BATCH}", "train.distributed=true",
+            f"train.checkpoint_path={ckpt}", f"train.metrics_path={metrics}"]
+    assert t_cli.main(argv + ["train.epochs=1", "--device", "cpu"]) == 0
+    assert t_cli.main(argv + ["train.epochs=2", "--device", "cpu"]) == 0
+    capsys.readouterr()
+    events = [json.loads(line) for line in metrics.read_text().splitlines()]
+    kinds = [e.get("event") or ("pretrain" if "pretrain_loss" in e else "epoch")
+             for e in events]
+    assert kinds.count("init_from_pretrain") == kinds.count("pretrain") == 1
+    assert kinds.count("epoch") == 2 and kinds.count("saved_hostshards") == 2
+    resumed = [e for e in events if e.get("event") == "resumed_hostshards"]
+    assert [e["epoch"] for e in resumed] == [1]
+    assert os.listdir(ckpt + ".hostshards") == ["proc0.npz"]
+    assert not os.path.exists(ckpt)
+    assert all(np.isfinite(e["auc"]) for e in events if "auc" in e)
 
 
 def test_cli_snn_resumes_without_pretraining_again(tiny_schema, tmp_path, capsys):

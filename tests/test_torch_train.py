@@ -8,6 +8,8 @@ and the JAX tower runs through its Pallas kernels in interpret mode
 (``use_pallas=True``), whose dropout is the counter hash the port has.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -243,20 +245,25 @@ def test_cli_trains_and_both_packages_score_its_checkpoint(schema, tmp_path,
     "train.profile_dir=/nonexistent",
     "train.resume=true", "train.debug_nans=true",
 ])
-def test_cli_raises_for_keys_not_ported(override):
-    """The multi-host key still raises; the others are honoured now
-    (``tests/test_torch_cli.py``, ``test_torch_resume.py``,
-    ``test_torch_stream.py`` and, for ``train.sharded``,
-    ``test_torch_parallel.py`` and ``test_torch_sharded_cli.py`` test what
-    they do) and pass the check."""
-    key = override.split("=")[0]
+def test_cli_raises_for_keys_not_ported(override, tmp_path, capsys):
+    """No key raises now: each resolves to its value (``tests/
+    test_torch_cli.py``, ``test_torch_resume.py``, ``test_torch_stream.py``,
+    ``test_torch_parallel.py``, ``test_torch_sharded_cli.py`` and
+    ``test_torch_distributed.py`` test what they do), and
+    ``train.distributed`` passes through the CLI: with ``train.sharded``, a
+    world of one that writes its rank's shard file."""
+    key, value = override.split("=")
+    section, name = key.split(".")
+    cfg = t_cli.RunConfig().apply_overrides([override])
+    assert str(getattr(getattr(cfg, section), name)).lower() == value.lower()
     if key == "train.distributed":
-        assert key in t_cli.UNPORTED_KEYS
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_cli.main([override, "--device", "cpu"])
-    else:
-        assert key not in t_cli.UNPORTED_KEYS
-        t_cli.check_ported(t_cli.RunConfig().apply_overrides([override]))
+        ckpt = str(tmp_path / "ck.npz")
+        assert t_cli.main([override, "train.sharded=true", "model.name=fm",
+                           "model.k=3", "data.synthetic_examples=600",
+                           "train.batch_size=128", "train.epochs=1",
+                           f"train.checkpoint_path={ckpt}", "--device", "cpu"]) == 0
+        capsys.readouterr()
+        assert os.listdir(ckpt + ".hostshards") == ["proc0.npz"]
 
 
 def test_cli_reads_tpu_mechanism_keys_without_effect(schema, tmp_path, capsys):
