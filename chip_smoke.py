@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, retraining, sharded and
-multi-process training paths once on one GPU.
+multi-process training paths once on one GPU, and its default training
+route, the scan route of CUDA graphs.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``, and imports nothing of JAX.
@@ -36,7 +37,8 @@ Phases, each printing its own lines:
    and relu at [8192, 663],
    dropout 0.5 and 0 (relu: rows at its derivative's step get no upstream
    gradient, see RELU_EDGE); a second backward launch compared bit for
-   bit; the FNN tower's forward, backward and both timed against the plain
+   bit; the seed given as a 0-d device tensor (a graph's seed buffer)
+   against the int seed, forward and backward, bit for bit; the FNN tower's forward, backward and both timed against the plain
    ones, and the Criteo tower's forward and backward with dropout 0.5;
 7. FM scorer kernel vs plain: ``fm_score_fwd`` against ``fm_score_plain``
    at [8192, 18, 11], [65536, 18, 11], a ragged [1000, 18, 11], a small odd
@@ -69,7 +71,7 @@ Phases, each printing its own lines:
     against a float64 numpy forward (LR) and the plain path on the card
     (IPNN, tower input 296);
 12. SNN with its pretraining: ``deepctr_torch.cli``'s run on
-    ``configs/snn_rbm.json`` at full iPinYou width (table 927,659 x 200,
+    ``configs/snn_rbm.json`` at full iPinYou width (table 927,658 x 200,
     f32), batch 8192, cut to 20 RBM pretraining steps and 20 fine-tune steps
     (the config's one pretraining epoch and 10 epochs over 200,000
     examples): the pretrain record, the hand-off event, the tower kernels'
@@ -93,9 +95,9 @@ Phases, each printing its own lines:
     with prefetch, streamed with prefetch); ``torch.profiler`` over warm
     steps fed by numpy batches and by the prefetcher; run A's eval logits
     through ``AucState`` on the card against ``exact_auc``, the host waiting
-    on the card in no update and twice in finalize; 5 steps with ``train.profile_dir`` and
-    ``train.debug_nans`` (the trace must name the tower kernels), 5 with
-    ``optim.dense=adam``, and in a subprocess a run seeded with a NaN in a
+    on the card in no update and twice in finalize; 5 batches with
+    ``train.profile_dir`` (the trace of the graph route must name the tower
+    kernels), 5 with ``train.debug_nans``, 5 with ``optim.dense=adam``, and in a subprocess a run seeded with a NaN in a
     row of the first batch, which must exit non-zero at step 1;
 14. quantised serving: phase 9's trained FNN checkpoint scored over 65,536
     rows (the run's held-out rows and the last of its training rows) by the
@@ -140,6 +142,33 @@ Phases, each printing its own lines:
     and ``load_host_shards`` into a freshly packed state, bit for bit, with
     the temporary directory's free space, the bytes, seconds and GB/s each
     way and the peak host RSS.
+17. the scan route, ``train.scan_steps`` = 8, the configs' default:
+    eight train steps captured as one ``torch.cuda.CUDAGraph`` and replayed
+    once a chunk. (a) From one state, one replay against 8 eager steps on a
+    clone, bit for bit (losses, table, both optimizers' states, tower,
+    step, generator), for FNN at full iPinYou width (bf16 table, dense
+    mode, dropout 0.5), FNN with Adam, FM k=10, DeepFM and SNN's fine-tune
+    (f32 927,658 x 200, sorted mode); (b) a chunk of 3 real steps and 5
+    weight-0 pad steps (FNN with Adam, whose moments the pad steps move);
+    (c) the state put back in place and the same graph replayed again, bit
+    for bit; (d) eager steps and replays in turns at FNN, FM, DeepFM and
+    SNN widths: wall ms a step (host clock), the device's span a step
+    (CUDA events), busy ms a step and busy share (``torch.profiler``),
+    capture seconds and peak device memory; the sorted-mode Adagrad update,
+    static-shape form against the boolean-mask form it replaced, at
+    Criteo's and SNN's shapes; (e) ``configs/fnn_full_ipinyou.json``
+    through the CLI with ``train.scan_steps=8`` and ``=0`` in turns, 2
+    epochs of 40 steps: checkpoints equal leaf for leaf, each epoch's
+    examples/s; (f) a replay and an eager step under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync.
+Phases 8-13 train through the CLI, so on the scan route: their launch
+counts add each replay's captured launches (the wrappers run but launch
+nothing during a capture), and each capture's warm-up step on a clone of
+the state; the runs of 10, 20 and 5 batches are padded to whole chunks
+(16, 24 and 8 steps). Under phase 13's ``train.debug_nans`` a chunk runs
+as 8 eager steps. Phases 15 and 16 stay per step
+(the sharded scan route is not ported); 15 (c) and 16 (a) still match
+phases 9 and 13, now trained on graphs, leaf for leaf.
 Then one JSON line on the kernels (each with its least time on the card
 from the shapes: ``bound_ms`` against f32 on the CUDA cores, 67 TFLOP/s,
 and 3.35 TB/s, as ``bound_by`` and ``bound_kind`` say, and
@@ -197,6 +226,8 @@ RETRAIN_SHARDS = 4          # phase 13: yx shards of the streamed retraining job
 RETRAIN_SHARD_ROWS = 81_920
 RETRAIN_TEST_ROWS = 16_384
 RETRAIN_SHORT_STEPS = 5     # the profiled and the Adam runs
+SCAN_K = 8                  # phase 17: steps a graph, the configs' train.scan_steps
+SCAN_TIMED_CHUNKS = 5       # chunks of SCAN_K steps timed on each route
 TEST_FRACTION = 0.15        # the configs' held-out share
 FM_CONFIG = "configs/fm_k10.json"
 FNN_CONFIG = "configs/fnn_full_ipinyou.json"
@@ -490,6 +521,18 @@ def _phase6_training_kernels(dev, rng) -> dict:
             print(f"bwd kernel {tag}: second launch bitwise equal: {same}")
             if not same:
                 raise AssertionError("two backward launches gave different bits")
+            # the seed as a 0-d device tensor (a graph's seed buffer): the
+            # int seed's bits, forward and backward
+            dseed = torch.tensor(seed, dtype=torch.int32, device=dev)
+            gx3, grads3 = mlp_k.mlp_tower_bwd(x, layers, g_up, act, drop, dseed)
+            same = (torch.equal(mlp_k.mlp_tower_fwd(x, layers, act, drop, dseed), got)
+                    and torch.equal(gx, gx3) and all(
+                        torch.equal(a, c) and torch.equal(b, d)
+                        for (a, b), (c, d) in zip(grads, grads3)))
+            print(f"fwd and bwd kernels {tag}: seed in device memory vs the int "
+                  f"seed bitwise equal: {same}")
+            if not same:
+                raise AssertionError("a device seed gave other bits than the int seed")
 
     dims = (in_dim,) + FNN_HIDDEN + (1,)
     x = torch.from_numpy(rng.normal(size=(BATCH, in_dim)).astype(np.float32)).to(dev)
@@ -656,10 +699,11 @@ def _compare_states(what, a, b) -> None:
                          rtol=1e-4, atol=1e-5)
 
 
-def _profile_loop(run, n, tag) -> dict:
+def _profile_loop(run, n, tag, per="step") -> dict:
     """Device time per op and the device's busy share of the wall time,
     under ``torch.profiler``, for ``run(0) .. run(n - 1)`` after the same
-    calls as a warm-up."""
+    calls as a warm-up; each call is one ``per``. Also returns the port's
+    kernels the trace names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -675,14 +719,18 @@ def _profile_loop(run, n, tag) -> dict:
     device = _device_ops(prof)
     busy_us = sum(us for us, _, _ in device)
     print(f"profile, {tag}: device busy {busy_us:.1f} us of {wall_us:.1f} "
-          f"us wall ({100 * busy_us / wall_us:.1f}%) for {n} steps")
+          f"us wall ({100 * busy_us / wall_us:.1f}%) for {n} x {per}")
     # the top ops, and the port's own kernels wherever they rank
+    kernels = set()
     for i, (us, count, key) in enumerate(device):
-        if i < 14 or re.search(r"::(fm_score|tower_\w+)_kernel|nccl", key):
+        own = re.search(r"::(fm_score|tower_\w+)_kernel|nccl", key)
+        if own and "nccl" not in own.group(0):
+            kernels.add(own.group(0)[2:])
+        if i < 14 or own:
             name = key.replace("void ", "").replace("at::native::", "")
-            print(f"  {us / n:9.2f} us/step  {count / n:5.1f}/step  {name[:120]}")
+            print(f"  {us / n:9.2f} us/{per}  {count / n:5.1f}/{per}  {name[:120]}")
     return {"device_us": busy_us / n, "wall_us": wall_us / n,
-            "busy": busy_us / wall_us}
+            "busy": busy_us / wall_us, "kernels": kernels}
 
 
 def _profile_steps(step, state, batches, seeds, tag) -> None:
@@ -836,24 +884,38 @@ def _phase7_fm_kernel(dev, rng) -> dict:
 def _reset_counts() -> None:
     from deepctr_torch.ops.kernels import interaction as fm_k
     from deepctr_torch.ops.kernels import mlp as mlp_k
+    from deepctr_torch.train import step as step_m
 
     mlp_k.LAUNCHES = mlp_k.DROPOUT_LAUNCHES = mlp_k.BWD_LAUNCHES = 0
     fm_k.LAUNCHES = 0
+    step_m.CAPTURES = 0
 
 
 def _counts() -> dict:
+    """The kernels' launch counts (a graph replay adds what its capture
+    recorded), and the graphs captured: each capture ran one eager warm-up
+    step on a clone of its state, whose launches count too."""
     from deepctr_torch.ops.kernels import interaction as fm_k
     from deepctr_torch.ops.kernels import mlp as mlp_k
+    from deepctr_torch.train import step as step_m
 
     return {"fwd_dropout": mlp_k.DROPOUT_LAUNCHES, "bwd": mlp_k.BWD_LAUNCHES,
             "fwd_eval": mlp_k.LAUNCHES - mlp_k.DROPOUT_LAUNCHES,
-            "fm_score": fm_k.LAUNCHES}
+            "fm_score": fm_k.LAUNCHES, "captures": step_m.CAPTURES}
+
+
+def _route_steps(cfg, batches: int) -> int:
+    """The steps a run of ``batches`` batches takes: on the scan route (not
+    sharded, ``train.scan_steps`` K > 1) the last chunk is padded to K."""
+    k = 0 if cfg.train.sharded else cfg.train.scan_steps
+    return batches if k <= 1 else k * -(-batches // k)
 
 
 def _cli_train(dev, root, tmp, config, overrides, steps, tag, table_dtype="bf16"):
     """One training run through ``deepctr_torch.cli``'s ``run`` with the
     kernel counts set to 0 just before it and read just after; checks the
-    step count, a finite loss and an eval record. Returns (cfg, overrides,
+    step count (``steps`` batches, padded to whole chunks on the scan
+    route), a finite loss and an eval record. Returns (cfg, overrides,
     result, launches, metrics events)."""
     import torch
 
@@ -884,8 +946,9 @@ def _cli_train(dev, root, tmp, config, overrides, steps, tag, table_dtype="bf16"
           f"{rec['logloss']:.5f}, rmse {rec.get('rmse', float('nan')):.5f}; "
           f"dropped_ids {rec.get('dropped_ids', 0)}; examples_per_s "
           f"{rec['examples_per_s']:.0f} (host clock, the epoch's steps)")
-    if state.step != steps:
-        raise AssertionError(f"{tag}: {state.step} steps, expected {steps}")
+    if state.step != _route_steps(cfg, steps):
+        raise AssertionError(f"{tag}: {state.step} steps, expected "
+                             f"{_route_steps(cfg, steps)}")
     if not np.isfinite(rec["train_loss"]):
         raise AssertionError(f"{tag}: loss not finite: {rec}")
     with open(metrics) as f:
@@ -1506,13 +1569,15 @@ def _phase13_retrain(dev, root, tmp, schema, schema_path) -> dict:
     if res_a["state"].step != 2 * steps:
         raise AssertionError(f"retrain: run A took {res_a['state'].step} steps")
     evals = 2 * -(-RETRAIN_TEST_ROWS // BATCH)
-    if (launches["fwd_dropout"] != 2 * steps or launches["bwd"] != 2 * steps
+    trained = 2 * steps + launches["captures"]   # and a warm-up step a capture
+    if (launches["fwd_dropout"] != trained or launches["bwd"] != trained
             or launches["fwd_eval"] != evals):
         raise AssertionError(f"retrain: run A launched {launches}; expected "
-                             f"{2 * steps} forward-with-dropout and backward, "
+                             f"{trained} forward-with-dropout and backward, "
                              f"{evals} eval forward")
     print(f"retrain: run A launched the forward with dropout and the backward once "
-          f"a step ({2 * steps}), the eval forward once an eval batch ({evals})")
+          f"a step and once a graph capture's warm-up step ({trained}), the eval "
+          f"forward once an eval batch ({evals})")
     _retrain_run(dev, root, stream + ["train.epochs=1", f"train.checkpoint_path={b_ckpt}",
                                       f"train.metrics_path={b_metrics}"],
                  "retrain run B (1 epoch)")
@@ -1582,17 +1647,23 @@ def _phase13_retrain(dev, root, tmp, schema, schema_path) -> dict:
         _, _, result, _, _ = _cli_train(
             dev, root, tmp, FNN_CONFIG,
             ["model.init_from=none", f"data.schema_path={schema_path}",
-             f"train.profile_dir={prof_dir}", "train.debug_nans=true"],
+             f"train.profile_dir={prof_dir}"],
             RETRAIN_SHORT_STEPS, "retrain profiled")
         traces = os.listdir(prof_dir)
         with open(os.path.join(prof_dir, traces[0])) as f:
             names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
         kernels = sorted({m.group(1) for n in names
                           for m in [re.search(r"(tower_\w+?_kernel)", n)] if m})
-        print(f"retrain: train.profile_dir wrote {traces} ({len(names)} event names), "
-              f"naming {kernels}; train.debug_nans ran {result['state'].step} steps")
+        print(f"retrain: train.profile_dir wrote {traces} ({len(names)} event names) "
+              f"over {result['state'].step} steps on the graph route, naming {kernels}")
         if len(traces) != 1 or not {"tower_fwd_kernel", "tower_bwd_rows_kernel"} <= set(kernels):
             raise AssertionError("retrain: the trace does not name the tower kernels")
+        _, _, result, _, _ = _cli_train(
+            dev, root, tmp, FNN_CONFIG,
+            ["model.init_from=none", f"data.schema_path={schema_path}",
+             "train.debug_nans=true"], RETRAIN_SHORT_STEPS, "retrain debug_nans")
+        print(f"retrain: train.debug_nans ran {result['state'].step} steps (eager, "
+              f"a chunk at a time) and found every loss finite")
         _, _, result, _, _ = _cli_train(
             dev, root, tmp, FNN_CONFIG,
             ["model.init_from=none", f"data.schema_path={schema_path}",
@@ -2096,6 +2167,301 @@ def _phase16_distributed(dev, root, tmp, retrain, criteo) -> dict:
             "criteo": criteo_trip, "count_rows_per_s": total / count_s}
 
 
+def _restore_state(dst, src) -> None:
+    """``src``'s bits into ``dst``'s tensors, in place (the addresses a
+    captured graph holds stay valid), with its generator and step."""
+    import torch
+
+    from deepctr_torch.train.step import _state_tensors
+
+    with torch.no_grad():
+        for a, b in zip(_state_tensors(dst), _state_tensors(src), strict=True):
+            a.copy_(b)
+    dst.generator.set_state(src.generator.get_state())
+    dst.step = src.step
+
+
+def _scan_case(dev, root, schema, schema_path, config, overrides):
+    """(state, scan step, eager step, table dtype) of one config, initialised
+    from a seed: the states a chunk's graph and eager steps start from."""
+    from deepctr_torch import cli
+    from deepctr_torch.config import RunConfig
+    from deepctr_torch.train import init_state, make_scan_train_step, make_train_step
+
+    cfg = RunConfig.load(os.path.join(root, config)).apply_overrides(
+        [f"data.schema_path={schema_path}", *overrides])
+    sopt, dopt = cli.build_optimizers(cfg)
+    state = init_state(cli.build_model(cfg, schema, dev), schema, sopt, dopt,
+                       seed=SEED + 17, table_dtype=cfg.train.table_dtype)
+    return (state, make_scan_train_step(schema, sopt, dopt, l2=cfg.optim.l2),
+            make_train_step(schema, sopt, dopt, l2=cfg.optim.l2))
+
+
+def _graph_vs_eager(tag, state, scan, step, chunk) -> None:
+    """From one state: one replay of the chunk's graph (captured on this
+    call) against the chunk's steps run eagerly on a clone, bit for bit:
+    the losses, the table, both optimizers' states, the tower, ``step``
+    and the generator. Then the graph state is put back in place and the
+    same graph replayed again: the same bits (no capture this time)."""
+    import torch
+
+    g, e = state.clone(), state.clone()
+    _reset_counts()
+    t0 = time.perf_counter()
+    g, g_losses = scan(g, *chunk)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _counts()
+    graph = scan.graph[0]
+    e_losses = torch.stack([step(e, *(t[i] for t in chunk))[1].loss
+                            for i in range(chunk[0].shape[0])])
+    same = torch.equal(g_losses, e_losses) and _same_state(g, e)
+    print(f"scan {tag}: one replay of a {chunk[0].shape[0]}-step graph vs as many eager "
+          f"steps from one state: losses, table, optimizer states, tower, step "
+          f"({g.step}) and generator bit-identical: {same}; capture {graph.capture_s:.2f} s "
+          f"(one warm-up step on a clone, then the capture), first call "
+          f"{first_s:.2f} s; launches of that call {launches} (the warm-up step's and "
+          f"the replay's), per replay {dict(zip(('fwd', 'fwd_dropout', 'bwd', 'fm_score'), graph.launches))}")
+    if not same:
+        raise AssertionError(f"scan {tag}: the graph replay differs from eager steps")
+    _restore_state(g, state)
+    g, again = scan(g, *chunk)
+    same = (scan.graph[0] is graph and torch.equal(again, e_losses)
+            and _same_state(g, e))
+    print(f"scan {tag}: the state put back in place and the same graph replayed "
+          f"again: bit-identical: {same}")
+    if not same:
+        raise AssertionError(f"scan {tag}: a second replay differs")
+
+
+def _time_routes(tag, state, scan, step, chunks) -> dict:
+    """Eager steps and graph replays over the same chunks, in turns (eager,
+    graph, graph, eager), each from a clone of the state: after one warm-up
+    chunk (the graph's capture), SCAN_TIMED_CHUNKS chunks timed on the host
+    clock to a synchronize (wall) and between CUDA events (the device's
+    span, idle gaps included); the peak device memory of the turn; then
+    ``torch.profiler`` over warm chunks of each route for the busy share."""
+    import torch
+
+    steps = SCAN_TIMED_CHUNKS * SCAN_K
+
+    def run(which, st, n):
+        for c in range(n):
+            chunk = chunks[c % len(chunks)]
+            if which == "graph":
+                scan(st, *chunk)
+            else:
+                for i in range(SCAN_K):
+                    step(st, *(t[i] for t in chunk))
+
+    out = {"eager": [], "graph": []}
+    for which in ("eager", "graph", "graph", "eager"):
+        st = state.clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run(which, st, 1)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        run(which, st, SCAN_TIMED_CHUNKS)
+        end.record()
+        end.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+        out[which].append({
+            "wall_ms": wall, "span_ms": start.elapsed_time(end) / steps,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "capture_s": scan.graph[0].capture_s if which == "graph" else None})
+        del st
+    for which in ("eager", "graph"):
+        st = state.clone()
+        prof = _profile_loop(lambda i: run(which, st, 1), SCAN_TIMED_CHUNKS,
+                             f"scan {tag}, {which}", per=f"chunk of {SCAN_K} steps")
+        out[which + "_busy"] = prof["busy"]
+        out[which + "_device_ms"] = prof["device_us"] / SCAN_K / 1e3
+        out[which + "_named"] = sorted(prof["kernels"])
+        del st
+    res = {}
+    for which in ("eager", "graph"):
+        runs = out[which]
+        res[which] = {key: float(np.mean([r[key] for r in runs]))
+                      for key in ("wall_ms", "span_ms", "peak_gib")}
+        res[which].update(busy=out[which + "_busy"], device_ms=out[which + "_device_ms"])
+    res["graph"]["capture_s"] = float(np.mean([r["capture_s"] for r in out["graph"]]))
+    print(f"scan {tag} timed ({SCAN_TIMED_CHUNKS} chunks of {SCAN_K} steps of {BATCH} "
+          f"after one warm-up chunk, in turns): " + "; ".join(
+              f"{w}: wall {res[w]['wall_ms']:.4f} ms a step (host clock), span "
+              f"{res[w]['span_ms']:.4f} ms a step (CUDA events), device busy "
+              f"{res[w]['device_ms']:.4f} ms a step and {100 * res[w]['busy']:.1f}% "
+              f"of the wall (profiler), peak {res[w]['peak_gib']:.2f} GiB"
+              for w in ("eager", "graph"))
+          + f"; capture {res['graph']['capture_s']:.2f} s; runs {out['eager']} "
+            f"{out['graph']}; kernels the profiler names under replay: "
+            f"{out['graph_named']}")
+    return res
+
+
+def _old_sorted_update(opt, table, acc, ids, rows):
+    """The sorted-mode Adagrad update before the static-shape form: the
+    unique ids by a boolean mask (a nonzero, a host sync)."""
+    from deepctr_torch.ops.scatter import dedupe_grads
+
+    d = dedupe_grads(ids, rows.float())
+    uids = d.ids[d.is_last]
+    g = d.rows[d.is_last]
+    acc[uids] += g * g
+    delta = -opt.learning_rate * g / (acc[uids].sqrt() + opt.eps)
+    table[uids] = (table[uids].float() + delta.to(table.dtype).float()).to(table.dtype)
+
+
+def _time_sorted_update(dev, schema, snn_ids) -> dict:
+    """The sorted-mode sparse Adagrad update, the static-shape form against
+    the boolean-mask form it replaced, bit for bit after one update and
+    timed in turns (CUDA events), at the Criteo stretch config's shape
+    (26,000,833 x 17 f32, 8192 x 39 occurrences: a quarter of the ids from
+    1,000 hot rows, the rest uniform, 5% the pad id) and SNN's fine-tune
+    (927,658 x 200 f32, a synthetic batch's 8192 x 18 ids)."""
+    import torch
+
+    from deepctr_torch.optim.sparse import SparseAdagrad
+
+    out = {}
+    rng = np.random.default_rng(SEED + 19)
+    for tag, rows, width, slots in (("criteo", 26_000_833, 17, 39),
+                                    ("snn", schema.padded_vocab_size, 200, None)):
+        opt = SparseAdagrad(0.05, mode="sorted")
+        if slots is None:
+            ids = snn_ids.reshape(-1).long()
+        else:
+            ids_np = rng.integers(0, rows - 1, BATCH * slots)
+            hot = rng.random(ids_np.size) < 0.25
+            ids_np[hot] = rng.integers(0, 1000, int(hot.sum()))
+            ids_np[rng.random(ids_np.size) < 0.05] = rows - 1      # the pad id
+            ids = torch.from_numpy(ids_np).to(dev)
+        n = ids.numel()
+        g = torch.randn(n, width, device=dev) * 1e-2
+        g[ids == rows - 1] = 0.0
+        table = torch.randn(rows, width, device=dev) * 1e-2
+        tables = {"static": table, "mask": table.clone()}
+        accs = {"static": opt.init(table), "mask": opt.init(table)}
+        opt.update(tables["static"], accs["static"], ids, g)
+        _old_sorted_update(opt, tables["mask"], accs["mask"].acc, ids, g)
+        same = (torch.equal(tables["static"], tables["mask"])
+                and torch.equal(accs["static"].acc, accs["mask"].acc))
+        times = _in_turns({
+            "mask": lambda: _old_sorted_update(opt, tables["mask"], accs["mask"].acc,
+                                               ids, g),
+            "static": lambda: opt.update(tables["static"], accs["static"], ids, g)},
+            iters=20)
+        print(f"sorted-mode Adagrad update, {tag} ({rows} x {width} f32, {n} "
+              f"occurrences): static-shape form {times['static']:.4f} ms, boolean-mask "
+              f"form {times['mask']:.4f} ms (CUDA events, in turns); one update "
+              f"bit-identical: {same}")
+        if not same:
+            raise AssertionError(f"{tag}: the static-shape update differs from the "
+                                 f"mask form")
+        out[tag] = times
+        del table, tables, accs, g
+    return out
+
+
+def _phase17_scan(dev, root, tmp, schema, schema_path) -> dict:
+    """The scan route: K = 8 steps as one CUDA graph replayed once a chunk.
+    (a) graph against eager, bit for bit, for FNN (bf16, dense mode,
+    dropout 0.5), FNN with Adam, FM k=10, DeepFM and SNN's fine-tune (f32
+    927,658 x 200, sorted mode), each replayed twice (c); (b) a chunk of 3
+    real steps and 5 pad steps; (d) the two routes timed; (e) the CLI with
+    ``train.scan_steps=8`` and ``=0`` in turns; (f) no host sync in a
+    replay, nor in a warm eager step."""
+    import torch
+
+    from deepctr_torch.data import synthetic
+
+    t_phase = time.perf_counter()
+    ds = synthetic.generate(schema, num_examples=2 * SCAN_K * BATCH, k=K, seed=SEED + 17)
+    ids = torch.from_numpy(ds.ids).to(dev).view(2, SCAN_K, BATCH, -1)
+    labels = torch.from_numpy(ds.labels).to(dev).view(2, SCAN_K, BATCH)
+    weights = torch.ones(2, SCAN_K, BATCH, device=dev)
+    chunks = [(ids[c], labels[c], weights[c]) for c in range(2)]
+    deepfm = ["model.name=deepfm", "model.hidden=" + ",".join(map(str, DEEPFM_HIDDEN)),
+              "model.activation=relu", "model.dropout=0.5"]
+    cases = {
+        "fnn": (FNN_CONFIG, ["model.init_from=none", "train.table_dtype=bf16"]),
+        "fnn-adam": (FNN_CONFIG, ["model.init_from=none", "train.table_dtype=bf16",
+                                  "optim.dense=adam"]),
+        "fm": (FM_CONFIG, ["train.table_dtype=bf16"]),
+        "deepfm": (FNN_CONFIG, ["model.init_from=none", "train.table_dtype=bf16",
+                                *deepfm]),
+        "snn": (SNN_CONFIG, ["train.table_dtype=f32"]),
+    }
+    timed = {}
+    for tag, (config, overrides) in cases.items():
+        state, scan, step = _scan_case(dev, root, schema, schema_path, config, overrides)
+        _graph_vs_eager(tag, state, scan, step, chunks[0])
+        if tag == "fnn-adam":
+            # (b) 3 real steps, then 5 pad steps: pad ids, label 0, weight 0
+            pad = tuple(t.clone() for t in chunks[1])
+            pad[0][3:] = schema.pad_id
+            pad[1][3:] = 0.0
+            pad[2][3:] = 0.0
+            _graph_vs_eager(f"{tag}, a chunk of 3 steps padded with 5", state, scan,
+                            step, pad)
+        if tag == "fnn":
+            # (f) no host sync in a replay of a captured graph, nor in an
+            # eager step, under the sync debug mode's "error"
+            st = state.clone()
+            scan(st, *chunks[0])
+            step(st, *(t[0] for t in chunks[0]))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                scan(st, *chunks[1])
+                step(st, *(t[1] for t in chunks[1]))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            print(f"scan {tag}: a replay and an eager step under "
+                  f"torch.cuda.set_sync_debug_mode('error'): no host sync")
+            del st
+        if tag in ("fnn", "fm", "deepfm", "snn"):
+            timed[tag] = _time_routes(tag, state, scan, step, chunks)
+        del state, scan, step
+    sorted_update = _time_sorted_update(dev, schema, ids[0, 0])
+
+    # (e) the CLI on the config's default route (scan_steps=8) and per step
+    examples = int(np.ceil(TRAIN_STEPS * BATCH / (1 - TEST_FRACTION))) + 1
+    base = ["model.init_from=none", f"data.schema_path={schema_path}",
+            f"train.batch_size={BATCH}", "train.table_dtype=bf16",
+            f"data.synthetic_examples={examples}", "train.epochs=2",
+            "train.early_stop_patience=99"]
+    rates, ckpts = {8: [], 0: []}, {}
+    for k in (8, 0, 0, 8):
+        ckpt = os.path.join(tmp, f"scan_{k}_{len(rates[k])}.ckpt")
+        res, launches, _ = _retrain_run(
+            dev, root, base + [f"train.scan_steps={k}", f"train.checkpoint_path={ckpt}"],
+            f"scan cli, train.scan_steps={k}")
+        steps = res["state"].step
+        want = 2 * TRAIN_STEPS + (launches["captures"] if k else 0)
+        if steps != 2 * TRAIN_STEPS or (launches["fwd_dropout"], launches["bwd"]) != (
+                want, want):
+            raise AssertionError(f"scan cli {k}: {steps} steps, launches {launches}")
+        rates[k].append([round(r["examples_per_s"]) for r in res["history"]])
+        ckpts.setdefault(k, ckpt)
+        del res
+    (ma, la), (mb, lb) = _ckpt_leaves(ckpts[8]), _ckpt_leaves(ckpts[0])
+    same = (len(la) == len(lb)
+            and all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(la, lb)))
+    print(f"scan cli: {FNN_CONFIG}, 2 epochs of {TRAIN_STEPS} steps: checkpoints of "
+          f"train.scan_steps=8 (graph) and =0 (per step), {len(la)} leaves: "
+          f"bit-identical: {same}; epoch examples/s (host clock) scan_steps=8 "
+          f"{rates[8]}, scan_steps=0 {rates[0]}")
+    if not same:
+        raise AssertionError("scan cli: the graph route's checkpoint differs")
+    print(f"scan: phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return {"timed": timed, "cli_rates": rates, "sorted_update": sorted_update}
+
+
 def _template_args(mangled) -> str:
     """``<64, true>`` for a mangled ``ILi64ELb1EE``; '' for none."""
     if not mangled:
@@ -2362,6 +2728,7 @@ def main() -> int:
                                    fm["fm_table"])
         distributed = _phase16_distributed(dev, root, tmp, retrain,
                                            sharded.pop("criteo"))
+        _phase17_scan(dev, root, tmp, schema, schema_path)
 
     work = _tower_work(BATCH, fnn_dims)
     criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))

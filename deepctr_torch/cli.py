@@ -46,15 +46,24 @@ any world size (a world of one too):
 Without ``train.sharded`` the key has no effect, as in the reference's
 single process; a ``distributed_ignored`` event says so.
 
-``train.prefetch`` (default true) stages the training batches on a
-background thread, onto the card through pinned buffers and a side stream
+``train.scan_steps`` (default 8) is the reference's chunked route: with
+K > 1 an epoch trains in chunks of K steps, a short last chunk padded with
+weight-0 steps that count as steps, as the reference's do. On the card a
+chunk is one replay of a CUDA graph of the K steps; on the CPU it is K
+eager steps; 0 or 1 is the per-step route. A sharded run keeps the
+per-step route (the sharded scan route is not ported) and logs a
+``scan_steps_per_step`` event.
+
+``train.prefetch`` (default true) stages the training batches, or chunks, on
+a background thread, onto the card through pinned buffers and a side stream
 (``data.DevicePrefetcher``). ``train.profile_dir`` writes a
 ``torch.profiler`` trace of the training phase there; ``train.debug_nans``
 turns on autograd's anomaly mode and raises at the first step whose loss is
-not finite. Keys of the shared config that are TPU mechanisms are read and
-have no effect here: ``model.use_pallas`` (the device picks the kernels),
-``train.scan_steps`` (``lax.scan`` dispatch) and ``train.split_threshold``
-(the one-hot split plan).
+not finite, before that step's update: a graph cannot stop inside a replay,
+so under this key every chunk runs as K eager steps with the check. Keys of
+the shared config that are TPU mechanisms are read and have no effect
+here: ``model.use_pallas`` (the device picks the kernels) and
+``train.split_threshold`` (the one-hot split plan).
 """
 
 from __future__ import annotations
@@ -312,6 +321,11 @@ def _run(cfg, device: torch.device, group=None) -> dict:
 
     ckpt_meta = {"sparse_opt": cfg.optim.sparse, "model": cfg.model.name}
     sharded = {}
+    scan_steps = cfg.train.scan_steps
+    if group is not None and scan_steps > 1:
+        logger.log({"event": "scan_steps_per_step",
+                    "reason": "sharded scan route not ported"})
+        scan_steps = 0
     if group is not None:
         sharded = _sharded_parts(cfg, schema, group, state, sparse_opt, dense_opt,
                                  te_ids, te_labels,
@@ -361,6 +375,7 @@ def _run(cfg, device: torch.device, group=None) -> dict:
             start_epoch=start_epoch,
             train_source=train_source,
             debug_nans=cfg.train.debug_nans,
+            scan_steps=scan_steps,
             **sharded,
         )
         if ckpt_path:

@@ -7,6 +7,11 @@
 // the reference does; a kept value is multiplied by scale, the f32 quotient
 // 1.0f / (float)keep, and a dropped one by 0. Both kernels draw the same
 // mask by construction, whatever their tiling.
+//
+// The seed comes with the launch, or from device memory (seed_ptr): a CUDA
+// graph bakes a launch's arguments into every replay, so a graph of train
+// steps reads each step's seed from a buffer that the host refills before
+// each replay. The two give the same mask for the same value.
 
 #pragma once
 
@@ -20,7 +25,16 @@ struct Dropout {
   uint32_t threshold;  // keep when hash < threshold
   float scale;         // multiplier of a kept value
   uint32_t row0;       // global row of the batch's first row
+  const uint32_t* seed_ptr;  // where not null, the seed is read from here
 };
+
+// `d` with the seed in effect: the one in device memory where the launch
+// names it, else its own. Called once per thread before the first use; the
+// branch is on a launch argument, uniform across the block.
+__device__ __forceinline__ Dropout resolve_seed(Dropout d) {
+  if (d.seed_ptr != nullptr) d.seed = __ldg(d.seed_ptr);
+  return d;
+}
 
 __device__ __forceinline__ uint32_t dropout_hash(uint32_t row, uint32_t col,
                                                  uint32_t seed,

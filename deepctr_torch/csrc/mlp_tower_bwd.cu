@@ -146,7 +146,7 @@ template <int kBm>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     tower_bwd_rows_kernel(const float* __restrict__ x,
                           const float* __restrict__ g, int batch, Tower t,
-                          int act, Dropout drop, Plan plan,
+                          int act, Dropout drop_arg, Plan plan,
                           const float* __restrict__ packed, Scratch ws,
                           float* __restrict__ gx) {
   extern __shared__ __align__(128) float smem[];
@@ -163,6 +163,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     produce_for(warp - kThreads / 32, t, plan, packed, rings);
   } else {
     Ring& ring = rings[warp / 4];
+    const Dropout drop = resolve_seed(drop_arg);
     const int num_layers = t.num_layers;
     const int hidden = num_layers - 1;
 
@@ -716,15 +717,15 @@ extern "C" size_t mlp_tower_bwd_workspace(int batch, int num_layers,
 
 // x: f32 [batch, dims[0]]; g: f32 [batch], the gradient of the logits.
 // dims, weights, biases as for mlp_tower_fwd, and the same dropout (rows
-// count from 0). gx: f32 [batch, dims[0]]; gws, gbs: host arrays of
+// count from 0; seed_ptr as there). gx: f32 [batch, dims[0]]; gws, gbs: host arrays of
 // num_layers device pointers to f32 outputs shaped like the weights and
 // biases. workspace: mlp_tower_bwd_workspace(...) bytes on the device.
 // Returns a cudaError_t code; 0 means all three kernels launched.
 extern "C" int mlp_tower_bwd(const void* x, int batch, int num_layers,
                              const void* dims, const void* weights,
                              const void* biases, const void* g, int activation,
-                             int dropout_on, uint32_t seed, uint32_t threshold,
-                             float scale, void* gx, const void* gws,
+                             int dropout_on, uint32_t seed, const void* seed_ptr,
+                             uint32_t threshold, float scale, void* gx, const void* gws,
                              const void* gbs, void* workspace,
                              size_t workspace_bytes, void* stream) {
   Tower t;
@@ -741,7 +742,8 @@ extern "C" int mlp_tower_bwd(const void* x, int batch, int num_layers,
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop = {dropout_on != 0, seed, threshold, scale, 0u};
+  const Dropout drop = {dropout_on != 0, seed, threshold, scale, 0u,
+                        static_cast<const uint32_t*>(seed_ptr)};
 
   float* packed = static_cast<float*>(workspace);
   float* x_copy = packed + packed_floats;

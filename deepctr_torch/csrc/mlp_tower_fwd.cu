@@ -57,7 +57,7 @@ using namespace tower;
 template <int kBm, bool kDrop>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     tower_fwd_kernel(const float* __restrict__ x, int batch, Tower t, int act,
-                     Dropout drop, Plan plan, const float* __restrict__ packed,
+                     Dropout drop_arg, Plan plan, const float* __restrict__ packed,
                      float* __restrict__ out) {
   extern __shared__ __align__(128) float smem[];
   const int ld = act_ld(plan.width);
@@ -73,6 +73,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     produce_for(warp - kThreads / 32, t, plan, packed, rings);
   } else {
     Ring& ring = rings[warp / 4];
+    const Dropout drop = resolve_seed(drop_arg);
     const int tid = threadIdx.x;
     const int row0 = blockIdx.x * kBm;
     const int rows = min(kBm, batch - row0);
@@ -150,14 +151,16 @@ extern "C" size_t mlp_tower_fwd_workspace(int num_layers, const void* dims) {
 // + 1]. weights, biases: host arrays of num_layers device pointers. With
 // dropout_on, hidden element (row, col) of layer l is multiplied by
 // dropout_factor (dropout_hash.cuh) with the given seed, threshold and scale;
-// row counts from row0. out: f32 [batch] on the device. workspace:
+// row counts from row0. seed_ptr: null, or a device uint32 read in place of
+// seed when the kernel runs (a graph's replays each read their step's). out: f32 [batch] on the device. workspace:
 // mlp_tower_fwd_workspace(...) bytes on the device, 16-byte aligned. Returns
 // a cudaError_t code; 0 means launched.
 extern "C" int mlp_tower_fwd(const void* x, int batch, int num_layers,
                              const void* dims, const void* weights,
                              const void* biases, int activation,
-                             int dropout_on, uint32_t seed, uint32_t threshold,
-                             float scale, int row0, void* out, void* workspace,
+                             int dropout_on, uint32_t seed, const void* seed_ptr,
+                             uint32_t threshold, float scale, int row0, void* out,
+                             void* workspace,
                              size_t workspace_bytes, void* stream) {
   Tower t;
   if (batch < 1 || activation < kTanh || activation > kSigmoid || row0 < 0 ||
@@ -174,7 +177,8 @@ extern "C" int mlp_tower_fwd(const void* x, int batch, int num_layers,
     return cudaErrorInvalidValue;
   }
   const Dropout drop = {dropout_on != 0, seed, threshold, scale,
-                        static_cast<uint32_t>(row0)};
+                        static_cast<uint32_t>(row0),
+                        static_cast<const uint32_t*>(seed_ptr)};
   float* packed = static_cast<float*>(workspace);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (plan.num_passes > 0) {

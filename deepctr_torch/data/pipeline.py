@@ -109,9 +109,10 @@ class DevicePrefetcher:
     Overlaps host work (parse, shuffle, pack) and the host-to-device copy
     with the device's work: while step N runs, batches N+1 .. N+depth are
     being staged. Iterating it yields what the wrapped iterator yields,
-    in order.
+    in order. Items are ``Batch``es, or the scan route's chunks
+    ``(nb, (ids, labels, weights))``, staged alike.
 
-    On a CUDA device each ``Batch``'s arrays are copied into pinned host
+    On a CUDA device each item's arrays are copied into pinned host
     buffers from a small ring, then to the card with ``non_blocking`` copies
     on a side stream, followed by an event. The consumer's stream waits on
     that event before the batch is handed out, and each tensor is marked
@@ -166,12 +167,13 @@ class DevicePrefetcher:
         finally:
             self._put(self._DONE)
 
-    def _stage(self, batch: Batch, n: int):
+    def _stage(self, item, n: int):
         import torch
 
         slot = n % len(self._ring)
-        arrays = [torch.from_numpy(np.ascontiguousarray(a))
-                  for a in (batch.ids, batch.labels, batch.weights)]
+        chunk = not isinstance(item, Batch)
+        host = item[1] if chunk else (item.ids, item.labels, item.weights)
+        arrays = [torch.from_numpy(np.ascontiguousarray(a)) for a in host]
         pinned, event = self._ring[slot] or (None, None)
         if event is not None:
             event.synchronize()   # the slot's last copy has finished
@@ -186,7 +188,7 @@ class DevicePrefetcher:
             event = torch.cuda.Event()
             event.record(self._stream)
         self._ring[slot] = (pinned, event)
-        return Batch(*staged), event
+        return (item[0], tuple(staged)) if chunk else Batch(*staged), staged, event
 
     def close(self) -> None:
         """Stop the worker and wait for it (it stops between batches)."""
@@ -208,12 +210,12 @@ class DevicePrefetcher:
             return item
         import torch
 
-        batch, event = item
+        out, staged, event = item
         consumer = torch.cuda.current_stream(self._device)
         consumer.wait_event(event)
-        for t in (batch.ids, batch.labels, batch.weights):
+        for t in staged:
             t.record_stream(consumer)
-        return batch
+        return out
 
 
 def stream_yx_batches(

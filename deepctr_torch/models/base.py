@@ -67,11 +67,12 @@ class MlpTower(nn.Module):
         return [(layer.w, layer.b) for layer in self.layers]
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
-                seed: int | None = None) -> torch.Tensor:
+                seed: int | torch.Tensor | None = None) -> torch.Tensor:
         """``[B, in]`` -> logits ``[B]`` through the tower kernels.
 
         With ``train`` and a spec with dropout, the tower drops with the
-        counter-hash mask of ``seed`` (an int below 2^24). Where autograd
+        counter-hash mask of ``seed`` (an int below 2^24, or a 0-d int32
+        tensor on the device that holds one). Where autograd
         may need the tower's gradients, the tower is the differentiable
         :func:`mlp_tower`; otherwise the forward kernel alone.
         """
@@ -80,7 +81,7 @@ class MlpTower(nn.Module):
             raise ValueError("dropout requires a seed in train mode")
         if torch.is_grad_enabled() or drop > 0.0:
             return mlp_tower(x, self.params(), self.spec.activation, drop,
-                             seed or 0)
+                             0 if seed is None else seed)
         return mlp_tower_fwd(x, self.params(), self.spec.activation)
 
 

@@ -21,6 +21,14 @@ arithmetic), and kept values are multiplied by the f32 quotient
 ``1 / keep``. ``row`` is the global batch row, so the mask does not depend
 on tiling, and forward and backward draw the same mask by construction.
 
+The seed is an int, or a 0-d int32 tensor on the tower's device that the
+kernels read when they run: a CUDA graph replays its launches with the
+arguments they were captured with, so a graph of train steps
+(``train/step.py::make_scan_train_step``) hands each step a slot of a seed
+buffer that it refills before every replay. Both forms give the same mask.
+An int seed is held below ``SEED_LIMIT`` here; a tensor's value is not read
+on the host (that would be a sync), so whoever draws it keeps it in range.
+
 The plain versions are ``torch.matmul`` + bias + activation per layer. They
 compute in full f32 as long as ``torch.backends.cuda.matmul.allow_tf32`` is
 False (PyTorch's default); whoever times or compares them on the card sets
@@ -44,6 +52,8 @@ ACTIVATIONS = {"tanh": 0, "relu": 1, "sigmoid": 2}
 _PLAIN_ACTS = {"tanh": torch.tanh, "relu": torch.relu, "sigmoid": torch.sigmoid}
 MAX_LAYERS = 8  # kMaxLayers in the CUDA sources
 SEED_LIMIT = 1 << 24  # the reference carries the seed as an exact f32
+
+Seed = int | torch.Tensor  # an int, or a 0-d int32 tensor on the device
 
 # kernel launches since the last reset: every forward, the forwards with
 # dropout among them, and the backward
@@ -75,16 +85,19 @@ def dropout_params(dropout: float) -> tuple[int, float]:
     return _keep_params(1.0 - dropout)
 
 
-def dropout_mask_plain(shape: tuple[int, int], keep: float, seed: int,
+def dropout_mask_plain(shape: tuple[int, int], keep: float, seed: Seed,
                        layer: int, row0: int = 0,
                        device: torch.device | str = "cpu") -> torch.Tensor:
     """The reference's ``_dropout_mask``, bit for bit: f32 ``[rows, cols]``
-    of ``1/keep`` where kept and 0 where dropped."""
+    of ``1/keep`` where kept and 0 where dropped. ``seed`` is an int or a
+    0-d integer tensor."""
     rows, cols = shape
     r = torch.arange(rows, dtype=torch.int64, device=device)[:, None] + row0
     c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
+    s = (seed.to(device=device, dtype=torch.int64)
+         if isinstance(seed, torch.Tensor) else int(seed))
     h = (_mul_u32(r & _U32, 0x9E3779B9) + _mul_u32(c, 0x85EBCA6B)
-         + ((int(seed) & _U32) * 0xC2B2AE35 & _U32)
+         + _mul_u32(s & _U32, 0xC2B2AE35)
          + ((layer + 1) * 0x27D4EB2F & _U32)) & _U32
     h = h ^ (h >> 16)
     h = _mul_u32(h, 0x7FEB352D)
@@ -96,7 +109,7 @@ def dropout_mask_plain(shape: tuple[int, int], keep: float, seed: int,
 
 
 def mlp_tower_plain(x: torch.Tensor, layers: Layers, activation: str = "tanh",
-                    dropout: float = 0.0, seed: int = 0) -> torch.Tensor:
+                    dropout: float = 0.0, seed: Seed = 0) -> torch.Tensor:
     """Plain tower: ``[B, in]`` -> ``[B]`` logits. With ``dropout > 0``
     each hidden activation is multiplied by :func:`dropout_mask_plain` of
     its layer, as the reference's fused kernel does."""
@@ -114,7 +127,7 @@ def mlp_tower_plain(x: torch.Tensor, layers: Layers, activation: str = "tanh",
 
 def mlp_tower_bwd_plain(x: torch.Tensor, layers: Layers, g: torch.Tensor,
                         activation: str = "tanh", dropout: float = 0.0,
-                        seed: int = 0):
+                        seed: Seed = 0):
     """Gradients of :func:`mlp_tower_plain` for upstream ``g`` ``[B]``:
     ``(gx, [(gw, gb), ...])``, by autograd through the plain forward."""
     with torch.enable_grad():
@@ -134,8 +147,9 @@ def _fwd_kernel():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+        ctypes.c_uint32, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
+        ctypes.c_void_p,
     ]
     ws = lib.mlp_tower_fwd_workspace
     ws.restype = ctypes.c_size_t
@@ -151,9 +165,9 @@ def _bwd_kernel():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_size_t, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_uint32,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
     ]
     ws = lib.mlp_tower_bwd_workspace
     ws.restype = ctypes.c_size_t
@@ -162,14 +176,18 @@ def _bwd_kernel():
 
 
 def _check_args(x: torch.Tensor, layers: Layers, activation: str,
-                dropout: float = 0.0, seed: int = 0) -> None:
+                dropout: float = 0.0, seed: Seed = 0) -> None:
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r} (tanh|relu|sigmoid)")
     if not 1 <= len(layers) <= MAX_LAYERS:
         raise ValueError(f"{len(layers)} layers; the kernel takes 1..{MAX_LAYERS}")
     if not 0.0 <= dropout < 1.0:
         raise ValueError(f"dropout {dropout} outside [0, 1)")
-    if not 0 <= int(seed) < SEED_LIMIT:
+    if isinstance(seed, torch.Tensor):
+        if seed.shape != () or seed.dtype != torch.int32 or seed.device != x.device:
+            raise ValueError(f"a tensor seed is 0-d int32 on {x.device}; got "
+                             f"{tuple(seed.shape)} {seed.dtype} on {seed.device}")
+    elif not 0 <= int(seed) < SEED_LIMIT:
         raise ValueError(f"dropout seed {seed} outside [0, 2^24)")
     tensors = [x] + [t for layer in layers for t in layer]
     for t in tensors:
@@ -191,6 +209,13 @@ def _check_args(x: torch.Tensor, layers: Layers, activation: str,
         d_in = w.shape[1]
 
 
+def _seed_args(seed: Seed) -> tuple[int, int | None]:
+    """The entry points' ``(seed, seed_ptr)`` of an int or a device seed."""
+    if isinstance(seed, torch.Tensor):
+        return 0, seed.data_ptr()
+    return int(seed), None
+
+
 def _tower_args(x: torch.Tensor, layers: Layers):
     n = len(layers)
     dims = (ctypes.c_int * (n + 1))(x.shape[1], *(w.shape[1] for w, _ in layers))
@@ -200,7 +225,7 @@ def _tower_args(x: torch.Tensor, layers: Layers):
 
 
 def mlp_tower_fwd(x: torch.Tensor, layers: Layers, activation: str = "tanh",
-                  dropout: float = 0.0, seed: int = 0) -> torch.Tensor:
+                  dropout: float = 0.0, seed: Seed = 0) -> torch.Tensor:
     """Fused tower forward: ``[B, in]`` -> ``[B]`` logits, no autograd.
 
     A CPU ``x`` takes :func:`mlp_tower_plain`. A CUDA ``x`` launches the
@@ -223,9 +248,9 @@ def mlp_tower_fwd(x: torch.Tensor, layers: Layers, activation: str = "tanh",
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = kernel(
             x.data_ptr(), batch, n, dims, weights, biases,
-            ACTIVATIONS[activation], int(dropout > 0.0), int(seed), threshold,
-            scale, 0, out.data_ptr(), workspace.data_ptr(), workspace.numel(),
-            stream,
+            ACTIVATIONS[activation], int(dropout > 0.0), *_seed_args(seed),
+            threshold, scale, 0, out.data_ptr(), workspace.data_ptr(),
+            workspace.numel(), stream,
         )
     check(code, f"mlp_tower_fwd (widths {list(dims)}, dropout {dropout})")
     LAUNCHES += 1
@@ -235,7 +260,7 @@ def mlp_tower_fwd(x: torch.Tensor, layers: Layers, activation: str = "tanh",
 
 def mlp_tower_bwd(x: torch.Tensor, layers: Layers, g: torch.Tensor,
                   activation: str = "tanh", dropout: float = 0.0,
-                  seed: int = 0):
+                  seed: Seed = 0):
     """Fused tower backward for upstream ``g`` ``[B]`` (the logit's
     gradient): ``(gx, [(gw, gb), ...])``.
 
@@ -266,8 +291,8 @@ def mlp_tower_bwd(x: torch.Tensor, layers: Layers, g: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = kernel(
             x.data_ptr(), batch, n, dims, weights, biases, g.data_ptr(),
-            ACTIVATIONS[activation], int(dropout > 0.0), int(seed), threshold,
-            scale, gx.data_ptr(), gws, gbs, workspace.data_ptr(),
+            ACTIVATIONS[activation], int(dropout > 0.0), *_seed_args(seed),
+            threshold, scale, gx.data_ptr(), gws, gbs, workspace.data_ptr(),
             workspace.numel(), stream,
         )
     check(code, f"mlp_tower_bwd (widths {list(dims)}, dropout {dropout})")
@@ -277,20 +302,25 @@ def mlp_tower_bwd(x: torch.Tensor, layers: Layers, g: torch.Tensor,
 
 class _Tower(torch.autograd.Function):
     """The counterpart of the reference's ``custom_vjp`` ``mlp_tower``: the
-    forward saves ``x``, the layers and the seed, and the backward
+    forward saves ``x``, the layers and the seed (a device seed as a saved
+    tensor, so the backward reads the same buffer), and the backward
     recomputes the forward inside :func:`mlp_tower_bwd`."""
 
     @staticmethod
     def forward(ctx, x, activation, dropout, seed, *flat):
         layers = list(zip(flat[0::2], flat[1::2]))
-        ctx.save_for_backward(x, *flat)
-        ctx.cfg = (activation, dropout, seed)
+        device_seed = isinstance(seed, torch.Tensor)
+        ctx.save_for_backward(x, *flat, *([seed] if device_seed else []))
+        ctx.cfg = (activation, dropout, None if device_seed else seed, len(flat))
         return mlp_tower_fwd(x, layers, activation, dropout, seed)
 
     @staticmethod
     def backward(ctx, g):
-        x, *flat = ctx.saved_tensors
-        activation, dropout, seed = ctx.cfg
+        activation, dropout, seed, n = ctx.cfg
+        x, *rest = ctx.saved_tensors
+        flat = rest[:n]
+        if seed is None:
+            seed = rest[n]
         layers = list(zip(flat[0::2], flat[1::2]))
         gx, grads = mlp_tower_bwd(x, layers, g.contiguous(), activation,
                                   dropout, seed)
@@ -298,9 +328,10 @@ class _Tower(torch.autograd.Function):
 
 
 def mlp_tower(x: torch.Tensor, layers: Layers, activation: str = "tanh",
-              dropout: float = 0.0, seed: int = 0) -> torch.Tensor:
+              dropout: float = 0.0, seed: Seed = 0) -> torch.Tensor:
     """Differentiable fused tower: ``[B, in]`` -> ``[B]`` logits, with
     gradients for ``x`` and every layer. ``dropout``/``seed`` switch on the
     in-kernel counter-hash dropout."""
-    return _Tower.apply(x, activation, float(dropout), int(seed),
+    seed = seed if isinstance(seed, torch.Tensor) else int(seed)
+    return _Tower.apply(x, activation, float(dropout), seed,
                         *(t for layer in layers for t in layer))

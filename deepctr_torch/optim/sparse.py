@@ -13,6 +13,13 @@ sees ``(sum_i g_i)^2``). Two strategies, chosen per table size
   (``ops/scatter.py``), and only those rows are updated; no ``[V, D]``
   temporary.
 
+Both have static shapes and no host sync, so a CUDA graph can capture
+them: the sorted update computes the new row for every occurrence from its
+id's total (:func:`_occurrence_totals`) and writes all occurrences with a
+non-accumulating ``index_put_``; duplicates write the same bits, so the
+order of the writes does not matter. (Selecting the unique ids with a mask,
+``ids[is_last]``, is a ``nonzero`` and a sync.)
+
 A bf16 table keeps an f32 accumulator and an f32 scratch; updates are
 computed in f32 and rounded on write. The pad row stays frozen because its
 occurrence gradients are zero (the models mask pad slots).
@@ -45,6 +52,15 @@ class SparseAdagradState(NamedTuple):
     acc: torch.Tensor  # per-coordinate f32 accumulator, the table's shape
 
 
+def _occurrence_totals(ids: torch.Tensor, rows: torch.Tensor,
+                       ids_sorted: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(sorted ids, totals)``: each occurrence beside its id's summed
+    f32 gradient, all of static shape ``[M]`` and ``[M, D]``."""
+    d = dedupe_grads(ids, rows.float(), ids_sorted=ids_sorted)
+    last = torch.searchsorted(d.ids, d.ids, right=True) - 1
+    return d.ids, d.rows[last]
+
+
 def _pick_dense(mode: str, table: torch.Tensor) -> bool:
     if mode == "dense":
         return True
@@ -73,9 +89,8 @@ class SparseSgd:
         # duplicates are summed in f32 and each touched row rounds once, on
         # write, as the reference's split path does for its small fields (its
         # gather path adds each occurrence in the table's dtype instead)
-        d = dedupe_grads(ids, rows.float(), ids_sorted=ids_sorted)
-        uids = d.ids[d.is_last]
-        table[uids] = (table[uids].float() - lr * d.rows[d.is_last]).to(table.dtype)
+        sid, g = _occurrence_totals(ids, rows, ids_sorted)
+        table.index_put_((sid,), (table[sid].float() - lr * g).to(table.dtype))
         return table, state
 
 
@@ -108,13 +123,12 @@ class SparseAdagrad:
             acc.add_(g * g)
             table.copy_(table.float() - lr * g / (acc.sqrt() + self.eps))
         else:
-            d = dedupe_grads(ids, rows.float(), ids_sorted=ids_sorted)
-            uids = d.ids[d.is_last]
-            g = d.rows[d.is_last]
-            acc[uids] += g * g
-            delta = -lr * g / (acc[uids].sqrt() + self.eps)
-            table[uids] = (table[uids].float()
-                           + delta.to(table.dtype).float()).to(table.dtype)
+            sid, g = _occurrence_totals(ids, rows, ids_sorted)
+            new_acc = acc[sid] + g * g
+            acc.index_put_((sid,), new_acc)
+            delta = -lr * g / (new_acc.sqrt() + self.eps)
+            table.index_put_((sid,), (table[sid].float()
+                                      + delta.to(table.dtype).float()).to(table.dtype))
         return table, state
 
 

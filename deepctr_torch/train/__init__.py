@@ -8,6 +8,7 @@ from .step import (
     init_state,
     make_eval_step,
     make_pretrain_step,
+    make_scan_train_step,
     make_train_step,
 )
 
@@ -21,6 +22,7 @@ __all__ = [
     "init_state",
     "make_eval_step",
     "make_pretrain_step",
+    "make_scan_train_step",
     "make_train_step",
     "pretrain_snn",
 ]

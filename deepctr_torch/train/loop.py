@@ -1,20 +1,22 @@
 """Training loop: epochs, per-epoch eval, early stopping.
 
-Port of ``deepctr_tpu/train/loop.py`` (``evaluate``, ``fit`` on its
-per-step route, and ``pretrain_snn``). Epochs shuffle through
-``data.minibatches`` with ``seed + epoch`` and drop the last partial batch
-(pretraining epochs too), or stream shards through a
+Port of ``deepctr_tpu/train/loop.py`` (``evaluate``, ``fit`` on both its
+routes, and ``pretrain_snn``). Epochs shuffle with ``seed + epoch`` and drop
+the last partial batch (pretraining epochs too), or stream shards through a
 ``data.stream.StreamSource`` (``train_source``); the learning rate decays
 by ``lr_decay ** epoch``; training stops early when the held-out AUC has not
 improved for more than ``early_stop_patience`` epochs. ``start_epoch``
 continues the epoch schedule of a saved run, so a killed and resumed run
 gives the uninterrupted run's bits. ``prefetch`` stages the training
-batches on a background thread (``data.DevicePrefetcher``); as in the
-reference, eval and ``pretrain_snn`` do not prefetch.
+batches, or chunks, on a background thread (``data.DevicePrefetcher``); as
+in the reference, eval and ``pretrain_snn`` do not prefetch.
 
-Not here: the reference's ``lax.scan`` route (a JAX dispatch device;
-``scan_steps`` is not an argument, so a stream always feeds ``batches``,
-never ``scan_chunks``).
+``scan_steps = K > 1`` is the reference's chunked route, its default: an
+epoch is chunks of K steps (:func:`ram_chunks`, or the stream's
+``scan_chunks``), each trained by ``train.step.make_scan_train_step`` (on
+the card one CUDA graph replay). A short last chunk is padded to K with
+weight-0 steps, which are real steps: ``state.step`` counts them and they
+draw dropout seeds, as the reference's do.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from .step import (
     init_state,
     make_eval_step,
     make_pretrain_step,
+    make_scan_train_step,
     make_train_step,
 )
 
@@ -64,6 +67,33 @@ def evaluate(eval_step: Callable, model: nn.Module, ids: np.ndarray,
     }
 
 
+def ram_chunks(ids: np.ndarray, labels: np.ndarray, batch_size: int,
+               scan_steps: int, *, schema: Schema, seed: int):
+    """An in-RAM epoch in chunks, as the reference's scan route cuts it:
+    ``(nb, (ids [K, B, S], labels [K, B], weights [K, B]))``. The order is
+    ``np.arange(n)`` shuffled by ``default_rng(seed)`` (``minibatches``'),
+    a chunk holds K·B rows and only whole batches, and a short last chunk
+    is padded to K steps of pad ids, label 0 and weight 0."""
+    n, s = ids.shape
+    order = np.arange(n)
+    np.random.default_rng(seed).shuffle(order)
+    chunk = scan_steps * batch_size
+    for start in range(0, n - batch_size + 1, chunk):
+        sel = order[start:start + chunk]
+        nb = len(sel) // batch_size
+        sel = sel[:nb * batch_size]
+        ids_t = ids[sel].reshape(nb, batch_size, s)
+        y_t = labels[sel].reshape(nb, batch_size)
+        w_t = np.ones((nb, batch_size), np.float32)
+        if nb < scan_steps:
+            pad = scan_steps - nb
+            ids_t = np.concatenate(
+                [ids_t, np.full((pad, batch_size, s), schema.pad_id, np.int32)])
+            y_t = np.concatenate([y_t, np.zeros((pad, batch_size), np.float32)])
+            w_t = np.concatenate([w_t, np.zeros((pad, batch_size), np.float32)])
+        yield nb, (ids_t, y_t, w_t)
+
+
 def fit(
     model: nn.Module,
     schema: Schema,
@@ -91,6 +121,7 @@ def fit(
     step: Callable | None = None,
     evaluate_state: Callable[[TrainState], dict] | None = None,
     batch_transform: Callable[[Batch], Batch] | None = None,
+    scan_steps: int = 0,
 ) -> FitResult:
     """Train ``model`` (in place) with per-epoch eval and early stop on
     held-out AUC. Without ``state``, the model is initialised from
@@ -98,8 +129,12 @@ def fit(
 
     ``train_source`` (a ``data.stream.StreamSource``) replaces the in-RAM
     ``train_ids``/``train_labels`` (pass None): each epoch is
-    ``train_source.batches(epoch)``. ``debug_nans`` raises
-    ``FloatingPointError`` at the first step whose loss is not finite.
+    ``train_source.batches(epoch)``, or ``train_source.scan_chunks(epoch,
+    scan_steps)``. ``debug_nans`` raises ``FloatingPointError`` at the first
+    step whose loss is not finite (a chunk then runs as K eager steps).
+
+    ``scan_steps > 1`` trains in chunks of that many steps (the module's
+    docstring). The epoch's loss is the mean over its real steps.
 
     A sharded run (``cli._sharded_parts``) replaces three parts: ``step``
     (``(state, ids, labels, weights, lr_scale) -> (state, metrics)``; a
@@ -107,7 +142,12 @@ def fit(
     ``dropped_ids``), ``evaluate_state`` (``state -> {auc, ...}``, in place
     of the full-dataset :func:`evaluate` of ``test_ids``) and
     ``batch_transform`` (applied to every training batch before the
-    prefetcher stages it)."""
+    prefetcher stages it). A given ``step`` keeps the per-step route
+    whatever ``scan_steps`` says."""
+    scan_step = None
+    if step is None and scan_steps > 1:
+        scan_step = make_scan_train_step(schema, sparse_opt, dense_opt, l2=l2,
+                                         check_finite=debug_nans)
     if step is None:
         step = make_train_step(schema, sparse_opt, dense_opt, l2=l2,
                                check_finite=debug_nans)
@@ -129,21 +169,33 @@ def fit(
         lr_scale = lr_decay**epoch
         n_batches = 0
         losses, drops = [], []  # device scalars, read once per epoch
-        it = (train_source.batches(epoch) if train_source is not None
-              else minibatches(train_ids, train_labels, batch_size, schema=schema,
-                               shuffle=True, seed=seed + epoch,
-                               drop_remainder=True))
+        if scan_step is not None:
+            it = (train_source.scan_chunks(epoch, scan_steps)
+                  if train_source is not None
+                  else ram_chunks(train_ids, train_labels, batch_size, scan_steps,
+                                  schema=schema, seed=seed + epoch))
+        else:
+            it = (train_source.batches(epoch) if train_source is not None
+                  else minibatches(train_ids, train_labels, batch_size,
+                                   schema=schema, shuffle=True, seed=seed + epoch,
+                                   drop_remainder=True))
         if batch_transform is not None:
             it = map(batch_transform, it)
         if prefetch:
             it = DevicePrefetcher(it, model.table.device)
         try:
-            for b in it:
-                state, m = step(state, b.ids, b.labels, b.weights, lr_scale)
-                losses.append(m.loss)
-                if hasattr(m, "dropped"):
-                    drops.append(m.dropped)
-                n_batches += 1
+            if scan_step is not None:
+                for nb, chunk in it:
+                    state, chunk_losses = scan_step(state, *chunk, lr_scale)
+                    losses.append(chunk_losses[:nb].sum())
+                    n_batches += nb
+            else:
+                for b in it:
+                    state, m = step(state, b.ids, b.labels, b.weights, lr_scale)
+                    losses.append(m.loss)
+                    if hasattr(m, "dropped"):
+                        drops.append(m.dropped)
+                    n_batches += 1
         finally:
             if prefetch:
                 it.close()

@@ -13,12 +13,14 @@ What differs from the reference, and why:
 - The dropout seed of each step is an int below 2^24 drawn from the state's
   ``torch.Generator`` (on the CPU), or given as ``seed=`` so that a test can
   feed the JAX step's seeds.
+- ``make_scan_train_step``, the reference's ``lax.scan`` of K steps in one
+  dispatch, is K eager steps on the CPU and, on the card, one replay of a
+  CUDA graph that holds the K whole steps (:class:`_ChunkGraph`).
 - The reference's split plan (``ops/split_embed.py``) is not ported: its
   one-hot matmuls are a TPU gather mechanism. One gather of all slots and
   one scatter of the occurrence gradients give the same per-row sums, up to
   f32 summation order; the parity tests hold the port against the JAX step
   with and without the plan.
-- ``make_scan_train_step`` is a JAX dispatch device and is not ported.
 - ``make_pretrain_step`` has no ``jit`` and no ``donate_argnums``, and takes
   a ``torch.Generator`` where the reference threads a PRNG key: the table,
   the optimizer's state and ``b1`` are updated in place.
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import time
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -42,8 +45,13 @@ import torch
 from torch import nn
 
 from ..models.base import lazy_l2, weighted_bce_with_logits
+from ..ops.kernels import add_launch_counts, launch_counts
 from ..ops.kernels.mlp import SEED_LIMIT
 from ..data import Schema
+
+# CUDA graphs of K steps captured since the last reset; each capture ran
+# one eager warm-up step on a clone of its state, whose launches count
+CAPTURES = 0
 
 
 @dataclasses.dataclass
@@ -123,27 +131,30 @@ def _to_device(a, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype, non_blocking=True)
 
 
-def make_train_step(schema: Schema, sparse_opt, dense_opt, l2: float = 0.0,
-                    check_finite: bool = False):
-    """Build ``step(state, ids, labels, weights, lr_scale=1.0, seed=None)
-    -> (state, StepMetrics)``. Batches are numpy arrays or tensors; they
-    go to the model's device.
+def draw_seed(generator: torch.Generator) -> int:
+    """One step's dropout seed: an int below 2^24 from the state's
+    generator."""
+    return int(torch.randint(0, SEED_LIMIT, (), generator=generator))
 
-    ``check_finite`` (the CLI's ``train.debug_nans``) reads the loss on the
-    host before the backward pass, a sync every step, and raises
-    ``FloatingPointError`` at the first step whose loss is not finite,
-    before anything is updated."""
+
+def _checked_seed(seed) -> int:
+    if not 0 <= int(seed) < SEED_LIMIT:
+        raise ValueError(f"dropout seed {seed} outside [0, 2^24)")
+    return int(seed)
+
+
+def _step_body(schema: Schema, sparse_opt, dense_opt, l2: float,
+               check_finite: bool):
+    """``body(state, ids, labels, weights, lr_scale, seed) -> (loss,
+    logits)``: one train step on batches already on the model's device
+    (ids int64), updating the model and the optimizers' states in place.
+    ``state.step`` and the generator are the caller's. ``seed`` is an int or
+    a 0-d int32 device tensor (:mod:`..ops.kernels.mlp`). The per-step route
+    and the graph of K steps run this same body."""
     pad_id = schema.pad_id
 
-    def step(state: TrainState, ids, labels, weights, lr_scale: float = 1.0,
-             seed: int | None = None):
+    def body(state: TrainState, ids, labels, weights, lr_scale, seed):
         model = state.model
-        device = model.table.device
-        drawn = int(torch.randint(0, SEED_LIMIT, (), generator=state.generator))
-        seed = drawn if seed is None else seed
-        ids = _to_device(ids, device, torch.long)
-        labels = _to_device(labels, device, torch.float32)
-        weights = _to_device(weights, device, torch.float32)
         mask = (ids != pad_id).float()
         rows = model.table.detach()[ids].float().requires_grad_(True)
         params = dense_params(model)
@@ -160,10 +171,199 @@ def make_train_step(schema: Schema, sparse_opt, dense_opt, l2: float = 0.0,
                           ids.reshape(-1), g_rows.reshape(-1, g_rows.shape[-1]),
                           lr_scale=lr_scale)
         dense_opt.update(params, g_dense, state.dense_state, lr_scale=lr_scale)
+        return loss.detach(), logits.detach()
+
+    return body
+
+
+def make_train_step(schema: Schema, sparse_opt, dense_opt, l2: float = 0.0,
+                    check_finite: bool = False):
+    """Build ``step(state, ids, labels, weights, lr_scale=1.0, seed=None)
+    -> (state, StepMetrics)``. Batches are numpy arrays or tensors; they
+    go to the model's device.
+
+    ``check_finite`` (the CLI's ``train.debug_nans``) reads the loss on the
+    host before the backward pass, a sync every step, and raises
+    ``FloatingPointError`` at the first step whose loss is not finite,
+    before anything is updated."""
+    return _per_step(_step_body(schema, sparse_opt, dense_opt, l2, check_finite))
+
+
+def _per_step(body):
+    """``make_train_step``'s step around ``body``: the seed drawn (or
+    given), the batch moved to the device, ``state.step`` counted."""
+
+    def step(state: TrainState, ids, labels, weights, lr_scale: float = 1.0,
+             seed: int | None = None):
+        device = state.model.table.device
+        drawn = draw_seed(state.generator)
+        seed = drawn if seed is None else _checked_seed(seed)
+        loss, logits = body(state, _to_device(ids, device, torch.long),
+                            _to_device(labels, device, torch.float32),
+                            _to_device(weights, device, torch.float32),
+                            lr_scale, seed)
         state.step += 1
-        return state, StepMetrics(loss=loss.detach(), logits=logits.detach())
+        return state, StepMetrics(loss=loss, logits=logits)
 
     return step
+
+
+def make_scan_train_step(schema: Schema, sparse_opt, dense_opt, l2: float = 0.0,
+                         check_finite: bool = False):
+    """Build ``scan_step(state, ids [K, B, S], labels [K, B], weights [K, B],
+    lr_scale=1.0, seeds=None) -> (state, losses [K])``: K train steps, the
+    reference's ``make_scan_train_step``. ``seeds`` (K ints) replaces the
+    drawn dropout seeds, as ``make_train_step``'s ``seed=`` does; the K draws
+    are taken all the same, so the generator ends where it would.
+
+    On the CPU, and under ``check_finite`` (which must stop before the
+    update of the step that went bad), the K steps run eagerly, one
+    ``make_train_step`` step each. On the card they are one replay of a CUDA
+    graph that holds all K steps (:class:`_ChunkGraph`); a capture that
+    fails raises. ``state.step`` grows by K either way: weight-0 steps that
+    pad a short chunk are full steps, as in the reference (a dropout seed
+    each, Adam's moments and count move; SGD and Adagrad leave the table
+    and accumulator as they were, since the gradient is 0)."""
+    body = _step_body(schema, sparse_opt, dense_opt, l2, check_finite)
+    step = _per_step(body)
+    graph: list[_ChunkGraph] = []   # the last one captured
+
+    def scan_step(state: TrainState, ids, labels, weights, lr_scale: float = 1.0,
+                  seeds=None):
+        k = ids.shape[0]
+        if labels.shape[0] != k or weights.shape[0] != k or (
+                seeds is not None and len(seeds) != k):
+            raise ValueError(f"a chunk of {k} steps needs {k} labels, weights "
+                             f"and seeds")
+        if state.model.table.device.type != "cuda" or check_finite:
+            losses = []
+            for i in range(k):
+                state, m = step(state, ids[i], labels[i], weights[i], lr_scale,
+                                seed=None if seeds is None else seeds[i])
+                losses.append(m.loss)
+            return state, torch.stack(losses)
+        key = _graph_key(state, ids.shape, lr_scale)
+        if not graph or graph[0].key != key:
+            graph.clear()   # its pool goes before the next capture
+            graph.append(_ChunkGraph(body, state, ids, labels, weights, lr_scale, key))
+        return graph[0].run(state, ids, labels, weights, seeds)
+
+    scan_step.graph = graph
+    return scan_step
+
+
+def _graph_key(state: TrainState, shape, lr_scale: float) -> tuple:
+    """What a captured graph is good for: one chunk shape, one
+    ``lr_scale`` and the addresses of one state's tensors."""
+    return (tuple(shape), float(lr_scale), state.model.table.dtype,
+            tuple(t.data_ptr() for t in _state_tensors(state)))
+
+
+def _state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Every tensor a step reads or writes in place: the model's parameters
+    and buffers and the optimizers' states."""
+    out = list(state.model.parameters()) + list(state.model.buffers())
+    out += list(state.sparse_state)
+    stack = [state.dense_state]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, torch.Tensor):
+            out.append(node)
+        else:
+            stack.extend(node)
+    return out
+
+
+class _ChunkGraph:
+    """K whole train steps (gather, model with its kernels, loss, backward,
+    sparse and dense updates) captured once as a ``torch.cuda.CUDAGraph``
+    and replayed once a chunk.
+
+    A graph replays fixed addresses with fixed arguments. So it belongs to
+    one state (the addresses of its tensors, :func:`_state_tensors`), one
+    chunk shape and one ``lr_scale`` (a Python float in the arithmetic,
+    baked in as the eager step bakes it; a new value is captured anew,
+    which keeps the eager step's bits); each chunk is copied into static
+    input buffers; each replay's K dropout seeds are drawn from the state's
+    generator in the eager order, staged in pinned memory (two buffers,
+    each reused only once its last copy has ended, an event says when) and
+    copied to a ``[K]`` device buffer that the tower kernels read (the
+    ``seed_ptr`` of ``csrc/dropout_hash.cuh``); the K losses land in a
+    static ``[K]`` buffer.
+
+    Before the capture one eager step runs on a clone of the state, on the
+    capture's side stream, so that what a first call sets up (cuBLAS's
+    handle and workspace, the kernels' library, their shared-memory limits)
+    is not set up inside the capture; the real state is not touched. The
+    capture itself runs nothing. Its launch counts are taken back and added
+    again at every replay (:mod:`..ops.kernels`).
+    """
+
+    def __init__(self, body, state: TrainState, ids, labels, weights,
+                 lr_scale: float, key: tuple):
+        device = state.model.table.device
+        k, b = ids.shape[:2]
+        self.key = key
+        self.ids = torch.empty(ids.shape, dtype=torch.long, device=device)
+        self.labels = torch.empty((k, b), dtype=torch.float32, device=device)
+        self.weights = torch.empty((k, b), dtype=torch.float32, device=device)
+        self.seeds = torch.zeros(k, dtype=torch.int32, device=device)
+        self.losses = torch.empty(k, dtype=torch.float32, device=device)
+        self._staging = [torch.empty(k, dtype=torch.int32, pin_memory=True)
+                         for _ in range(2)]
+        self._copied: list[torch.cuda.Event | None] = [None, None]
+        self._slot = 0
+        self._load(ids, labels, weights)
+
+        t0 = time.perf_counter()
+        warm = state.clone()
+        stream = torch.cuda.Stream(device=device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            body(warm, self.ids[0], self.labels[0], self.weights[0], lr_scale,
+                 self.seeds[0])
+        torch.cuda.current_stream(device).wait_stream(stream)
+        del warm
+
+        self.graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        with torch.cuda.graph(self.graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            for i in range(k):
+                loss, _ = body(state, self.ids[i], self.labels[i],
+                               self.weights[i], lr_scale, self.seeds[i])
+                self.losses[i].copy_(loss)
+        captured = launch_counts()
+        self.launches = tuple(a - b for a, b in zip(captured, before))
+        add_launch_counts(tuple(-n for n in self.launches))
+        self.capture_s = time.perf_counter() - t0
+        global CAPTURES
+        CAPTURES += 1
+
+    def _load(self, ids, labels, weights) -> None:
+        device = self.ids.device
+        self.ids.copy_(_to_device(ids, device, torch.long))
+        self.labels.copy_(_to_device(labels, device, torch.float32))
+        self.weights.copy_(_to_device(weights, device, torch.float32))
+
+    def run(self, state: TrainState, ids, labels, weights, seeds=None):
+        k = self.seeds.shape[0]
+        self._load(ids, labels, weights)
+        drawn = [draw_seed(state.generator) for _ in range(k)]
+        values = drawn if seeds is None else [_checked_seed(s) for s in seeds]
+        staging, copied = self._staging[self._slot], self._copied[self._slot]
+        if copied is not None:
+            copied.synchronize()   # this buffer's last copy has ended
+        staging.copy_(torch.tensor(values, dtype=torch.int32))
+        self.seeds.copy_(staging, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self._copied[self._slot] = event
+        self._slot ^= 1
+        self.graph.replay()
+        add_launch_counts(self.launches)
+        state.step += k
+        return state, self.losses.clone()
 
 
 def make_eval_step(schema: Schema):

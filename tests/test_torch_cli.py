@@ -8,6 +8,7 @@ thread, so ``fit(prefetch=True)`` must give ``fit(prefetch=False)``'s bits.
 """
 
 import json
+import math
 import os
 import threading
 
@@ -63,11 +64,14 @@ def test_cli_print_config(capsys):
 def test_unported_keys_are_only_the_multi_gpu_ones(argv, tmp_path):
     """No key is left unported: ``train.distributed`` without
     ``train.sharded`` runs the single-device route, as in the reference's
-    single process, and logs one event saying the key has no effect."""
+    single process, and logs one event saying the key has no effect. That
+    route is the default scan route: 5 batches are one chunk of 8 steps,
+    3 of them weight-0 pad steps that count, as the reference's do."""
     assert not hasattr(t_cli, "UNPORTED_KEYS") and not hasattr(t_cli, "check_ported")
     metrics = tmp_path / "m.jsonl"
     res = _run(argv + ["train.distributed=true", f"train.metrics_path={metrics}"])
-    assert res["state"].step == 400 * 85 // 100 // BATCH
+    scan = t_cli.RunConfig().train.scan_steps
+    assert res["state"].step == scan * math.ceil(400 * 85 // 100 // BATCH / scan)
     assert not hasattr(res["state"], "num_shards")
     events = [json.loads(line) for line in metrics.read_text().splitlines()]
     ignored = [e for e in events if e.get("event") == "distributed_ignored"]

@@ -11,6 +11,7 @@ it matches the JAX step from it, given that step's dropout seed, within
 """
 
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -185,7 +186,10 @@ def test_cli_kill_and_resume_matches_uninterrupted(schema, tmp_path, capsys, mod
     """Through ``cli.run``: run A trains 2 epochs; run B trains 1, and B'
     resumes it to 2. B''s final checkpoint equals A's leaf for leaf, bit for
     bit; its ``resumed`` event names step and epoch; a third run resumed
-    past the target only evaluates, and its checkpoint still says epoch 2."""
+    past the target only evaluates, and its checkpoint still says epoch 2.
+    The runs take the CLI's default scan route: an epoch of 9 batches is
+    two chunks of 8 steps, the last padded with 7 weight-0 steps, which
+    count as steps as the reference's do."""
     sp = tmp_path / "schema.json"
     sp.write_text(schema.to_json())
     a_ckpt, b_ckpt = str(tmp_path / "a.ckpt"), str(tmp_path / "b.ckpt")
@@ -201,7 +205,8 @@ def test_cli_kill_and_resume_matches_uninterrupted(schema, tmp_path, capsys, mod
     run(b_ckpt, b_metrics, ["train.epochs=1"])
     b = run(b_ckpt, b_metrics, ["train.epochs=2", "train.resume=true"])
     capsys.readouterr()
-    steps_per_epoch = int(700 * 0.85) // BATCH
+    scan = t_cli.RunConfig().train.scan_steps
+    steps_per_epoch = scan * math.ceil(int(700 * 0.85) // BATCH / scan)
     assert a["state"].step == b["state"].step == 2 * steps_per_epoch
     got, want = _checkpoint_leaves(b_ckpt), _checkpoint_leaves(a_ckpt)
     assert len(got) == len(want)
@@ -258,11 +263,13 @@ def test_checkpoints_move_between_sharded_and_unsharded(schema, tmp_path, capsys
                                                         first, then):
     """A world of one gives the single-device step's bits, so a checkpoint
     written by one route and resumed by the other ends bit-identical to an
-    uninterrupted unsharded run."""
+    uninterrupted unsharded run. The sharded route trains per step (its
+    scan route is not ported), so the unsharded runs do too
+    (``train.scan_steps=0``)."""
     sp = tmp_path / "schema.json"
     sp.write_text(schema.to_json())
     a_ckpt, b_ckpt = str(tmp_path / "a.ckpt"), str(tmp_path / "b.ckpt")
-    extra = ["model.name=fnn", "model.dropout=0.5"]
+    extra = ["model.name=fnn", "model.dropout=0.5", "train.scan_steps=0"]
 
     def run(ckpt, route, more):
         sharded = ["train.sharded=true"] if route == "sharded" else []

@@ -220,14 +220,17 @@ def test_sharded_criteo_stream_config_runs_shrunk(tmp_path):
 def test_sharded_stream_of_unequal_shards_matches_unsharded(tmp_path):
     """Every rank streams the same global batches and trains on its rows,
     so the two-rank sharded run over unequal shards (f32 wire) gives the
-    unsharded streamed run's table and step count."""
+    unsharded streamed run's table and step count. The sharded run trains
+    per step (its scan route is not ported), so the unsharded run takes
+    the per-step route too (``train.scan_steps=0``)."""
     days = _write_days(tmp_path, [1300, 700])
     base = _stream_config(tmp_path, days) + ["train.exchange_dtype=f32"]
     sharded, single = str(tmp_path / "sharded.npz"), str(tmp_path / "single.npz")
     torchrun(base + ["train.num_devices=2", f"train.checkpoint_path={sharded}",
                      "--device", "cpu"], timeout=STREAM_TIMEOUT)
     cfg = TRunConfig.load(base[1]).apply_overrides(
-        base[2:] + ["train.sharded=false", f"train.checkpoint_path={single}"])
+        base[2:] + ["train.sharded=false", "train.scan_steps=0",
+                    f"train.checkpoint_path={single}"])
     t_cli.run(cfg, torch.device("cpu"))
     assert _ckpt_step(sharded) == _ckpt_step(single) > 0
     np.testing.assert_allclose(_ckpt_table(sharded), _ckpt_table(single),

@@ -9,6 +9,8 @@ coverage, shuffling, bounded residency, Criteo, npz-cache and featindex
 shards, streamed training against in-RAM training, the CLI).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -285,7 +287,9 @@ def test_cli_stream_end_to_end(tmp_path):
         "train.epochs=2", "train.scan_steps=4", "train.prefetch=true"]),
         torch.device("cpu"))
     assert res["best_auc"] > 0.65
-    assert res["state"].step == 2 * (cut // 256)
+    # the reference's scan route: each epoch's last chunk is padded to 4
+    # steps of weight 0, which count as steps (the JAX CLI's run says 80)
+    assert res["state"].step == 2 * math.ceil((cut // 256) / 4) * 4
 
 
 @pytest.mark.parametrize("overrides,match", [

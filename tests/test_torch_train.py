@@ -267,9 +267,10 @@ def test_cli_raises_for_keys_not_ported(override, tmp_path, capsys):
 
 
 def test_cli_reads_tpu_mechanism_keys_without_effect(schema, tmp_path, capsys):
-    """model.use_pallas, train.scan_steps and train.split_threshold change
-    nothing in the port, nor does train.prefetch on the CPU (its batches
-    pass through): the same seed gives the same history."""
+    """model.use_pallas and train.split_threshold change nothing in the
+    port, nor does train.prefetch on the CPU (its batches pass through):
+    the same seed gives the same history. (train.scan_steps is the
+    reference's chunked route: tests/test_torch_scan.py.)"""
     schema_path = tmp_path / "schema.json"
     schema_path.write_text(schema.to_json())
     base = [f"data.schema_path={schema_path}", "data.synthetic_examples=400",
@@ -277,7 +278,7 @@ def test_cli_reads_tpu_mechanism_keys_without_effect(schema, tmp_path, capsys):
             f"train.batch_size={BATCH}"]
     cfg = t_cli.RunConfig().apply_overrides(base)
     a = t_cli.run(cfg, torch.device("cpu"))
-    cfg = cfg.apply_overrides(["model.use_pallas=true", "train.scan_steps=0",
+    cfg = cfg.apply_overrides(["model.use_pallas=true",
                                "train.split_threshold=0", "train.prefetch=false"])
     b = t_cli.run(cfg, torch.device("cpu"))
     capsys.readouterr()
