@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, retraining, sharded and
 multi-process training paths once on one GPU, and its default training
-route, the scan route of CUDA graphs.
+route, the scan route of CUDA graphs, unsharded and sharded.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``, and imports nothing of JAX.
@@ -115,17 +115,19 @@ Phases, each printing its own lines:
     unsharded eval's; (b) the same 3 steps with ``exchange_dtype=bf16``
     against the f32 wire, within the reference's band; (c)
     ``configs/fnn_full_ipinyou.json`` with ``train.sharded=true`` through
-    the CLI, one epoch of 40 steps: launches 40 / 40 of the forward with
-    dropout and of the backward, no dropped ids, its checkpoint equal to
+    the CLI, one epoch of 40 steps on the sharded scan route: launches
+    41 / 41 of the forward with dropout and of the backward (one a step,
+    one the capture's warm-up step), no dropped ids, its checkpoint equal to
     phase 9's unsharded run's leaf for leaf and through ``--score`` against
     the eval step; (d) ``configs/criteo_sharded_stretch.json`` at full width
     (``criteo_schema(1_000_000)``, a 26,000,833 x 17 f32 table and its
     accumulator, sorted mode, tower 663-512-256-128 with dropout 0.5,
     capacity 2.0), cut to one epoch of 40 steps of 8192: eval AUC above 0.5,
-    no dropped ids, launches 40 / 40, the CLI epoch's examples/s, the step
-    time (CUDA events), ``torch.profiler`` over warm steps (the NCCL
-    all-to-all named), the step's own pieces timed alone (bucketing, the
-    lookup and gradient exchanges, the sorted-mode scatter) and the peak
+    no dropped ids, launches 41 / 41, the CLI epoch's examples/s, the
+    per-step route's step time (CUDA events), ``torch.profiler`` over warm
+    steps (the NCCL all-to-all named), the step's own pieces timed alone
+    (bucketing, the lookup and gradient exchanges, the sorted-mode scatter)
+    and the peak
     device memory;
 16. ``train.distributed=true`` in a world of one NCCL rank: (a) phase 13's
     streamed FNN job with ``train.sharded=true train.distributed=true``
@@ -134,7 +136,8 @@ Phases, each printing its own lines:
     resumes from B's host shards to 2; B''s shard file must equal A's bit
     for bit, with a ``resumed_hostshards`` event at epoch 1; A's shard file,
     sentinel rows dropped, must equal phase 13's run A checkpoint leaf for
-    leaf; launches 80 / 80 and one eval forward an eval batch;
+    leaf; launches 80 / 80 and a warm-up step a capture (the sharded scan
+    route) and one eval forward an eval batch;
     ``rows_skipped`` 0; no portable checkpoint and no ``.fm_table``; the
     shard file's bytes, the row count's rows/s, the CLI epochs' examples/s,
     and the FNN state's save and load; (b) phase 15 (d)'s Criteo state
@@ -161,14 +164,40 @@ Phases, each printing its own lines:
     epochs of 40 steps: checkpoints equal leaf for leaf, each epoch's
     examples/s; (f) a replay and an eager step under
     ``torch.cuda.set_sync_debug_mode("error")``: no host sync.
+18. the sharded scan route in a world of one NCCL rank: K = 8 sharded
+    steps captured as one CUDA graph, both all-to-all exchanges and the
+    all-reduces of each step inside. First ``all_to_all_single`` alone in
+    a graph, replayed after its input is rewritten (the exchange runs in
+    the replay), with the device ops the profiler records. (a) From one
+    state, one replay against 8 eager sharded steps on a clone, bit for
+    bit (losses, dropped counts,
+    table shard, accumulator, tower, dense optimizer's state, step,
+    generator), for FNN at full iPinYou width (bf16 table, dense mode,
+    dropout 0.5), FM k=10 (the FM scorer kernel) and
+    ``configs/criteo_sharded_stretch.json`` at full width (26,000,833 x 17
+    f32 and its accumulator, sorted mode, 663-512-256-128 tanh, dropout
+    0.5, capacity 2.0); (a') for FNN and FM the sharded replay against
+    phase 17's unsharded graph from the same state, bit for bit; (b) a
+    chunk of 3 real and 5 weight-0 steps with Adam; (c) FNN's and the
+    Criteo config's sharded eager steps and graph replays in turns (wall
+    ms a step, the device's span a step, busy share, device ops a chunk and the
+    NCCL names the profiler gives, capture s, peak memory), and its CLI
+    run with ``train.scan_steps=8`` and ``=0`` in turns, 40 steps each:
+    checkpoints equal leaf for leaf, each run's examples/s and peak
+    device memory; (d) a replay under
+    ``torch.cuda.set_sync_debug_mode("error")`` for FNN and Criteo: no host
+    sync; (e) the tower launches of the CLI run: 8 a replay and each
+    capture's warm-up step.
 Phases 8-13 train through the CLI, so on the scan route: their launch
 counts add each replay's captured launches (the wrappers run but launch
 nothing during a capture), and each capture's warm-up step on a clone of
 the state; the runs of 10, 20 and 5 batches are padded to whole chunks
 (16, 24 and 8 steps). Under phase 13's ``train.debug_nans`` a chunk runs
-as 8 eager steps. Phases 15 and 16 stay per step
-(the sharded scan route is not ported); 15 (c) and 16 (a) still match
-phases 9 and 13, now trained on graphs, leaf for leaf.
+as 8 eager steps. The sharded CLI runs of phases 15 (c), (d) and 16 (a)
+take the sharded scan route too (the configs' ``train.scan_steps`` is 8):
+their launches count 8 a replay and a warm-up step a capture, and 15 (c)
+and 16 (a) still match phases 9 and 13 leaf for leaf; 15 (d)'s step time
+is the per-step route's, phase 18's the graph's.
 Then one JSON line on the kernels (each with its least time on the card
 from the shapes: ``bound_ms`` against f32 on the CUDA cores, 67 TFLOP/s,
 and 3.35 TB/s, as ``bound_by`` and ``bound_kind`` say, and
@@ -720,17 +749,20 @@ def _profile_loop(run, n, tag, per="step") -> dict:
     busy_us = sum(us for us, _, _ in device)
     print(f"profile, {tag}: device busy {busy_us:.1f} us of {wall_us:.1f} "
           f"us wall ({100 * busy_us / wall_us:.1f}%) for {n} x {per}")
-    # the top ops, and the port's own kernels wherever they rank
-    kernels = set()
+    # the top ops, and the port's own kernels and NCCL's wherever they rank
+    kernels, nccl = set(), set()
     for i, (us, count, key) in enumerate(device):
         own = re.search(r"::(fm_score|tower_\w+)_kernel|nccl", key)
         if own and "nccl" not in own.group(0):
             kernels.add(own.group(0)[2:])
+        elif own:
+            nccl.add(key)
         if i < 14 or own:
             name = key.replace("void ", "").replace("at::native::", "")
             print(f"  {us / n:9.2f} us/{per}  {count / n:5.1f}/{per}  {name[:120]}")
     return {"device_us": busy_us / n, "wall_us": wall_us / n,
-            "busy": busy_us / wall_us, "kernels": kernels}
+            "busy": busy_us / wall_us, "kernels": kernels, "nccl": nccl,
+            "ops_per_call": sum(count for _, count, _ in device) / n}
 
 
 def _profile_steps(step, state, batches, seeds, tag) -> None:
@@ -905,10 +937,21 @@ def _counts() -> dict:
 
 
 def _route_steps(cfg, batches: int) -> int:
-    """The steps a run of ``batches`` batches takes: on the scan route (not
-    sharded, ``train.scan_steps`` K > 1) the last chunk is padded to K."""
-    k = 0 if cfg.train.sharded else cfg.train.scan_steps
+    """The steps a run of ``batches`` batches takes: on the scan route
+    (``train.scan_steps`` K > 1, sharded or not) the last chunk is padded
+    to K."""
+    k = cfg.train.scan_steps
     return batches if k <= 1 else k * -(-batches // k)
+
+
+def _graph_launches(launches: dict, steps: int) -> int:
+    """The tower's training launches of a CLI run of ``steps`` steps on the
+    scan route: one a step (a replay adds its capture's), and one more a
+    capture for its warm-up step on a clone of the state. Raises unless the
+    run captured a graph."""
+    if launches["captures"] < 1:
+        raise AssertionError(f"no graph captured on the scan route: {launches}")
+    return steps + launches["captures"]
 
 
 def _cli_train(dev, root, tmp, config, overrides, steps, tag, table_dtype="bf16"):
@@ -1900,7 +1943,8 @@ def _phase15_sharded(dev, root, tmp, schema, schema_path, fnn, fm_table) -> dict
     _, overrides, result, launches, _ = _cli_train(
         dev, root, tmp, FNN_CONFIG, overrides, TRAIN_STEPS, "fnn-sharded")
     rec, state = result["history"][0], result["state"]
-    if (launches["fwd_dropout"], launches["bwd"]) != (TRAIN_STEPS, TRAIN_STEPS):
+    want = _graph_launches(launches, TRAIN_STEPS)
+    if (launches["fwd_dropout"], launches["bwd"]) != (want, want):
         raise AssertionError(f"fnn sharded: launches {launches} in {TRAIN_STEPS} steps")
     if rec["dropped_ids"] or rec["auc"] <= 0.5:
         raise AssertionError(f"fnn sharded: {rec}")
@@ -1929,7 +1973,8 @@ def _phase15_sharded(dev, root, tmp, schema, schema_path, fnn, fm_table) -> dict
           f"({shard.numel() * shard.element_size() / 1e9:.3f} GB, and as much again "
           f"for the Adagrad accumulator), vocabulary {state.vocab_padded} rows; peak "
           f"device memory {peak / 2**30:.2f} GiB")
-    if (c_launches["fwd_dropout"], c_launches["bwd"]) != (TRAIN_STEPS, TRAIN_STEPS):
+    want = _graph_launches(c_launches, TRAIN_STEPS)
+    if (c_launches["fwd_dropout"], c_launches["bwd"]) != (want, want):
         raise AssertionError(f"criteo sharded: launches {c_launches}")
     if rec["dropped_ids"] or rec["auc"] <= 0.5:
         raise AssertionError(f"criteo sharded: {rec}")
@@ -2083,13 +2128,15 @@ def _phase16_distributed(dev, root, tmp, retrain, criteo) -> dict:
     if resumed != [(steps, 1)]:
         raise AssertionError(f"distributed: resumed events {resumed}")
     evals = 2 * -(-RETRAIN_TEST_ROWS // BATCH)
+    want = _graph_launches(launches, 2 * steps)
     if (launches["fwd_dropout"], launches["bwd"], launches["fwd_eval"]) != (
-            2 * steps, 2 * steps, evals):
+            want, want, evals):
         raise AssertionError(f"distributed: run A launched {launches}; expected "
-                             f"{2 * steps} / {2 * steps} / {evals}")
+                             f"{want} / {want} / {evals}")
     print(f"distributed: run A launched the forward with dropout and the backward "
-          f"once a step ({2 * steps} / {2 * steps}), the eval forward once an eval "
-          f"batch ({evals})")
+          f"once a step and once a capture's warm-up step ({want} / {want}: "
+          f"{launches['captures']} capture(s), the sharded scan route), the eval "
+          f"forward once an eval batch ({evals})")
     portable = [p for c in (a_ckpt, b_ckpt) for p in (c, c + ".fm_table")
                 if os.path.exists(p)]
     if portable:
@@ -2281,13 +2328,16 @@ def _time_routes(tag, state, scan, step, chunks) -> dict:
         out[which + "_busy"] = prof["busy"]
         out[which + "_device_ms"] = prof["device_us"] / SCAN_K / 1e3
         out[which + "_named"] = sorted(prof["kernels"])
+        out[which + "_nccl"] = sorted(prof["nccl"])
+        out[which + "_ops"] = prof["ops_per_call"]
         del st
     res = {}
     for which in ("eager", "graph"):
         runs = out[which]
         res[which] = {key: float(np.mean([r[key] for r in runs]))
                       for key in ("wall_ms", "span_ms", "peak_gib")}
-        res[which].update(busy=out[which + "_busy"], device_ms=out[which + "_device_ms"])
+        res[which].update(busy=out[which + "_busy"], device_ms=out[which + "_device_ms"],
+                          nccl=out[which + "_nccl"], ops=out[which + "_ops"])
     res["graph"]["capture_s"] = float(np.mean([r["capture_s"] for r in out["graph"]]))
     print(f"scan {tag} timed ({SCAN_TIMED_CHUNKS} chunks of {SCAN_K} steps of {BATCH} "
           f"after one warm-up chunk, in turns): " + "; ".join(
@@ -2460,6 +2510,238 @@ def _phase17_scan(dev, root, tmp, schema, schema_path) -> dict:
         raise AssertionError("scan cli: the graph route's checkpoint differs")
     print(f"scan: phase 17 in {time.perf_counter() - t_phase:.1f} s")
     return {"timed": timed, "cli_rates": rates, "sorted_update": sorted_update}
+
+
+def _sharded_scan_case(dev, root, config, overrides, group):
+    """One config from a seed, for the sharded scan route in a world of one:
+    (cfg, schema, the unsharded state, the same state packed into this
+    rank's shard, the sharded scan step, the sharded eager step, the
+    unsharded scan step)."""
+    from deepctr_torch import cli
+    from deepctr_torch import parallel as par
+    from deepctr_torch.config import RunConfig
+    from deepctr_torch.train import init_state, make_scan_train_step
+
+    cfg = RunConfig.load(os.path.join(root, config)).apply_overrides(overrides)
+    schema = cli._load_schema_only(cfg)
+    sopt, dopt = cli.build_optimizers(cfg)
+    single = init_state(cli.build_model(cfg, schema, dev), schema, sopt, dopt,
+                        seed=SEED + 18, table_dtype=cfg.train.table_dtype)
+    sst = par.sharded_state_from_state(single.clone(), group)
+    kw = dict(l2=cfg.optim.l2, capacity_factor=cfg.train.capacity_factor,
+              exchange_dtype=cfg.train.exchange_dtype)
+    return (cfg, schema, single, sst,
+            par.make_sharded_scan_train_step(schema, sopt, dopt, group, **kw),
+            par.make_sharded_train_step(schema, sopt, dopt, group, **kw),
+            make_scan_train_step(schema, sopt, dopt, l2=cfg.optim.l2))
+
+
+def _sharded_graph_vs_eager(tag, sst, scan, step, chunk):
+    """From one sharded state: one replay of the sharded scan graph
+    (captured on this call) against the chunk's sharded steps run eagerly
+    on a clone, bit for bit: the losses, the dropped counts, the table
+    shard, both optimizers' states, the tower, ``step`` and the generator.
+    Returns (the graph's state, its metrics, the launches of the call)."""
+    import torch
+
+    g, e = sst.clone(), sst.clone()
+    _reset_counts()
+    t0 = time.perf_counter()
+    g, gm = scan(g, *chunk)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _counts()
+    graph = scan.graph[0]
+    em = [step(e, *(t[i] for t in chunk))[1] for i in range(chunk[0].shape[0])]
+    same = {"losses": torch.equal(gm.losses, torch.stack([m.loss for m in em])),
+            "dropped": torch.equal(gm.dropped, torch.stack([m.dropped for m in em])),
+            "state": _same_state(g, e)}
+    print(f"sharded scan {tag}: one replay of a {chunk[0].shape[0]}-step sharded graph "
+          f"(NCCL exchanges and all-reduces inside) vs as many eager sharded steps "
+          f"from one state, bit for bit (losses, dropped {gm.dropped.tolist()}, table "
+          f"shard, optimizer states, tower, step {g.step}, generator): {same}; capture "
+          f"{graph.capture_s:.2f} s, first call {first_s:.2f} s; launches of that call "
+          f"{launches}, per replay "
+          f"{dict(zip(('fwd', 'fwd_dropout', 'bwd', 'fm_score'), graph.launches))}")
+    if not all(same.values()):
+        raise AssertionError(f"sharded scan {tag}: the graph replay differs from eager "
+                             f"sharded steps")
+    return g, gm, launches
+
+
+def _no_host_sync(tag, sst, scan, chunks) -> None:
+    """A replay of a captured sharded graph under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync."""
+    import torch
+
+    st = sst.clone()
+    scan(st, *chunks[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scan(st, *chunks[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"sharded scan {tag}: a replay under torch.cuda.set_sync_debug_mode('error'): "
+          f"no host sync")
+
+
+def _nccl_capture_probe(dev) -> None:
+    """``all_to_all_single`` captured alone in a CUDA graph in a world of one
+    (after one eager call, which sets up the communicator): replayed after
+    its input is rewritten, its output must be the new input, so the
+    exchange runs inside the replay and not at capture. Prints the device
+    ops the profiler records in one replay."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1 << 16, dtype=torch.long, device=dev)
+    out = torch.empty_like(x)
+    stream = torch.cuda.Stream(device=dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        dist.all_to_all_single(out, x)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        dist.all_to_all_single(out, x)
+    x.copy_(torch.arange(x.numel(), device=dev))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    ops = [(key, count) for _, count, key in _device_ops(prof)]
+    same = torch.equal(out, x)
+    print(f"sharded scan: all_to_all_single captured alone in a CUDA graph (world of "
+          f"one NCCL rank): the replay's output is the input written after the "
+          f"capture: {same}; device ops of one replay (profiler): {ops}")
+    if not same:
+        raise AssertionError("all_to_all_single was not captured in the CUDA graph")
+
+
+def _phase18_sharded_scan(dev, root, tmp, schema_path) -> dict:
+    """The sharded scan route in a world of one NCCL rank: K = 8 sharded
+    steps as one CUDA graph with their NCCL collectives captured inside.
+    (a) a replay against 8 eager sharded steps, bit for bit, for FNN, FM
+    and the Criteo stretch config at full width, (a') for FNN and FM
+    against the unsharded graph of phase 17 from the same state; (b) a
+    chunk of 3 real and 5 pad steps with Adam; (c) the Criteo CLI with
+    ``train.scan_steps=8`` and ``=0`` in turns, checkpoints equal, and both
+    routes timed; (d) no host sync in a replay; (e) the tower launches."""
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch import parallel as par
+    from deepctr_torch.data import synthetic
+
+    t_phase = time.perf_counter()
+    print("sharded scan: a world of one NCCL rank on cuda:0 (one card; NCCL refuses "
+          "two ranks on one GPU, so the multi-rank checks run on the CPU with gloo)")
+    out = {}
+    with par.process_group(dev) as group:
+        _nccl_capture_probe(dev)
+        cases = {
+            "fnn": (FNN_CONFIG, ["model.init_from=none", "train.table_dtype=bf16",
+                                 f"data.schema_path={schema_path}"]),
+            "fnn-adam": (FNN_CONFIG, ["model.init_from=none", "train.table_dtype=bf16",
+                                      "optim.dense=adam", f"data.schema_path={schema_path}"]),
+            "fm": (FM_CONFIG, ["train.table_dtype=bf16", f"data.schema_path={schema_path}"]),
+            "criteo": (CRITEO_CONFIG, ["train.table_dtype=f32"]),
+        }
+        for tag, (config, overrides) in cases.items():
+            cfg, schema, single, sst, scan, step, uscan = _sharded_scan_case(
+                dev, root, config, overrides, group)
+            ds = synthetic.generate(schema, num_examples=2 * SCAN_K * BATCH, k=K,
+                                    seed=SEED + 18)
+            ids = torch.from_numpy(ds.ids).to(dev).long().view(2, SCAN_K, BATCH, -1)
+            labels = torch.from_numpy(ds.labels).to(dev).view(2, SCAN_K, BATCH)
+            weights = torch.ones(2, SCAN_K, BATCH, device=dev)
+            chunks = [(ids[c], labels[c], weights[c]) for c in range(2)]
+            del ds
+            if tag == "fnn-adam":
+                # (b) 3 real steps, then 5 pad steps: pad ids, label 0, weight 0
+                pad = tuple(t.clone() for t in chunks[1])
+                pad[0][3:] = schema.pad_id
+                pad[1][3:] = 0.0
+                pad[2][3:] = 0.0
+                _sharded_graph_vs_eager(f"{tag}, a chunk of 3 steps padded with 5", sst,
+                                        scan, step, pad)
+                continue
+            g, gm, launches = _sharded_graph_vs_eager(tag, sst, scan, step, chunks[0])
+            if tag == "fm":
+                out["fm_launches"] = launches
+            if tag in ("fnn", "fm"):
+                # (a') the unsharded graph of phase 17 from the same state
+                u, u_losses = uscan(single.clone(), *chunks[0])
+                host = par.host_state_from_sharded(g, group)
+                same = torch.equal(gm.losses, u_losses) and _same_state(host, u)
+                print(f"sharded scan {tag}: the world-1 sharded replay vs the unsharded "
+                      f"graph's replay from the same state, losses and state bit for "
+                      f"bit: {same}")
+                if not same:
+                    raise AssertionError(f"sharded scan {tag}: the world-1 sharded graph "
+                                         f"is not the unsharded graph")
+                del u, host
+            del g
+            if tag in ("fnn", "criteo"):
+                _no_host_sync(tag, sst, scan, chunks)     # (d)
+                single = None     # only the sharded state while timed
+                shard = sst.model.table
+                print(f"sharded scan {tag}: table shard {tuple(shard.shape)} "
+                      f"{shard.dtype}, capacity {cfg.train.capacity_factor}")
+                timed = _time_routes(f"{tag} sharded", sst, scan, step, chunks)
+                print(f"sharded scan {tag}: device ops a chunk of 8 steps (profiler): "
+                      f"graph {timed['graph']['ops']:.0f} (the replay's captured "
+                      f"kernels and copies, and the chunk's input and seed copies), "
+                      f"eager {timed['eager']['ops']:.0f}; names with nccl: graph "
+                      f"{timed['graph']['nccl']}, eager {timed['eager']['nccl']}")
+                out.setdefault("timed", {})[tag] = timed
+            del single, sst, scan, step, uscan, chunks, ids, labels, weights
+    torch.cuda.empty_cache()
+
+    # (c) the Criteo config through the CLI, on the graph route and per step
+    rates, ckpts, launches, peaks = {8: [], 0: []}, {}, {}, {8: [], 0: []}
+    for k in (8, 0, 0, 8):
+        ckpt = os.path.join(tmp, f"sharded_scan_{k}_{len(rates[k])}.ckpt")
+        torch.cuda.reset_peak_memory_stats()
+        _, _, result, c_launches, _ = _cli_train(
+            dev, root, tmp, CRITEO_CONFIG,
+            [f"train.scan_steps={k}", f"train.checkpoint_path={ckpt}"], TRAIN_STEPS,
+            f"criteo sharded, train.scan_steps={k}", table_dtype="f32")
+        rec = result["history"][0]
+        # (e) the tower's launches: 8 a replay and a capture's warm-up step
+        want = _graph_launches(c_launches, TRAIN_STEPS) if k else TRAIN_STEPS
+        if (c_launches["fwd_dropout"], c_launches["bwd"]) != (want, want) or (
+                rec["dropped_ids"] or rec["auc"] <= 0.5):
+            raise AssertionError(f"criteo sharded scan_steps={k}: launches {c_launches}, "
+                                 f"{rec}")
+        rates[k].append(round(rec["examples_per_s"]))
+        peaks[k].append(round(torch.cuda.max_memory_allocated() / 2**30, 2))
+        launches.setdefault(k, c_launches)
+        if k in ckpts:
+            os.remove(ckpt)
+        else:
+            ckpts[k] = ckpt
+        del result
+    (_, la), (_, lb) = _ckpt_leaves(ckpts[8]), _ckpt_leaves(ckpts[0])
+    same = (len(la) == len(lb)
+            and all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(la, lb)))
+    del la, lb
+    for path in ckpts.values():
+        os.remove(path)
+    print(f"sharded scan cli: {CRITEO_CONFIG}, {TRAIN_STEPS} steps of {BATCH}: "
+          f"checkpoints of train.scan_steps=8 (graph) and =0 (per step) bit-identical: "
+          f"{same}; CLI epoch examples/s (host clock) scan_steps=8 {rates[8]}, "
+          f"scan_steps=0 {rates[0]}; peak device memory GiB scan_steps=8 {peaks[8]}, "
+          f"=0 {peaks[0]}; tower launches scan_steps=8 {launches[8]} (40 steps and a "
+          f"warm-up step), =0 {launches[0]}")
+    if not same:
+        raise AssertionError("sharded scan cli: the graph route's checkpoint differs")
+    print(f"sharded scan: phase 18 in {time.perf_counter() - t_phase:.1f} s")
+    return {**out, "cli_rates": rates, "cli_peaks": peaks,
+            "criteo_launches": launches[8]}
 
 
 def _template_args(mangled) -> str:
@@ -2729,6 +3011,7 @@ def main() -> int:
         distributed = _phase16_distributed(dev, root, tmp, retrain,
                                            sharded.pop("criteo"))
         _phase17_scan(dev, root, tmp, schema, schema_path)
+        sharded_scan = _phase18_sharded_scan(dev, root, tmp, schema_path)
 
     work = _tower_work(BATCH, fnn_dims)
     criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))
@@ -2746,6 +3029,7 @@ def main() -> int:
         **_bound(*work["fwd"]),
         "library_ms": None,
         "launches_distributed": distributed["launches"]["fwd_eval"],
+        "launches_sharded_scan": sharded_scan["criteo_launches"]["fwd_eval"],
         "ms_criteo": tower_times["criteo tanh"][0],
         "plain_ms_criteo": tower_times["criteo tanh"][1],
         "bound_ms_criteo": _bound(*criteo["fwd"])["bound_ms"],
@@ -2763,6 +3047,7 @@ def main() -> int:
         "launches_sharded": sharded["launches"]["fwd_dropout"],
         "launches_criteo": sharded["criteo_launches"]["fwd_dropout"],
         "launches_distributed": distributed["launches"]["fwd_dropout"],
+        "launches_sharded_scan": sharded_scan["criteo_launches"]["fwd_dropout"],
         "ms_criteo": train_k["criteo_fwd_drop_ms"],
         "plain_ms_criteo": train_k["criteo_fwd_drop_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["fwd"])["bound_ms"],
@@ -2780,6 +3065,7 @@ def main() -> int:
         "launches_sharded": sharded["launches"]["bwd"],
         "launches_criteo": sharded["criteo_launches"]["bwd"],
         "launches_distributed": distributed["launches"]["bwd"],
+        "launches_sharded_scan": sharded_scan["criteo_launches"]["bwd"],
         "ms_criteo": train_k["criteo_bwd_ms"],
         "plain_ms_criteo": train_k["criteo_bwd_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["bwd"])["bound_ms"],
@@ -2794,6 +3080,7 @@ def main() -> int:
         "plain_ms": fm_kernel["plain_ms"],
         **fm_bound,
         "library_ms": None,
+        "launches_sharded_scan": sharded_scan["fm_launches"]["fm_score"],
         "launch_floor_ms": fm_kernel["floor_ms"],
         "ms_8192": fm_kernel["ms_train"],
         "ms_8192_past_l2": fm_kernel["ms_train_cold"],

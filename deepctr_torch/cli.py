@@ -49,10 +49,9 @@ single process; a ``distributed_ignored`` event says so.
 ``train.scan_steps`` (default 8) is the reference's chunked route: with
 K > 1 an epoch trains in chunks of K steps, a short last chunk padded with
 weight-0 steps that count as steps, as the reference's do. On the card a
-chunk is one replay of a CUDA graph of the K steps; on the CPU it is K
-eager steps; 0 or 1 is the per-step route. A sharded run keeps the
-per-step route (the sharded scan route is not ported) and logs a
-``scan_steps_per_step`` event.
+chunk is one replay of a CUDA graph of the K steps, in a sharded run with
+its NCCL exchanges and all-reduces inside; on the CPU it is K eager steps;
+0 or 1 is the per-step route.
 
 ``train.prefetch`` (default true) stages the training batches, or chunks, on
 a background thread, onto the card through pinned buffers and a side stream
@@ -69,6 +68,7 @@ here: ``model.use_pallas`` (the device picks the kernels) and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import os
 import sys
@@ -321,11 +321,6 @@ def _run(cfg, device: torch.device, group=None) -> dict:
 
     ckpt_meta = {"sparse_opt": cfg.optim.sparse, "model": cfg.model.name}
     sharded = {}
-    scan_steps = cfg.train.scan_steps
-    if group is not None and scan_steps > 1:
-        logger.log({"event": "scan_steps_per_step",
-                    "reason": "sharded scan route not ported"})
-        scan_steps = 0
     if group is not None:
         sharded = _sharded_parts(cfg, schema, group, state, sparse_opt, dense_opt,
                                  te_ids, te_labels,
@@ -357,7 +352,7 @@ def _run(cfg, device: torch.device, group=None) -> dict:
         if ckpt_path and (epoch + 1) % max(cfg.train.checkpoint_every, 1) == 0:
             save(st, epoch + 1)
 
-    with trace(cfg.train.profile_dir):
+    with trace(cfg.train.profile_dir), _release_graphs(sharded.get("scan_step")):
         res = fit(
             model, schema, tr_ids, tr_labels, te_ids, te_labels,
             sparse_opt=sparse_opt,
@@ -375,7 +370,7 @@ def _run(cfg, device: torch.device, group=None) -> dict:
             start_epoch=start_epoch,
             train_source=train_source,
             debug_nans=cfg.train.debug_nans,
-            scan_steps=scan_steps,
+            scan_steps=cfg.train.scan_steps,
             **sharded,
         )
         if ckpt_path:
@@ -391,22 +386,26 @@ def _run(cfg, device: torch.device, group=None) -> dict:
 def _sharded_parts(cfg, schema, group, state, sparse_opt, dense_opt, te_ids,
                    te_labels, rank_local: bool = False) -> dict:
     """What ``fit`` runs in place of its single-device parts in a sharded
-    run, the reference's ``_run_sharded`` on its per-step route: the
-    prepared state (checked equal on every rank) packed into this rank's
-    shard, the sharded step, eval on the ranks' slices of every eval batch
-    with the AUC histograms and the logloss sums all-reduced (every rank
-    finalises them, so early stopping decides alike everywhere), and this
-    rank's slice of every training batch of B rows. A rank-local stream's
-    batches (``rank_local``) are this rank's B/N rows already and pass as
-    they are; each batch's size is checked, since B/N rows that divide by
-    N again would be cut a second time without error."""
+    run, the reference's ``_run_sharded``: the prepared state (checked
+    equal on every rank) packed into this rank's shard, the sharded step
+    and, with ``train.scan_steps`` K > 1, the sharded scan step (a chunk of
+    K steps; K eager steps under ``train.debug_nans``), eval on the ranks'
+    slices of every eval batch with the AUC histograms and the logloss sums
+    all-reduced (every rank finalises them, so early stopping decides alike
+    everywhere), and this rank's slice of every training batch, or of each
+    step of every chunk, of B rows. A rank-local stream's batches and
+    chunks (``rank_local``) are this rank's B/N rows already and pass as
+    they are; each one's size is checked, since B/N rows that divide by N
+    again would be cut a second time without error."""
     import torch.distributed as dist
 
     from .data import minibatches
     from .parallel import (
         check_ranks_agree,
         local_batch,
+        local_chunk,
         make_sharded_eval_step,
+        make_sharded_scan_train_step,
         make_sharded_train_step,
         sharded_state_from_state,
     )
@@ -441,27 +440,50 @@ def _sharded_parts(cfg, schema, group, state, sparse_opt, dense_opt, te_ids,
         return {"auc": M.auc_state_finalize(auc),
                 "logloss": float(sums[0]) / max(float(sums[1]), 1.0)}
 
-    return {
+    kw = dict(l2=cfg.optim.l2, capacity_factor=cfg.train.capacity_factor,
+              exchange_dtype=cfg.train.exchange_dtype,
+              check_finite=cfg.train.debug_nans)
+    chunked = cfg.train.scan_steps > 1
+    if rank_local:
+        transform = functools.partial(_local_rows, chunked=chunked)
+    else:
+        transform = local_chunk if chunked else local_batch
+    parts = {
         "state": state,
-        "step": make_sharded_train_step(
-            schema, sparse_opt, dense_opt, group, l2=cfg.optim.l2,
-            capacity_factor=cfg.train.capacity_factor,
-            exchange_dtype=cfg.train.exchange_dtype,
-            check_finite=cfg.train.debug_nans),
+        "step": make_sharded_train_step(schema, sparse_opt, dense_opt, group, **kw),
         "evaluate_state": sharded_eval,
-        "batch_transform": functools.partial(
-            _local_rows if rank_local else local_batch, group=group,
-            global_rows=batch_size),
+        "batch_transform": functools.partial(transform, group=group,
+                                             global_rows=batch_size),
     }
+    if chunked:
+        parts["scan_step"] = make_sharded_scan_train_step(
+            schema, sparse_opt, dense_opt, group, **kw)
+    return parts
 
 
-def _local_rows(b, group, global_rows: int):
-    """A rank-local batch, checked to hold this rank's B/N rows."""
-    if b.ids.shape[0] != global_rows // group.world:
-        raise ValueError(f"a rank-local batch of {b.ids.shape[0]} rows; rank "
+@contextlib.contextmanager
+def _release_graphs(scan_step):
+    """Release the sharded scan step's CUDA graphs when the block ends, by
+    an error too. A graph that captured NCCL collectives holds the
+    communicator's resources, and destroying the process group waits for
+    them forever while it lives; an error's traceback would keep it alive
+    through ``fit``'s frame."""
+    try:
+        yield
+    finally:
+        if scan_step is not None:
+            scan_step.graph.clear()
+
+
+def _local_rows(item, group, global_rows: int, chunked: bool = False):
+    """A rank-local batch, or chunk (``chunked``), checked to hold this
+    rank's B/N rows a step."""
+    rows = item[1][0].shape[1] if chunked else item.ids.shape[0]
+    if rows != global_rows // group.world:
+        raise ValueError(f"a rank-local batch of {rows} rows; rank "
                          f"{group.rank} of {group.world} takes "
                          f"{global_rows // group.world} of every {global_rows}")
-    return b
+    return item
 
 
 def resolve_device(name: str) -> torch.device:

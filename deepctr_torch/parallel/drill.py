@@ -2,7 +2,7 @@
 
 The port's analogue of ``tools/multihost_sim.py`` phases 3-5, under
 ``torchrun`` with one process per device (``--device cuda``, the default:
-one rank per GPU, at least two; ``--device cpu``: two gloo ranks). Three
+one rank per GPU, at least two; ``--device cpu``: two gloo ranks). Four
 legs, each a set of ``torchrun`` launches in a work directory:
 
 - ``kill``: two ranks train a tiny FM (row-sharded, Adagrad); host shards
@@ -22,8 +22,18 @@ legs, each a set of ``torchrun`` launches in a work directory:
   histories and shard files must be identical, and every epoch's
   ``epoch_steps`` event must give the step count and ``rows_skipped`` the
   shards' row counts give.
+- ``scan``: the sharded scan route. From one state (FNN with dropout 0.5,
+  Adam, ``capacity_factor=1.0``), two chunks of 8 steps, the second with 3
+  weight-0 pad steps, through ``make_sharded_scan_train_step`` and the
+  same 16 steps eagerly on a clone, on every rank: losses, dropped counts,
+  the state and the generator bit for bit, the drops (pads included) the
+  same on every rank. On the card the chunks are a captured graph's
+  replays, with NCCL's collectives across the ranks inside; on the CPU
+  both sides are eager steps.
+The CLI legs take the configs' default ``train.scan_steps=8``, the
+sharded scan route, too.
 
-Any failure raises. ``--legs`` picks legs (default: all three).
+Any failure raises. ``--legs`` picks legs (default: all four).
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-LEGS = ("kill", "resume", "stream")
+LEGS = ("kill", "resume", "stream", "scan")
 KILL_LIMIT_S = 60         # the launcher must give up on the dead rank by then
 RUN_LIMIT_S = 300         # any other launch
 SEED = 0
@@ -122,6 +132,56 @@ def _fm_worker(mode: str, workdir: str, device: str) -> None:
             json.dump(out, f)
 
 
+def _scan_worker(workdir: str, device: str) -> None:
+    """One rank of the scan leg; results go to ``<workdir>/scan_rank<r>.json``."""
+    from ..data import synthetic
+    from ..models import MlpSpec, make_fnn
+    from ..optim import SparseAdagrad, make_dense_optimizer
+    from . import (
+        init_sharded_state,
+        local_chunk,
+        make_sharded_scan_train_step,
+        make_sharded_train_step,
+        process_group,
+    )
+    from .sharded import state_tensors
+
+    schema, k = _schema(), 8
+    ds = synthetic.generate(schema, num_examples=2 * k * BATCH, k=3, seed=SEED + 9)
+    ids = ds.ids.reshape(2, k, BATCH, -1)
+    labels = ds.labels.reshape(2, k, BATCH)
+    weights = np.ones((2, k, BATCH), np.float32)
+    ids[1, 5:], labels[1, 5:], weights[1, 5:] = schema.pad_id, 0.0, 0.0
+    with process_group(device) as group:
+        sopt, dopt = SparseAdagrad(0.1), make_dense_optimizer("adam", 0.01)
+        model = make_fnn(schema, k=3, mlp=MlpSpec(hidden=(16, 8), dropout=0.5),
+                         device=group.device)
+        state = init_sharded_state(model, schema, sopt, dopt, group, seed=SEED)
+        scan = make_sharded_scan_train_step(schema, sopt, dopt, group,
+                                            capacity_factor=1.0)
+        step = make_sharded_train_step(schema, sopt, dopt, group, capacity_factor=1.0)
+        g, e = state.clone(), state.clone()
+        g_losses, g_drops, e_losses, e_drops = [], [], [], []
+        for c in range(2):
+            _, chunk = local_chunk((k, (ids[c], labels[c], weights[c])), group, BATCH)
+            g, m = scan(g, *chunk)
+            g_losses += m.losses.tolist()
+            g_drops += m.dropped.tolist()
+            for i in range(k):
+                _, m = step(e, *(t[i] for t in chunk))
+                e_losses.append(float(m.loss))
+                e_drops.append(int(m.dropped))
+        same = (g_losses == e_losses and g_drops == e_drops and g.step == e.step
+                and all(torch.equal(a, b) for a, b in zip(state_tensors(g),
+                                                           state_tensors(e)))
+                and torch.equal(g.generator.get_state(), e.generator.get_state()))
+        out = {"same": same, "graph": bool(scan.graph), "losses": g_losses,
+               "dropped": g_drops, "step": g.step}
+        scan.graph.clear()   # before the group ends (make_sharded_scan_train_step)
+        with open(os.path.join(workdir, f"scan_rank{group.rank}.json"), "w") as f:
+            json.dump(out, f)
+
+
 # ---------------------------------------------------------------------------
 # The launcher
 # ---------------------------------------------------------------------------
@@ -131,7 +191,7 @@ def _torchrun(args: list[str], nproc: int, timeout: float, check: bool = True):
     """``torchrun --standalone --nproc_per_node=nproc ARGS`` from the
     repository's root; returns ``(exit code, stdout, stderr, seconds)``. Past
     ``timeout`` the launcher is sent SIGTERM, on which it stops its ranks,
-    and ``subprocess.TimeoutExpired`` raises."""
+    and ``RuntimeError`` raises with the end of their output."""
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
                    p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
@@ -142,14 +202,15 @@ def _torchrun(args: list[str], nproc: int, timeout: float, check: bool = True):
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         out, err = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
+    except subprocess.TimeoutExpired as e:
         proc.terminate()
         try:
-            proc.communicate(timeout=60)
+            out, err = proc.communicate(timeout=60)
         except subprocess.TimeoutExpired:
             proc.kill()
-            proc.wait()
-        raise
+            out, err = proc.communicate()
+        raise RuntimeError(f"torchrun {' '.join(args)} did not end within {timeout} "
+                           f"s:\n{out[-2000:]}\n{err[-4000:]}") from e
     seconds = time.perf_counter() - t0
     if check and proc.returncode != 0:
         raise RuntimeError(f"torchrun {' '.join(args)} exited {proc.returncode}:\n"
@@ -293,6 +354,21 @@ def leg_stream(workdir: str, device: str, nproc: int) -> None:
         raise RuntimeError("prefetch on and off give other histories or shards")
 
 
+def leg_scan(workdir: str, device: str, nproc: int) -> None:
+    _torchrun(_worker_args("scan", workdir, device), nproc, RUN_LIMIT_S)
+    ranks = _read(workdir, "scan", nproc)
+    print(f"drill scan: two chunks of 8 sharded steps (3 pad steps) on {nproc} "
+          f"ranks, {'a captured graph' if ranks[0]['graph'] else 'eager'} vs eager "
+          f"steps, bit for bit on each rank: {[r['same'] for r in ranks]}; dropped "
+          f"by step {ranks[0]['dropped']}; step {ranks[0]['step']}")
+    if not all(r["same"] for r in ranks):
+        raise RuntimeError("the sharded scan route differs from eager sharded steps")
+    if any((r["losses"], r["dropped"]) != (ranks[0]["losses"], ranks[0]["dropped"])
+           for r in ranks) or not ranks[0]["dropped"][-1]:
+        raise RuntimeError("the ranks disagree on the global losses or drops, or "
+                           "the pad step dropped nothing")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m deepctr_torch.parallel.drill",
                                  description=__doc__.splitlines()[0])
@@ -302,9 +378,12 @@ def main(argv=None) -> int:
                     help=f"comma list of legs to run, of {','.join(LEGS)}")
     ap.add_argument("--workdir", help="where the legs write (default: a "
                     "temporary directory, removed after)")
-    ap.add_argument("--worker", choices=("full", "crash", "restore"),
-                    help=argparse.SUPPRESS)   # the kill leg's rank program
+    ap.add_argument("--worker", choices=("full", "crash", "restore", "scan"),
+                    help=argparse.SUPPRESS)   # the kill and scan legs' rank programs
     args = ap.parse_args(argv)
+    if args.worker == "scan":
+        _scan_worker(args.workdir, args.device)
+        return 0
     if args.worker:
         _fm_worker(args.worker, args.workdir, args.device)
         return 0
@@ -324,7 +403,8 @@ def main(argv=None) -> int:
         for leg in legs:
             legdir = os.path.join(workdir, leg)
             os.makedirs(legdir, exist_ok=True)
-            {"kill": leg_kill, "resume": leg_resume, "stream": leg_stream}[leg](
+            {"kill": leg_kill, "resume": leg_resume, "stream": leg_stream,
+             "scan": leg_scan}[leg](
                 legdir, args.device, nproc)
     print(f"drill: {', '.join(legs)} passed on {nproc} {args.device} ranks")
     return 0

@@ -13,7 +13,8 @@ all-reduced; the table is row-sharded over the ranks
 a launcher as a world of one through a ``file://`` store in a temporary
 directory. A failure to start it raises; a CUDA run never falls back to
 gloo. :func:`local_batch` cuts rank r's rows ``[r·B/N, (r+1)·B/N)`` out of
-a global batch, the role of the reference's ``shard_batch_arrays``.
+a global batch, the role of the reference's ``shard_batch_arrays``, and
+:func:`local_chunk` out of each step of a scan route's chunk.
 
 :class:`RankLocalStream` takes the role of the reference's
 ``assemble_process_local`` for a stream: rank r parses only its shard
@@ -26,11 +27,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import os
 import shutil
 import tempfile
 from typing import Callable, Iterator
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -137,6 +140,17 @@ def local_batch(b: Batch, group: Group, global_rows: int | None = None) -> Batch
     return Batch(ids=b.ids[rows], labels=b.labels[rows], weights=b.weights[rows])
 
 
+def local_chunk(chunk, group: Group, global_rows: int | None = None):
+    """:func:`local_batch` of a scan route's chunk ``(nb, (ids [K, B, S],
+    labels [K, B], weights [K, B]))``: this rank's rows along axis 1."""
+    nb, (ids, labels, weights) = chunk
+    if global_rows is not None and ids.shape[1] != global_rows:
+        raise ValueError(f"a chunk of {ids.shape[1]} rows a step where the global "
+                         f"batch has {global_rows}: is it a rank's share already?")
+    rows = rank_rows(ids.shape[1], group)
+    return nb, (ids[:, rows], labels[:, rows], weights[:, rows])
+
+
 def count_shard_rows(source: StreamSource, group: Group) -> dict[str, int]:
     """Every shard file's rows (``StreamSource.count_rows``), the same dict
     on every rank: rank r counts files ``paths[r::N]``, and one
@@ -160,8 +174,9 @@ class RankLocalStream:
     every rank's rows, with no further communication: the epoch runs
     ``min_r floor(rows_r / (B/N))`` steps (``StreamSource`` emits
     ``floor(rows/(B/N))`` full batches), and :meth:`batches` stops there and
-    closes the stream (its parser threads end). ``log`` receives one event
-    an epoch with ``rows_skipped``: the rows of full batches that longer
+    closes the stream (its parser threads end); :meth:`scan_chunks` cuts
+    the same batches into the scan route's chunks. ``log`` receives one
+    event an epoch with ``rows_skipped``: the rows of full batches that longer
     ranks leave (each rank's last partial batch is dropped as in one
     process)."""
 
@@ -180,6 +195,31 @@ class RankLocalStream:
         full = [sum(self.rows[p] for p in order[r::n]) // b for r in range(n)]
         steps = min(full)
         return steps, (sum(full) - n * steps) * b
+
+    def scan_chunks(self, epoch: int, scan_steps: int):
+        """The scan route's feed: :meth:`batches` (the agreed steps, the
+        ``epoch_steps`` event, the stream closed at the end) cut into chunks
+        ``(nb, (ids [K, B/N, S], labels [K, B/N], weights [K, B/N]))`` of
+        K = ``scan_steps`` steps, the last padded to K with weight-0 steps of
+        pad ids and label 0. With equal shards this is the rank's
+        ``StreamSource.scan_chunks``, chunk for chunk."""
+        schema, b = self.source.schema, self.source.batch_size
+        it = self.batches(epoch)
+        try:
+            while part := list(itertools.islice(it, scan_steps)):
+                nb, pad = len(part), scan_steps - len(part)
+                ids = np.stack([x.ids for x in part])
+                labels = np.stack([x.labels for x in part])
+                weights = np.stack([x.weights for x in part])
+                if pad:
+                    ids = np.concatenate([ids, np.full((pad, b, schema.num_slots),
+                                                       schema.pad_id, ids.dtype)])
+                    labels = np.concatenate([labels, np.zeros((pad, b), labels.dtype)])
+                    weights = np.concatenate([weights,
+                                              np.zeros((pad, b), weights.dtype)])
+                yield nb, (ids, labels, weights)
+        finally:
+            it.close()
 
     def batches(self, epoch: int) -> Iterator[Batch]:
         steps, skipped = self.epoch_steps(epoch)

@@ -37,8 +37,10 @@ What differs from the reference, and why:
   zero gradient). Nothing is accumulated, nothing is written to an overflow
   column, and no shape depends on the data, so no host sync is needed.
 - The reference's split plan (small fields all-gathered as replicated
-  subtables) and its ``lax.scan`` route are TPU mechanisms and are not
-  ported.
+  subtables) is a TPU mechanism and is not ported. Its ``lax.scan`` route
+  (:func:`make_sharded_scan_train_step`) is K eager steps on the CPU and,
+  on the card, one CUDA graph replay of K steps with the NCCL collectives
+  captured inside.
 - The dropout seed: every rank draws the same seed from the state's
   generator, then mixes in its rank (:func:`rank_seed`), so ranks' masks
   differ, rank 0 keeps the drawn seed, and the generator advances alike on
@@ -57,7 +59,15 @@ import torch.distributed as dist
 from ..data import Schema
 from ..models.base import lazy_l2, weighted_bce_with_logits
 from ..ops.kernels.mlp import SEED_LIMIT
-from ..train.step import TrainState, _clone_tree, _to_device, dense_params, init_state
+from ..train.step import (
+    TrainState,
+    _clone_tree,
+    _per_step,
+    _to_device,
+    chunk_route,
+    dense_params,
+    init_state,
+)
 from .comm import exchange_capacity
 from .group import Group
 
@@ -301,37 +311,31 @@ class ShardedStepMetrics(NamedTuple):
     dropped: torch.Tensor   # occurrences dropped over every rank
 
 
-def make_sharded_train_step(schema: Schema, sparse_opt, dense_opt, group: Group,
-                            l2: float = 0.0, capacity_factor: float = 2.0,
-                            exchange_dtype: str = "f32",
-                            check_finite: bool = False):
-    """Build ``step(state, ids, labels, weights, lr_scale=1.0, seed=None)
-    -> (state, ShardedStepMetrics(loss, dropped))`` on a rank's local
-    batch ``[b, S]``.
+class ShardedScanMetrics(NamedTuple):
+    losses: torch.Tensor    # [K] the global loss of each step
+    dropped: torch.Tensor   # [K] int64, occurrences dropped over every rank
 
-    The reference's arithmetic: the BCE divides by the global weight sum
-    and the lazy L2 by the global batch ``b·N``; the dense gradients are
-    summed over the ranks (not averaged) and every rank applies the same
-    dense update; the sparse optimizer runs on the local shard. ``loss`` is
-    the global loss and ``dropped`` the global count of dropped
-    occurrences, both device scalars. ``seed`` replaces the drawn dropout
-    seed (before the rank is mixed in); ``check_finite`` raises
-    ``FloatingPointError`` on every rank at the first step whose global
-    loss is not finite, before anything is updated."""
+
+def _sharded_step_body(schema: Schema, sparse_opt, dense_opt, group: Group,
+                       l2: float, capacity_factor: float, exchange_dtype: str,
+                       check_finite: bool):
+    """``body(state, ids, labels, weights, lr_scale, seed) -> (loss_total,
+    dropped)``: one sharded train step on a rank's local batch already on
+    the device (ids int64), updating this rank's shard, the replicated
+    dense parameters and both optimizers' states in place; the sharded
+    counterpart of ``train/step.py::_step_body``. ``seed`` is an int or a
+    0-d int32 device tensor, the rank already mixed in (:func:`rank_seed`);
+    drawing it and ``state.step`` are the caller's. The per-step route and
+    the graph of K steps run this same body. Every collective is issued in
+    one order on every rank, and nothing here waits on the device but
+    ``check_finite``'s read of the loss."""
     n = group.world
     pad_id = schema.pad_id
     sentinel = shard_rows(schema.padded_vocab_size, n)
     wire = _wire(exchange_dtype)
 
-    def step(state: ShardedTrainState, ids, labels, weights, lr_scale: float = 1.0,
-             seed: int | None = None):
+    def body(state: ShardedTrainState, ids, labels, weights, lr_scale, seed):
         model = state.model
-        device = model.table.device
-        drawn = int(torch.randint(0, SEED_LIMIT, (), generator=state.generator))
-        seed = rank_seed(drawn if seed is None else seed, group.rank)
-        ids = _to_device(ids, device, torch.long)
-        labels = _to_device(labels, device, torch.float32)
-        weights = _to_device(weights, device, torch.float32)
         b_loc, slots = ids.shape
         m = b_loc * slots
         cap = exchange_capacity(m, n, capacity_factor)
@@ -356,10 +360,73 @@ def make_sharded_train_step(schema: Schema, sparse_opt, dense_opt, group: Group,
         g_recv = exchange_scatter_grads(g_rows.reshape(m, -1), buckets, wire)
         sparse_opt.update(model.table.data, state.sparse_state, recv, g_recv,
                           lr_scale=lr_scale)
-        state.step += 1
-        return state, ShardedStepMetrics(total, all_reduce_sum(buckets.dropped))
+        return total, all_reduce_sum(buckets.dropped)
 
-    return step
+    return body
+
+
+def make_sharded_train_step(schema: Schema, sparse_opt, dense_opt, group: Group,
+                            l2: float = 0.0, capacity_factor: float = 2.0,
+                            exchange_dtype: str = "f32",
+                            check_finite: bool = False):
+    """Build ``step(state, ids, labels, weights, lr_scale=1.0, seed=None)
+    -> (state, ShardedStepMetrics(loss, dropped))`` on a rank's local
+    batch ``[b, S]``.
+
+    The reference's arithmetic: the BCE divides by the global weight sum
+    and the lazy L2 by the global batch ``b·N``; the dense gradients are
+    summed over the ranks (not averaged) and every rank applies the same
+    dense update; the sparse optimizer runs on the local shard. ``loss`` is
+    the global loss and ``dropped`` the global count of dropped
+    occurrences, both device scalars. ``seed`` replaces the drawn dropout
+    seed (before the rank is mixed in); ``check_finite`` raises
+    ``FloatingPointError`` on every rank at the first step whose global
+    loss is not finite, before anything is updated."""
+    return _per_step(
+        _sharded_step_body(schema, sparse_opt, dense_opt, group, l2, capacity_factor,
+                           exchange_dtype, check_finite),
+        lambda seed: rank_seed(seed, group.rank), ShardedStepMetrics)
+
+
+def make_sharded_scan_train_step(schema: Schema, sparse_opt, dense_opt, group: Group,
+                                 l2: float = 0.0, capacity_factor: float = 2.0,
+                                 exchange_dtype: str = "f32",
+                                 check_finite: bool = False):
+    """Build ``scan_step(state, ids [K, b, S], labels [K, b], weights [K, b],
+    lr_scale=1.0, seeds=None) -> (state, ShardedScanMetrics(losses [K],
+    dropped [K]))``: K sharded train steps on a rank's local chunk, the
+    reference's ``make_sharded_scan_train_step``. ``seeds`` (K ints)
+    replaces the drawn dropout seeds before the rank is mixed in; the K
+    draws are taken all the same, so the generator advances by K on every
+    rank.
+
+    On the CPU (gloo), and under ``check_finite``, the K steps run eagerly,
+    one ``make_sharded_train_step`` step each. On the card they are one
+    replay of a CUDA graph of the K steps, both all-to-all exchanges and
+    the all-reduces of each captured inside (``train/step.py::
+    chunk_route``, ``_ChunkGraph``); a capture or a collective that fails
+    raises. Every rank must call it with chunks of one shape and the same
+    ``lr_scale``. Weight-0 steps that pad a short chunk are full steps, as
+    the reference's: ``state.step`` counts them, they draw a seed, move
+    Adam's moments, and count the occurrences they drop (an all-pad step
+    sends every occurrence to the pad id's owner).
+
+    A graph that captured NCCL collectives holds the communicator's
+    resources: release it (``scan_step.graph.clear()``, or drop the step)
+    before the process group ends, or destroying the group waits for it
+    forever."""
+    body = _sharded_step_body(schema, sparse_opt, dense_opt, group, l2,
+                              capacity_factor, exchange_dtype, check_finite)
+    run = chunk_route(body, eager=check_finite,
+                      seed_map=lambda seed: rank_seed(seed, group.rank), dropped=True)
+
+    def scan_step(state: ShardedTrainState, ids, labels, weights,
+                  lr_scale: float = 1.0, seeds=None):
+        state, losses, dropped = run(state, ids, labels, weights, lr_scale, seeds)
+        return state, ShardedScanMetrics(losses, dropped)
+
+    scan_step.graph = run.graph
+    return scan_step
 
 
 def make_sharded_eval_step(schema: Schema, group: Group,

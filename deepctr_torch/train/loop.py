@@ -14,9 +14,11 @@ in the reference, eval and ``pretrain_snn`` do not prefetch.
 ``scan_steps = K > 1`` is the reference's chunked route, its default: an
 epoch is chunks of K steps (:func:`ram_chunks`, or the stream's
 ``scan_chunks``), each trained by ``train.step.make_scan_train_step`` (on
-the card one CUDA graph replay). A short last chunk is padded to K with
-weight-0 steps, which are real steps: ``state.step`` counts them and they
-draw dropout seeds, as the reference's do.
+the card one CUDA graph replay), or in a sharded run by its
+``scan_step`` (``parallel.make_sharded_scan_train_step``). A short last
+chunk is padded to K with weight-0 steps, which are real steps:
+``state.step`` counts them and they draw dropout seeds, as the
+reference's do.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..data import Batch, DevicePrefetcher, Schema, minibatches
+from ..data import DevicePrefetcher, Schema, minibatches
 from ..utils import metrics as M
 from ..utils.logging import MetricsLogger
 from .step import (
@@ -120,8 +122,9 @@ def fit(
     debug_nans: bool = False,
     step: Callable | None = None,
     evaluate_state: Callable[[TrainState], dict] | None = None,
-    batch_transform: Callable[[Batch], Batch] | None = None,
+    batch_transform: Callable | None = None,
     scan_steps: int = 0,
+    scan_step: Callable | None = None,
 ) -> FitResult:
     """Train ``model`` (in place) with per-epoch eval and early stop on
     held-out AUC. Without ``state``, the model is initialised from
@@ -136,16 +139,22 @@ def fit(
     ``scan_steps > 1`` trains in chunks of that many steps (the module's
     docstring). The epoch's loss is the mean over its real steps.
 
-    A sharded run (``cli._sharded_parts``) replaces three parts: ``step``
+    A sharded run (``cli._sharded_parts``) replaces four parts: ``step``
     (``(state, ids, labels, weights, lr_scale) -> (state, metrics)``; a
     ``dropped`` field in its metrics puts the epoch's sum in the record as
-    ``dropped_ids``), ``evaluate_state`` (``state -> {auc, ...}``, in place
-    of the full-dataset :func:`evaluate` of ``test_ids``) and
-    ``batch_transform`` (applied to every training batch before the
-    prefetcher stages it). A given ``step`` keeps the per-step route
+    ``dropped_ids``), ``scan_step`` (``parallel.make_sharded_scan_train_step``:
+    ``(state, ids, labels, weights, lr_scale) -> (state, metrics)`` on a
+    chunk, with ``losses`` and ``dropped`` fields; ``dropped_ids`` then
+    sums all K steps of every chunk, pad steps included, as the
+    reference's), ``evaluate_state`` (``state -> {auc, ...}``, in place of
+    the full-dataset :func:`evaluate` of ``test_ids``) and
+    ``batch_transform`` (applied to every training batch, or chunk, before
+    the prefetcher stages it, which so stages only the rank's rows). A
+    given ``step`` without a ``scan_step`` keeps the per-step route
     whatever ``scan_steps`` says."""
-    scan_step = None
-    if step is None and scan_steps > 1:
+    if scan_steps <= 1:
+        scan_step = None
+    elif scan_step is None and step is None:
         scan_step = make_scan_train_step(schema, sparse_opt, dense_opt, l2=l2,
                                          check_finite=debug_nans)
     if step is None:
@@ -186,8 +195,10 @@ def fit(
         try:
             if scan_step is not None:
                 for nb, chunk in it:
-                    state, chunk_losses = scan_step(state, *chunk, lr_scale)
-                    losses.append(chunk_losses[:nb].sum())
+                    state, out = scan_step(state, *chunk, lr_scale)
+                    losses.append(getattr(out, "losses", out)[:nb].sum())
+                    if hasattr(out, "dropped"):
+                        drops.append(out.dropped.sum())
                     n_batches += nb
             else:
                 for b in it:

@@ -16,6 +16,8 @@ What differs from the reference, and why:
 - ``make_scan_train_step``, the reference's ``lax.scan`` of K steps in one
   dispatch, is K eager steps on the CPU and, on the card, one replay of a
   CUDA graph that holds the K whole steps (:class:`_ChunkGraph`).
+  :func:`chunk_route` serves the sharded step's scan route too
+  (``parallel/sharded.py::make_sharded_scan_train_step``).
 - The reference's split plan (``ops/split_embed.py``) is not ported: its
   one-hot matmuls are a TPU gather mechanism. One gather of all slots and
   one scatter of the occurrence gradients give the same per-row sums, up to
@@ -38,6 +40,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
+import weakref
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -67,10 +70,12 @@ class TrainState:
         return self.model.table
 
     def clone(self) -> "TrainState":
+        """A copy of every tensor and of the generator, of the same type (a
+        sharded state stays one)."""
         generator = torch.Generator()
         generator.set_state(self.generator.get_state())
-        return TrainState(
-            step=self.step,
+        return dataclasses.replace(
+            self,
             model=copy.deepcopy(self.model),
             sparse_state=type(self.sparse_state)(
                 *(t.clone() for t in self.sparse_state)),
@@ -189,21 +194,24 @@ def make_train_step(schema: Schema, sparse_opt, dense_opt, l2: float = 0.0,
     return _per_step(_step_body(schema, sparse_opt, dense_opt, l2, check_finite))
 
 
-def _per_step(body):
+def _per_step(body, seed_map=None, metrics=StepMetrics):
     """``make_train_step``'s step around ``body``: the seed drawn (or
-    given), the batch moved to the device, ``state.step`` counted."""
+    given) and mapped by ``seed_map`` (the sharded step mixes in its rank),
+    the batch moved to the device, ``state.step`` counted; the body's two
+    outputs come back as ``metrics``."""
 
     def step(state: TrainState, ids, labels, weights, lr_scale: float = 1.0,
              seed: int | None = None):
         device = state.model.table.device
         drawn = draw_seed(state.generator)
         seed = drawn if seed is None else _checked_seed(seed)
-        loss, logits = body(state, _to_device(ids, device, torch.long),
-                            _to_device(labels, device, torch.float32),
-                            _to_device(weights, device, torch.float32),
-                            lr_scale, seed)
+        if seed_map is not None:
+            seed = seed_map(seed)
+        out = body(state, _to_device(ids, device, torch.long),
+                   _to_device(labels, device, torch.float32),
+                   _to_device(weights, device, torch.float32), lr_scale, seed)
         state.step += 1
-        return state, StepMetrics(loss=loss, logits=logits)
+        return state, metrics(*out)
 
     return step
 
@@ -224,37 +232,67 @@ def make_scan_train_step(schema: Schema, sparse_opt, dense_opt, l2: float = 0.0,
     pad a short chunk are full steps, as in the reference (a dropout seed
     each, Adam's moments and count move; SGD and Adagrad leave the table
     and accumulator as they were, since the gradient is 0)."""
-    body = _step_body(schema, sparse_opt, dense_opt, l2, check_finite)
-    step = _per_step(body)
-    graph: list[_ChunkGraph] = []   # the last one captured
+    run = chunk_route(_step_body(schema, sparse_opt, dense_opt, l2, check_finite),
+                      eager=check_finite)
 
     def scan_step(state: TrainState, ids, labels, weights, lr_scale: float = 1.0,
                   seeds=None):
+        state, losses, _ = run(state, ids, labels, weights, lr_scale, seeds)
+        return state, losses
+
+    scan_step.graph = run.graph
+    return scan_step
+
+
+def chunk_route(body, eager: bool, seed_map=None, dropped: bool = False):
+    """``run(state, ids [K, B, S], labels [K, B], weights [K, B], lr_scale,
+    seeds) -> (state, losses [K], dropped [K] or None)``: a chunk of K steps,
+    the scan route of the single-device and the sharded step alike.
+
+    ``body`` is a step on batches already on the device (``_step_body``'s
+    signature), returning ``(loss, second)``. On the CPU, and with
+    ``eager``, the chunk is K steps of :func:`_per_step` around it. On the
+    card it is one replay of a :class:`_ChunkGraph` of K calls of ``body``,
+    captured at the first chunk and again whenever the chunk's shape,
+    ``lr_scale``, the state object or its tensors' addresses change; a
+    capture that fails raises. ``seed_map`` maps each dropout seed drawn
+    from the state's generator (or given) to the one the body takes, on
+    both routes (the sharded step mixes in its rank). With ``dropped``
+    the body's second output is a count kept step by step (the sharded
+    step's dropped occurrences, int64); otherwise it is discarded."""
+    step = _per_step(body, seed_map)
+    graph: list[_ChunkGraph] = []   # the last one captured
+
+    def run(state: TrainState, ids, labels, weights, lr_scale: float = 1.0,
+            seeds=None):
         k = ids.shape[0]
         if labels.shape[0] != k or weights.shape[0] != k or (
                 seeds is not None and len(seeds) != k):
             raise ValueError(f"a chunk of {k} steps needs {k} labels, weights "
                              f"and seeds")
-        if state.model.table.device.type != "cuda" or check_finite:
-            losses = []
+        if state.model.table.device.type != "cuda" or eager:
+            outs = []
             for i in range(k):
                 state, m = step(state, ids[i], labels[i], weights[i], lr_scale,
                                 seed=None if seeds is None else seeds[i])
-                losses.append(m.loss)
-            return state, torch.stack(losses)
+                outs.append(m)
+            return (state, torch.stack([m[0] for m in outs]),
+                    torch.stack([m[1] for m in outs]) if dropped else None)
         key = _graph_key(state, ids.shape, lr_scale)
-        if not graph or graph[0].key != key:
+        if not graph or not graph[0].fits(state, key):
             graph.clear()   # its pool goes before the next capture
-            graph.append(_ChunkGraph(body, state, ids, labels, weights, lr_scale, key))
+            graph.append(_ChunkGraph(body, state, ids, labels, weights, lr_scale, key,
+                                     seed_map, dropped))
         return graph[0].run(state, ids, labels, weights, seeds)
 
-    scan_step.graph = graph
-    return scan_step
+    run.graph = graph
+    return run
 
 
 def _graph_key(state: TrainState, shape, lr_scale: float) -> tuple:
     """What a captured graph is good for: one chunk shape, one
-    ``lr_scale`` and the addresses of one state's tensors."""
+    ``lr_scale`` and the addresses of one state's tensors (and the state
+    object itself: :meth:`_ChunkGraph.fits`)."""
     return (tuple(shape), float(lr_scale), state.model.table.dtype,
             tuple(t.data_ptr() for t in _state_tensors(state)))
 
@@ -276,39 +314,55 @@ def _state_tensors(state: TrainState) -> list[torch.Tensor]:
 
 class _ChunkGraph:
     """K whole train steps (gather, model with its kernels, loss, backward,
-    sparse and dense updates) captured once as a ``torch.cuda.CUDAGraph``
-    and replayed once a chunk.
+    sparse and dense updates; in a sharded step also its NCCL exchanges
+    and all-reduces) captured once as a ``torch.cuda.CUDAGraph`` and
+    replayed once a chunk.
 
     A graph replays fixed addresses with fixed arguments. So it belongs to
-    one state (the addresses of its tensors, :func:`_state_tensors`), one
-    chunk shape and one ``lr_scale`` (a Python float in the arithmetic,
-    baked in as the eager step bakes it; a new value is captured anew,
-    which keeps the eager step's bits); each chunk is copied into static
-    input buffers; each replay's K dropout seeds are drawn from the state's
-    generator in the eager order, staged in pinned memory (two buffers,
-    each reused only once its last copy has ended, an event says when) and
-    copied to a ``[K]`` device buffer that the tower kernels read (the
-    ``seed_ptr`` of ``csrc/dropout_hash.cuh``); the K losses land in a
-    static ``[K]`` buffer.
+    one state (the object, held by a weak reference, and the addresses of
+    its tensors, :func:`_state_tensors`), one chunk shape and one
+    ``lr_scale`` (a Python float in the arithmetic, baked in as the eager
+    step bakes it; a new value is captured anew, which keeps the eager
+    step's bits); each chunk is copied into static input buffers; each
+    replay's K dropout seeds are drawn from the state's generator in the
+    eager order, mapped by ``seed_map`` (when given), staged in pinned
+    memory (two buffers, each reused only once its last copy has ended, an
+    event says when) and copied to a ``[K]`` device buffer that the tower
+    kernels read (the ``seed_ptr`` of ``csrc/dropout_hash.cuh``); the K
+    losses land in a static ``[K]`` buffer, and with ``dropped`` the body's
+    second outputs in a ``[K]`` int64 one.
 
     Before the capture one eager step runs on a clone of the state, on the
     capture's side stream, so that what a first call sets up (cuBLAS's
-    handle and workspace, the kernels' library, their shared-memory limits)
-    is not set up inside the capture; the real state is not touched. The
-    capture itself runs nothing. Its launch counts are taken back and added
-    again at every replay (:mod:`..ops.kernels`).
+    handle and workspace, the kernels' library, their shared-memory limits,
+    an NCCL communicator) is not set up inside the capture; the real state
+    is not touched. In a sharded step that warm-up runs collectives, and
+    so does every replay: capturing is collective, and every rank must
+    capture at the same chunk. It does, since the key changes on every
+    rank at once: the chunk shape and ``lr_scale`` (``lr_decay ** epoch``)
+    are the same on every rank, a new state object is new on every rank,
+    and the addresses of one state's tensors change only where a caller
+    replaces them, which ``fit`` does on no rank. The capture itself runs
+    nothing; ``capture_error_mode="thread_local"`` leaves other threads
+    (the process group's watchdog) free to query the device meanwhile. Its
+    launch counts are taken back and added again at every replay
+    (:mod:`..ops.kernels`).
     """
 
     def __init__(self, body, state: TrainState, ids, labels, weights,
-                 lr_scale: float, key: tuple):
+                 lr_scale: float, key: tuple, seed_map=None, dropped: bool = False):
         device = state.model.table.device
         k, b = ids.shape[:2]
         self.key = key
+        self.state = weakref.ref(state)
+        self.seed_map = seed_map
         self.ids = torch.empty(ids.shape, dtype=torch.long, device=device)
         self.labels = torch.empty((k, b), dtype=torch.float32, device=device)
         self.weights = torch.empty((k, b), dtype=torch.float32, device=device)
         self.seeds = torch.zeros(k, dtype=torch.int32, device=device)
         self.losses = torch.empty(k, dtype=torch.float32, device=device)
+        self.dropped = (torch.zeros(k, dtype=torch.long, device=device) if dropped
+                        else None)
         self._staging = [torch.empty(k, dtype=torch.int32, pin_memory=True)
                          for _ in range(2)]
         self._copied: list[torch.cuda.Event | None] = [None, None]
@@ -330,15 +384,21 @@ class _ChunkGraph:
         with torch.cuda.graph(self.graph, stream=stream,
                               capture_error_mode="thread_local"):
             for i in range(k):
-                loss, _ = body(state, self.ids[i], self.labels[i],
-                               self.weights[i], lr_scale, self.seeds[i])
+                loss, second = body(state, self.ids[i], self.labels[i],
+                                    self.weights[i], lr_scale, self.seeds[i])
                 self.losses[i].copy_(loss)
+                if self.dropped is not None:
+                    self.dropped[i].copy_(second)
         captured = launch_counts()
         self.launches = tuple(a - b for a, b in zip(captured, before))
         add_launch_counts(tuple(-n for n in self.launches))
         self.capture_s = time.perf_counter() - t0
         global CAPTURES
         CAPTURES += 1
+
+    def fits(self, state: TrainState, key: tuple) -> bool:
+        """This graph replays ``state``'s step at ``key``."""
+        return self.key == key and self.state() is state
 
     def _load(self, ids, labels, weights) -> None:
         device = self.ids.device
@@ -347,10 +407,13 @@ class _ChunkGraph:
         self.weights.copy_(_to_device(weights, device, torch.float32))
 
     def run(self, state: TrainState, ids, labels, weights, seeds=None):
+        """One replay: ``(state, losses [K], dropped [K] or None)``."""
         k = self.seeds.shape[0]
         self._load(ids, labels, weights)
         drawn = [draw_seed(state.generator) for _ in range(k)]
         values = drawn if seeds is None else [_checked_seed(s) for s in seeds]
+        if self.seed_map is not None:
+            values = [self.seed_map(v) for v in values]
         staging, copied = self._staging[self._slot], self._copied[self._slot]
         if copied is not None:
             copied.synchronize()   # this buffer's last copy has ended
@@ -363,7 +426,8 @@ class _ChunkGraph:
         self.graph.replay()
         add_launch_counts(self.launches)
         state.step += k
-        return state, self.losses.clone()
+        return (state, self.losses.clone(),
+                None if self.dropped is None else self.dropped.clone())
 
 
 def make_eval_step(schema: Schema):

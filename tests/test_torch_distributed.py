@@ -168,7 +168,8 @@ def test_distributed_stream_matches_the_concatenated_rank_streams(tmp_path):
     """Two ranks over four equal shards, two epochs: the host shards' table
     and accumulator equal, within the sharded tests' tolerance, the
     single-process run fed, each step, rank 0's local batch and then rank
-    1's, and the step counts are equal; nothing is skipped."""
+    1's, and the step counts are equal (the config's scan route: 20 steps
+    an epoch in chunks of 8, the third padded); nothing is skipped."""
     sp, paths, test = _shards(tmp_path, [640] * 4)
     ckpt = str(tmp_path / "ck.npz")
     metrics = str(tmp_path / "m.jsonl")
@@ -184,26 +185,26 @@ def test_distributed_stream_matches_the_concatenated_rank_streams(tmp_path):
     sources = [t_cli.load_data(cfg, _group(r))[1] for r in range(2)]
 
     class RankOrder:
-        def batches(self, epoch):
-            for parts in zip(*(s.batches(epoch) for s in sources)):
-                yield Batch(ids=np.concatenate([b.ids for b in parts]),
-                            labels=np.concatenate([b.labels for b in parts]),
-                            weights=np.concatenate([b.weights for b in parts]))
+        def scan_chunks(self, epoch, k):
+            for parts in zip(*(s.scan_chunks(epoch, k) for s in sources)):
+                yield parts[0][0], tuple(np.concatenate([c[i] for _, c in parts], axis=1)
+                                         for i in range(3))
 
     model = t_cli.build_model(cfg, schema, CPU)
     sopt, dopt = t_cli.build_optimizers(cfg)
     state = init_state(model, schema, sopt, dopt, seed=cfg.train.seed)
     res = fit(model, schema, None, None, te_ids, te_labels, sparse_opt=sopt,
               dense_opt=dopt, batch_size=BATCH, epochs=2, seed=cfg.train.seed,
-              state=state, train_source=RankOrder(), prefetch=False)
-    assert res.state.step == 40
+              state=state, train_source=RankOrder(), prefetch=False,
+              scan_steps=cfg.train.scan_steps)
+    assert res.state.step == 2 * 24
 
     files = []
     for r in range(2):
         with np.load(os.path.join(ckpt + ".hostshards", f"proc{r}.npz")) as z:
             files.append({k: z[k] for k in z.files})
     rows = files[0]["s1__0_0"].shape[0]
-    assert int(files[0]["r0"]) == int(files[1]["r0"]) == 40
+    assert int(files[0]["r0"]) == int(files[1]["r0"]) == 2 * 24
     vp = schema.padded_vocab_size
     for leaf, want in ((1, res.state.table), (2, res.state.sparse_state.acc)):
         stored = np.concatenate([files[r][f"s{leaf}__{r * rows}_0"] for r in range(2)])
@@ -246,7 +247,7 @@ def test_distributed_stream_of_unequal_shards_takes_the_agreed_steps(tmp_path):
     recs = [e for e in events if "auc" in e]
     assert len(recs) == 2 and all(r["dropped_ids"] == 0 for r in recs)
     with np.load(os.path.join(ckpt + ".hostshards", "proc1.npz")) as z:
-        assert int(z["r0"]) == sum(steps for _, steps, _ in want)
+        assert int(z["r0"]) == sum(8 * -(-steps // 8) for _, steps, _ in want)
 
 
 def test_a_rank_local_batch_is_not_cut_again():
@@ -285,3 +286,57 @@ def test_rank_local_stream_stops_at_the_agreed_count(tmp_path):
     assert len(list(stream.batches(0))) == min(full)
     assert logged == [{"event": "epoch_steps", "epoch": 0, "steps": min(full),
                        "rows_skipped": (full[rank] - min(full)) * 64}]
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_rank_local_scan_chunks_equal_the_reference(tmp_path, rank):
+    """On equal shards rank r's ``RankLocalStream.scan_chunks`` is the
+    reference's process-local ``StreamSource.scan_chunks``, chunk for chunk
+    over two epochs (20 steps an epoch: chunks of 8, 8 and 4 padded with 4
+    weight-0 steps), with one ``epoch_steps`` event an epoch."""
+    sp, paths, test = _shards(tmp_path, [640] * 4)
+    cfg = TRunConfig().apply_overrides(_overrides(sp, paths, test, ""))
+    source = t_cli.load_data(cfg, _group(rank))[1]
+    logged = []
+    stream = par.RankLocalStream(source, _group(rank), dict.fromkeys(paths, 640),
+                                 logged.append)
+    ref = j_stream.StreamSource(paths=paths, schema=j_make_schema(SPECS),
+                                batch_size=BATCH // 2, buffer_rows=256, seed=0,
+                                process_index=rank, process_count=2)
+    for epoch in range(2):
+        got, want = list(stream.scan_chunks(epoch, 8)), list(ref.scan_chunks(epoch, 8))
+        assert [nb for nb, _ in got] == [nb for nb, _ in want] == [8, 8, 4]
+        for (_, g), (_, w) in zip(got, want):
+            for a, b in zip(g, w, strict=True):
+                assert a.shape == b.shape and a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+    assert [(e["epoch"], e["steps"], e["rows_skipped"]) for e in logged] == [
+        (0, 20, 0), (1, 20, 0)]
+
+
+def test_rank_local_scan_chunks_stop_at_the_agreed_count_and_pad(tmp_path):
+    """On unequal shards the rank that holds the longest one cuts the
+    agreed steps, fewer than its stream has, into chunks of 4: the last
+    holds the rest of the agreed steps and weight-0 pad steps of pad ids
+    and label 0, and the real steps are its first batches."""
+    sp, paths, test = _shards(tmp_path, [900, 300, 300])
+    cfg = TRunConfig().apply_overrides(_overrides(sp, paths, test, ""))
+    order = StreamSource(paths=paths, schema=make_schema(SPECS),
+                         batch_size=1).epoch_order(0)
+    rank = order.index(paths[0]) % 2
+    source = t_cli.load_data(cfg, _group(rank))[1]
+    rows = dict(zip(paths, [900, 300, 300]))
+    steps, _ = par.RankLocalStream(source, _group(rank), rows).epoch_steps(0)
+    batches = list(source.batches(0))
+    assert len(batches) > steps and steps % 4
+    chunks = list(par.RankLocalStream(source, _group(rank), rows).scan_chunks(0, 4))
+    assert [nb for nb, _ in chunks] == [4] * (steps // 4) + [steps % 4]
+    ids = np.concatenate([c[0] for _, c in chunks])
+    labels = np.concatenate([c[1] for _, c in chunks])
+    weights = np.concatenate([c[2] for _, c in chunks])
+    assert ids.shape == (4 * len(chunks), BATCH // 2, make_schema(SPECS).num_slots)
+    np.testing.assert_array_equal(ids[:steps], np.stack([b.ids for b in batches[:steps]]))
+    np.testing.assert_array_equal(labels[:steps],
+                                  np.stack([b.labels for b in batches[:steps]]))
+    assert (weights[:steps] == 1).all() and (weights[steps:] == 0).all()
+    assert (ids[steps:] == make_schema(SPECS).pad_id).all() and not labels[steps:].any()

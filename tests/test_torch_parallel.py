@@ -29,6 +29,7 @@ from deepctr_torch.optim import SparseAdagrad as TSparseAdagrad
 from deepctr_torch.optim import make_dense_optimizer
 from deepctr_torch.train import init_state as t_init_state
 from deepctr_torch.train import make_eval_step as t_make_eval_step
+from deepctr_torch.train import make_scan_train_step as t_make_scan_train_step
 from deepctr_torch.train import make_train_step as t_make_train_step
 from deepctr_torch.utils.checkpoint import params_from_jax
 from deepctr_tpu.data import ipinyou_full_schema, ipinyou_like_schema
@@ -40,6 +41,7 @@ from deepctr_tpu.parallel import (
     make_data_mesh,
     make_dp_train_step,
     make_sharded_eval_step,
+    make_sharded_scan_train_step,
     make_sharded_train_step,
     replicate_state,
     shard_batch_arrays,
@@ -55,6 +57,7 @@ from test_torch_ranks import launch
 # per-element rounding Adagrad's first step amplifies on near-zero rows
 RTOL, ATOL = 1e-4, 1e-5
 EVAL_TOL = 2e-5
+SCAN_K = 4          # steps a chunk of the scan cases: 6 real steps, 2 pad
 BF16_LOSS = (1e-3, 1e-4)
 BF16_TABLE = (1e-2, 1e-3)
 WIRE = (0.05, 0.025)
@@ -183,6 +186,40 @@ def test_world_one_step_is_the_single_device_step(model_name, mode, data):
     assert torch.equal(eval_n, t_make_eval_step(schema)(state.model, data.ids[:100]))
 
 
+@pytest.mark.parametrize("model_name,mode,dense", [("fnn", "dense", "adam"),
+                                                   ("fm", "sorted", "adagrad")])
+def test_world_one_scan_step_is_the_single_device_scan_step(model_name, mode, dense,
+                                                            data):
+    """In a world of one the sharded scan step gives the single-device
+    scan step's bits: two chunks of 4, the second with 2 weight-0 pad
+    steps; FNN with dropout 0.5 and Adam (the pad steps draw seeds and move
+    Adam's moments), and FM with the sorted-mode Adagrad."""
+    schema = t_make_schema([("a", 4), ("b", 8), ("c", 16), ("tags", 10, 3)])
+    if model_name == "fnn":
+        model = t_make_fnn(schema, k=3, mlp=TMlpSpec(hidden=(16, 8), dropout=0.5),
+                           device="cpu")
+    else:
+        model = t_make_fm(schema, k=3, device="cpu")
+    sopt, dopt = TSparseAdagrad(0.1, mode=mode), make_dense_optimizer(dense, 0.05)
+    state = t_init_state(model, schema, sopt, dopt, seed=3, table_dtype="bf16")
+    chunks = _chunks(data, schema, 6)
+    scan1 = t_make_scan_train_step(schema, sopt, dopt, l2=1e-3)
+    with par.process_group("cpu") as group:
+        sst = par.sharded_state_from_state(state.clone(), group)
+        scan_n = par.make_sharded_scan_train_step(schema, sopt, dopt, group, l2=1e-3)
+        for chunk in zip(*chunks):
+            state, losses1 = scan1(state, *chunk)
+            sst, m = scan_n(sst, *chunk)
+            assert torch.equal(m.losses, losses1)
+            assert m.dropped.tolist() == [0] * SCAN_K
+        host = par.host_state_from_sharded(sst, group)
+    assert host.step == state.step == 8
+    assert torch.equal(host.generator.get_state(), state.generator.get_state())
+    # table, accumulator, dense parameters and the dense optimizer's state
+    assert all(torch.equal(a, b) for a, b in zip(
+        par.sharded.state_tensors(host), par.sharded.state_tensors(state), strict=True))
+
+
 def test_num_devices_must_equal_the_world_size():
     with pytest.raises(ValueError, match="torchrun --standalone --nproc_per_node=2"):
         with par.process_group("cpu", num_devices=2):
@@ -238,6 +275,42 @@ def _jax_run(model, schema, sopt, dopt, batches, *, mesh=None, seed=3, cf=8.0,
         st, m = step(*args) if dp else step(*args, s)
         losses.append(float(m.loss))
     return (init, losses, [0] * len(ids), np.asarray(st.table, np.float32),
+            jax.tree_util.tree_map(np.asarray, st.dense))
+
+
+def _chunks(data, schema, steps, k=SCAN_K):
+    """``steps`` batches cut into chunks of ``k`` steps, the last padded to
+    ``k`` with weight-0 steps of pad ids (the reference's scan route):
+    ids ``[C, k, B, S]``, labels and weights ``[C, k, B]``."""
+    ids, labels = _batches(data, steps)
+    pad = -steps % k
+    ids = np.concatenate([ids, np.full((pad,) + ids.shape[1:], schema.pad_id, np.int32)])
+    labels = np.concatenate([labels, np.zeros((pad, B), np.float32)])
+    weights = np.concatenate([np.ones((steps, B), np.float32),
+                              np.zeros((pad, B), np.float32)])
+    return tuple(a.reshape((-1, k) + a.shape[1:]) for a in (ids, labels, weights))
+
+
+def _jax_scan_run(model, schema, sopt, dopt, chunks, mesh, seed=3, cf=8.0):
+    """The JAX package's sharded scan route over ``chunks``: the initial
+    (table, dense), every step's loss and drop count, the final step,
+    table and dense."""
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    st = init_sharded_state(model, schema, sopt, dopt, mesh, seed=seed)
+    vp = schema.padded_vocab_size
+    init = (np.asarray(unpack_table(st.table, vp, N), np.float32),
+            jax.tree_util.tree_map(np.asarray, st.dense))
+    scan = make_sharded_scan_train_step(model, schema, sopt, dopt, mesh,
+                                        capacity_factor=cf)
+    shd = NamedSharding(mesh, PartitionSpec(None, "data"))
+    losses, drops = [], []
+    for chunk in zip(*chunks):
+        st, (loss, dropped) = scan(st, *(jax.device_put(a, shd) for a in chunk))
+        losses += np.asarray(loss).tolist()
+        drops += np.asarray(dropped).tolist()
+    return (init, losses, drops, int(st.step),
+            np.asarray(unpack_table(st.table, vp, N), np.float32),
             jax.tree_util.tree_map(np.asarray, st.dense))
 
 
@@ -320,6 +393,23 @@ def ranks(schema, data, mesh, tmp_path_factory):
     _case(inputs, "repeat", dict(fm_cfg, case="repeat", model="fnn", hidden=[32, 16],
                                  dropout=0.5, sparse="adagrad"),
           (np.asarray(p["table"]), p["dense"]), _batches(data, 2))
+
+    chunks = _chunks(data, schema, 6)
+    scan_cases = {
+        "scan_fm": (FMModel(k=3), optax.adagrad(0.05), 8.0,
+                    dict(fm_cfg, sparse="adagrad", dense="adagrad")),
+        "scan_fnn_adam": (make_fnn(schema, k=3, mlp=MlpSpec(hidden=(16,), dropout=0.0)),
+                          optax.adam(0.01), 8.0,
+                          dict(fm_cfg, model="fnn", hidden=[16], sparse="adagrad",
+                               dense="adam", dense_lr=0.01)),
+        "scan_starved": (FMModel(k=3), optax.sgd(0.05), 1.0,
+                         dict(fm_cfg, sparse="adagrad", capacity_factor=1.0)),
+    }
+    for name, (model, dopt, cf, cfg) in scan_cases.items():
+        ref[name] = _jax_scan_run(model, schema, SparseAdagrad(0.1), dopt, chunks,
+                                  mesh, cf=cf)
+        _case(inputs, name, dict(cfg, case="scan"), ref[name][0], ids=chunks[0],
+              labels=chunks[1], weights=chunks[2])
 
     out = launch(inputs, str(tmp_path_factory.mktemp("ranks")))
     return out, ref
@@ -412,6 +502,29 @@ def test_two_ranks_fnn_dropout_is_repeatable_and_finite(ranks):
         assert bool(out[r]["repeat/repeat_equal"])
         assert bool(out[r]["repeat/differs_from_no_dropout"])
         assert bool(out[r]["repeat/finite"])
+
+
+@pytest.mark.parametrize("name", ["scan_fm", "scan_fnn_adam", "scan_starved"])
+def test_two_ranks_scan_route_matches_jax(ranks, name):
+    """Two chunks of 4 steps, the second padded with 2 weight-0 steps,
+    through the sharded scan step on two gloo ranks against the JAX
+    package's ``make_sharded_scan_train_step`` on two devices: every
+    step's loss, its drop count exactly (pads included: under the starved
+    cap an all-pad step sends every occurrence to the pad id's owner), the
+    step count, the table and the dense parameters (Adam's pad steps move
+    them)."""
+    out, ref = ranks
+    _, losses, drops, step, table, dense = ref[name]
+    r0 = out[0]
+    assert int(r0[f"{name}/step"]) == step == 8
+    assert list(r0[f"{name}/dropped"]) == drops == list(out[1][f"{name}/dropped"])
+    assert (sum(drops) > 0) == (name == "scan_starved")
+    if name == "scan_starved":
+        assert drops[-1] > 0   # the pad step's drops count
+    np.testing.assert_allclose(r0[f"{name}/losses"], losses, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(out[1][f"{name}/losses"], r0[f"{name}/losses"])
+    np.testing.assert_allclose(r0[f"{name}/table"], table, rtol=RTOL, atol=ATOL)
+    _assert_dense(r0, name, dense)
 
 
 def test_ranks_load_no_jax(ranks):

@@ -108,6 +108,29 @@ def run_trajectory(name, cfg, arrays, group, out):
         _host(out, name, state, group)
 
 
+def run_scan(name, cfg, arrays, group, out):
+    """Chunks ``[C, K, B, S]`` through the sharded scan step on this rank's
+    rows of each step; every step's loss and drop count, the step count and
+    the final state."""
+    schema, sopt, dopt, state = build_state(cfg, arrays, f"{name}/init/")
+    state = par.sharded_state_from_state(state, group)
+    scan = par.make_sharded_scan_train_step(
+        schema, sopt, dopt, group, l2=cfg.get("l2", 0.0),
+        capacity_factor=cfg["capacity_factor"])
+    ids, labels, weights = (arrays[f"{name}/{k}"] for k in ("ids", "labels", "weights"))
+    losses, drops = [], []
+    for c in range(ids.shape[0]):
+        nb, chunk = par.local_chunk((ids.shape[1], (ids[c], labels[c], weights[c])),
+                                    group, global_rows=ids.shape[2])
+        state, m = scan(state, *chunk)
+        losses += m.losses.tolist()
+        drops += m.dropped.tolist()
+    out[f"{name}/losses"] = np.array(losses)
+    out[f"{name}/dropped"] = np.array(drops)
+    out[f"{name}/step"] = np.array(state.step)
+    _host(out, name, state, group)
+
+
 def run_eval(name, cfg, arrays, group, out):
     schema, _, _, state = build_state(cfg, arrays, f"{name}/init/")
     sst = par.sharded_state_from_state(state, group)
@@ -186,8 +209,8 @@ def run_cli(name, cfg, arrays, group, out):
     out[f"{name}/best_auc"] = np.array(res["best_auc"])
 
 
-CASES = {"trajectory": run_trajectory, "eval": run_eval, "roundtrip": run_roundtrip,
-         "repeat": run_repeat, "cli": run_cli}
+CASES = {"trajectory": run_trajectory, "scan": run_scan, "eval": run_eval,
+         "roundtrip": run_roundtrip, "repeat": run_repeat, "cli": run_cli}
 
 
 def main(argv) -> int:

@@ -247,7 +247,8 @@ def test_sharded_cli_kill_and_resume_matches_uninterrupted(schema, tmp_path):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and np.array_equal(g, w)
-    steps_per_epoch = int(700 * 0.85) // BATCH
+    scan = t_cli.RunConfig().train.scan_steps   # the sharded scan route's chunks
+    steps_per_epoch = scan * math.ceil(int(700 * 0.85) // BATCH / scan)
     assert int(got[0]) == 3 * steps_per_epoch
     assert t_ckpt.read_manifest(b_ckpt)["epoch"] == 3
     events = [json.loads(line) for line in b_metrics.read_text().splitlines()]
@@ -261,15 +262,14 @@ def test_sharded_cli_kill_and_resume_matches_uninterrupted(schema, tmp_path):
                                         ("unsharded", "sharded")])
 def test_checkpoints_move_between_sharded_and_unsharded(schema, tmp_path, capsys,
                                                         first, then):
-    """A world of one gives the single-device step's bits, so a checkpoint
-    written by one route and resumed by the other ends bit-identical to an
-    uninterrupted unsharded run. The sharded route trains per step (its
-    scan route is not ported), so the unsharded runs do too
-    (``train.scan_steps=0``)."""
+    """A world of one gives the single-device step's bits on the scan route
+    (the configs' default of 8), so a checkpoint written by one route and
+    resumed by the other ends bit-identical to an uninterrupted unsharded
+    run."""
     sp = tmp_path / "schema.json"
     sp.write_text(schema.to_json())
     a_ckpt, b_ckpt = str(tmp_path / "a.ckpt"), str(tmp_path / "b.ckpt")
-    extra = ["model.name=fnn", "model.dropout=0.5", "train.scan_steps=0"]
+    extra = ["model.name=fnn", "model.dropout=0.5"]
 
     def run(ckpt, route, more):
         sharded = ["train.sharded=true"] if route == "sharded" else []

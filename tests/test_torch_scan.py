@@ -337,19 +337,21 @@ def test_cli_stream_scan_matches_jax_cli(tmp_path):
             assert abs(g[key] - w[key]) < RECORD_TOL, (key, g[key], w[key])
 
 
-def test_sharded_run_keeps_the_per_step_route(tmp_path):
+def test_sharded_run_takes_the_scan_route(tmp_path):
     """``train.sharded`` with ``train.scan_steps=8`` (a world of one on the
-    CPU) trains per step, as many steps as batches, and says so in a
-    ``scan_steps_per_step`` event."""
+    CPU) trains on the sharded scan route: its 5 batches are one chunk
+    padded to 8 steps, and no event says the route was changed."""
     metrics = tmp_path / "m.jsonl"
+    batches = 1000 * 85 // 100 // 128
     res = t_cli.run(TRunConfig().apply_overrides([
         "model.name=fm", "model.k=3", "data.synthetic_examples=1000",
         "train.batch_size=128", "train.epochs=1", "train.sharded=true",
         "train.scan_steps=8", f"train.metrics_path={metrics}"]), torch.device("cpu"))
-    assert res["state"].step == 1000 * 85 // 100 // 128
+    assert res["state"].step == 8 * math.ceil(batches / 8) == 8
     events = [json.loads(line) for line in metrics.read_text().splitlines()]
-    said = [e for e in events if e.get("event") == "scan_steps_per_step"]
-    assert len(said) == 1 and "sharded" in said[0]["reason"]
+    assert not [e for e in events if e.get("event") == "scan_steps_per_step"]
+    (rec,) = [e for e in events if "auc" in e]
+    assert rec["dropped_ids"] == 0 and np.isfinite(rec["train_loss"])
 
 
 def _old_sparse_update(opt, table, acc, ids, rows, lr_scale=1.0):

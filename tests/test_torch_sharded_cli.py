@@ -112,6 +112,43 @@ def test_sharded_fm_matches_unsharded_and_jax(tmp_path, capsys):
     np.testing.assert_allclose(got_p, want, rtol=0, atol=PRINT_ATOL)
 
 
+def test_sharded_scan_route_with_adam_matches_jax(tmp_path):
+    """``train.sharded=true train.scan_steps=8 optim.dense=adam`` on two
+    ranks against the JAX CLI's sharded run on two devices: 13 batches an
+    epoch, so each epoch's second chunk has 5 steps and 3 weight-0 pad
+    steps, which are real steps (the checkpoint's step is 2 · 16) and move
+    Adam's moments. Under a starved cap (``train.capacity_factor=1.0``,
+    no split plan on either side) every step drops occurrences, an all-pad
+    step most: the epochs' ``dropped_ids`` must be the reference's
+    exactly, the table and the records within the tolerances above."""
+    base = ["model.name=fm", "model.k=3", "data.synthetic_examples=4000",
+            "train.batch_size=256", "train.epochs=2", "train.scan_steps=8",
+            "optim.dense=adam", "train.capacity_factor=1.0", "train.split_threshold=0",
+            "train.early_stop_patience=5", "train.resume=true", "train.sharded=true"]
+    port, jax_ck = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    metrics, jax_metrics = str(tmp_path / "port.jsonl"), str(tmp_path / "jax.jsonl")
+    cfg = RunConfig().apply_overrides(base)
+    schema, *_ = j_cli.load_data(cfg)
+    state = j_init_state(j_cli.build_model(cfg, schema), schema,
+                         *j_cli.build_optimizers(cfg), seed=cfg.train.seed)
+    for path in (port, jax_ck):
+        j_save_train_state(path, state, epoch=0, meta={"model": "fm"}, schema=schema)
+    torchrun(base + [f"train.checkpoint_path={port}", f"train.metrics_path={metrics}",
+                     "--device", "cpu"])
+    j_cli.run(RunConfig().apply_overrides(
+        base + ["train.num_devices=2", "train.prefetch=false",
+                f"train.checkpoint_path={jax_ck}", f"train.metrics_path={jax_metrics}"]))
+    assert _ckpt_step(port) == _ckpt_step(jax_ck) == 2 * 16
+    np.testing.assert_allclose(_ckpt_table(port), _ckpt_table(jax_ck), rtol=RTOL,
+                               atol=JAX_ATOL)
+    recs, want = _records(metrics), _records(jax_metrics)
+    assert [r["epoch"] for r in recs] == [0, 1]
+    for r, w in zip(recs, want, strict=True):
+        assert r["dropped_ids"] == w["dropped_ids"] > 0
+        for key in ("auc", "logloss", "train_loss"):
+            assert abs(r[key] - w[key]) < RECORD_TOL, (key, r[key], w[key])
+
+
 def test_sharded_snn_consumes_the_pretrained_table_on_every_rank(tmp_path):
     """SNN with DAE pretraining on two ranks (``test_cli.py:83``): each
     rank's state handed to the sharded layout is the pretrained table, the
@@ -202,8 +239,9 @@ def test_sharded_criteo_stream_config_runs_shrunk(tmp_path):
     """``configs/criteo_stream_stretch.json`` shrunk (``test_cli.py:281``):
     Criteo shards of unequal lengths (three files over two ranks) streamed
     through the native parser into the two-rank sharded loop with the bf16
-    wire. It ends, drops nothing, and takes a step for every global batch
-    the stream makes of the 3,000 rows."""
+    wire. It ends, drops nothing, and takes the config's scan route: a
+    step for every global batch the stream makes of the 3,000 rows, the
+    last chunk padded to 8 steps."""
     days = _write_days(tmp_path, [1200, 1000, 800])
     args = _stream_config(tmp_path, days)
     metrics, ckpt = str(tmp_path / "m.jsonl"), str(tmp_path / "s.npz")
@@ -214,23 +252,22 @@ def test_sharded_criteo_stream_config_runs_shrunk(tmp_path):
     assert rec["dropped_ids"] == 0 and np.isfinite(rec["auc"])
     assert np.isfinite(rec["train_loss"])
     _, source, *_ = t_cli.load_data(TRunConfig.load(args[1]).apply_overrides(args[2:]))
-    assert _ckpt_step(ckpt) == sum(1 for _ in source.batches(0)) > 0
+    batches = sum(1 for _ in source.batches(0))
+    assert _ckpt_step(ckpt) == 8 * -(-batches // 8) > 0
 
 
 def test_sharded_stream_of_unequal_shards_matches_unsharded(tmp_path):
     """Every rank streams the same global batches and trains on its rows,
     so the two-rank sharded run over unequal shards (f32 wire) gives the
-    unsharded streamed run's table and step count. The sharded run trains
-    per step (its scan route is not ported), so the unsharded run takes
-    the per-step route too (``train.scan_steps=0``)."""
+    unsharded streamed run's table and step count, both on the config's
+    scan route."""
     days = _write_days(tmp_path, [1300, 700])
     base = _stream_config(tmp_path, days) + ["train.exchange_dtype=f32"]
     sharded, single = str(tmp_path / "sharded.npz"), str(tmp_path / "single.npz")
     torchrun(base + ["train.num_devices=2", f"train.checkpoint_path={sharded}",
                      "--device", "cpu"], timeout=STREAM_TIMEOUT)
     cfg = TRunConfig.load(base[1]).apply_overrides(
-        base[2:] + ["train.sharded=false", "train.scan_steps=0",
-                    f"train.checkpoint_path={single}"])
+        base[2:] + ["train.sharded=false", f"train.checkpoint_path={single}"])
     t_cli.run(cfg, torch.device("cpu"))
     assert _ckpt_step(sharded) == _ckpt_step(single) > 0
     np.testing.assert_allclose(_ckpt_table(sharded), _ckpt_table(single),
