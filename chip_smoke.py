@@ -5,6 +5,8 @@ route, the scan route of CUDA graphs, unsharded and sharded.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``, and imports nothing of JAX.
+``--phases 6,7`` runs phases 1-3 and then only the kernel phases named
+(6, 7), and prints no report: a kernel's check and times alone.
 
 Phases, each printing its own lines:
 1. device: the card's name and power limit, as nvidia-smi gives them, and
@@ -20,9 +22,12 @@ Phases, each printing its own lines:
    card at the serving shape [8192, 176] with FNN widths 200-300-100 tanh,
    at [65536, 176], at a ragged batch, at SNN's [8192, 200] with its tower
    300-100, at the Criteo configs' [8192, 663] with 512-256-128 (tanh, the
-   configs', and relu), and at small relu and sigmoid towers, each also with a NaN in
-   one input row (a NaN logit there, kernel and plain; the other rows'
-   bits unchanged); the FNN shapes timed on both with CUDA events;
+   configs', and relu), and at small relu and sigmoid towers, each also with
+   input rows that hold one NaN, +inf, -inf, +FLT_MAX or -FLT_MAX (the
+   kernel's logits there must have the plain version's NaN and inf pattern
+   and its values, dropout 0 and 0.5, and the other rows keep their bits;
+   every case prints before a failure raises); the FNN and Criteo shapes
+   timed on both with CUDA events;
 4. serving end to end: full-width iPinYou FNN parameters from a seed are
    written with the port's checkpoint writer, 65,536 synthetic requests are
    scored through ``deepctr_torch.cli --score``, and the output is held
@@ -36,8 +41,10 @@ Phases, each printing its own lines:
    SNN's tanh 300-100 at [8192, 200], and the Criteo tower 512-256-128 tanh
    and relu at [8192, 663],
    dropout 0.5 and 0 (relu: rows at its derivative's step get no upstream
-   gradient, see RELU_EDGE); a second backward launch compared bit for
-   bit; the seed given as a 0-d device tensor (a graph's seed buffer)
+   gradient, see RELU_EDGE); phase 3's special input rows through the
+   forward, and one special row at a time through the backward, held to
+   autograd where autograd is finite (the rest counted); a second backward
+   launch compared bit for bit; the seed given as a 0-d device tensor (a graph's seed buffer)
    against the int seed, forward and backward, bit for bit; the FNN tower's forward, backward and both timed against the plain
    ones, and the Criteo tower's forward and backward with dropout 0.5;
 7. FM scorer kernel vs plain: ``fm_score_fwd`` against ``fm_score_plain``
@@ -292,6 +299,13 @@ FM_SIGMA = 0.5
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 HBM_BYTES = 3.35e12
+# phases 3 and 6: input rows that each hold one special value at column 1,
+# beside rows of finite values; FLT_MAX (3.4028235e38) lies above the
+# 3xTF32 split's rounding threshold, (2 - 2^-11) 2^127
+FLT_MAX = float(np.finfo(np.float32).max)
+SPECIAL_ROWS = {3: float("nan"), 4: float("inf"), 5: float("-inf"), 6: FLT_MAX,
+                7: -FLT_MAX}
+SPECIAL_NAMES = "nan, +inf, -inf, +FLT_MAX, -FLT_MAX"
 
 
 def _fail(msg: str) -> None:
@@ -333,28 +347,108 @@ def _check_close(what, got, want, rtol=RTOL, atol=ATOL) -> float:
     return max_err
 
 
-def _check_nan_row(what, x, layers, act) -> None:
-    """A NaN in one input row makes that row's logit NaN, in the kernel as in
-    the plain version, with and without dropout, and leaves every other row's
-    bits as they were (rows are independent)."""
+def _special_inputs(x):
+    """x with one element of each SPECIAL_ROWS value in its row (column 1),
+    the rows that hold them and a mask of the other rows."""
+    import torch
+
+    bad = x.clone()
+    for row, value in SPECIAL_ROWS.items():
+        bad[row, 1] = value
+    rows = torch.tensor(list(SPECIAL_ROWS), device=x.device)
+    rest = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    rest[rows] = False
+    return bad, rows, rest
+
+
+def _same_pattern(got, want, rtol=RTOL, atol=ATOL) -> bool:
+    """NaN where want is NaN, want's infs with their signs, and want's finite
+    values within rtol and atol."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    fin = np.isfinite(want)
+    inf = np.isinf(want)
+    return bool(np.array_equal(np.isnan(got), np.isnan(want))
+                and np.array_equal(got[inf], want[inf])
+                and np.all(np.isfinite(got[fin]))
+                and np.all(np.abs(got[fin] - want[fin]) <= atol + rtol * np.abs(want[fin])))
+
+
+def _check_special_rows(what, x, layers, act) -> list:
+    """Rows of x that hold one NaN, +inf, -inf, +FLT_MAX or -FLT_MAX
+    (SPECIAL_ROWS): the kernel's logits there must have the plain
+    version's NaN and inf pattern and its finite values within RTOL and
+    ATOL, with and without dropout, and every other row must keep the bits
+    it has without them (rows are independent). Prints each case and
+    returns the failures, so that a phase reports every case before it
+    raises."""
     import torch
 
     from deepctr_torch.ops.kernels import mlp as mlp_k
 
-    bad = x.clone()
-    bad[3, 1] = float("nan")
-    rest = torch.arange(x.shape[0], device=x.device) != 3
+    bad, rows, rest = _special_inputs(x)
+    failures = []
     for dropout in (0.0, DROPOUT):
         got = mlp_k.mlp_tower_fwd(bad, layers, act, dropout, 7)
         want = mlp_k.mlp_tower_plain(bad, layers, act, dropout, 7)
         clean = mlp_k.mlp_tower_fwd(x, layers, act, dropout, 7)
-        if not (bool(torch.isnan(got[3])) and bool(torch.isnan(want[3]))
-                and bool(torch.isfinite(got[rest]).all())
-                and torch.equal(got[rest], clean[rest])):
-            raise AssertionError(f"{what}: a NaN input row, dropout {dropout}: "
-                                 f"kernel {got[3]}, plain {want[3]}")
-    print(f"{what}: a NaN in input row 3 gives a NaN logit there, kernel and "
-          f"plain, dropout 0 and {DROPOUT}; the other rows keep their bits")
+        g, w = got[rows].cpu().numpy(), want[rows].cpu().numpy()
+        same = _same_pattern(g, w)
+        kept = (bool(torch.isfinite(got[rest]).all())
+                and torch.equal(got[rest], clean[rest]))
+        print(f"{what}, dropout {dropout}: input rows with {SPECIAL_NAMES}: kernel "
+              f"{g.tolist()}, plain {w.tolist()}: same pattern and values {same}; "
+              f"the other rows keep their bits {kept}")
+        if not (same and kept):
+            failures.append(f"{what}, dropout {dropout}")
+    return failures
+
+
+def _check_special_backward(what, x, layers, g, act, drop, seed) -> list:
+    """The backward kernel against autograd through the plain version on x
+    with one SPECIAL_ROWS value at a time (a NaN row makes every weight
+    gradient NaN): gx and every gW and gb held to the phase's tolerances
+    where autograd's value is finite; where it is not, printed: how many
+    such entries and at how many of them the kernel gives the same NaN or
+    inf. Returns the failures."""
+    import torch
+
+    from deepctr_torch.ops.kernels import mlp as mlp_k
+
+    failures, report = [], []
+    for row, value in SPECIAL_ROWS.items():
+        bad = x.clone()
+        bad[row, 1] = value
+        g_up = g
+        if act == "relu":
+            g_up = torch.where(_relu_edge_rows(bad, layers, drop, seed), 0.0, g)
+        gx, grads = mlp_k.mlp_tower_bwd(bad, layers, g_up, act, drop, seed)
+        wgx, wgrads = mlp_k.mlp_tower_bwd_plain(bad, layers, g_up, act, drop, seed)
+        pairs = [("gx", gx, wgx)]
+        for i, ((gw, gb), (ww, wb)) in enumerate(zip(grads, wgrads)):
+            pairs += [(f"gW{i}", gw, ww), (f"gb{i}", gb, wb)]
+        outside, nonfinite, matched = {}, 0, 0
+        for name, got, want in pairs:   # on the card: gx is 8192 rows
+            got, want = got.detach().double(), want.detach().double()
+            fin = torch.isfinite(want)
+            if name == "gx":
+                tol = ATOL + RTOL * want[fin].abs()
+            else:   # a batch sum: GRAD_REL of the largest finite element
+                tol = GRAD_REL * (float(want[fin].abs().max()) if bool(fin.any()) else 0.0)
+            n = int((~((got[fin] - want[fin]).abs() <= tol)).sum())
+            if n:
+                outside[name] = n
+            nonfinite += int((~fin).sum())
+            matched += int((torch.isnan(got) & torch.isnan(want)).sum()
+                           + (got == want)[torch.isinf(want)].sum())
+        report.append(f"{value:g}: outside {outside or 0}, not finite {nonfinite}, "
+                      f"the same {matched}")
+        if outside:
+            failures.append(f"{what}, {value:g}")
+    print(f"{what}: backward with one special input row, entries outside the "
+          f"tolerances where autograd is finite, entries where autograd is not "
+          f"finite, and where the kernel gives the same NaN or inf: {'; '.join(report)}")
+    return failures
 
 
 def _time_ms(fn, iters=50, warmup=5) -> float:
@@ -496,6 +590,64 @@ def _relu_edge_rows(x, layers, drop, seed):
     return edge
 
 
+def _phase3_tower_fwd(dev, rng):
+    """``mlp_tower_fwd`` against ``mlp_tower_plain`` at the serving and
+    training shapes, each case also with SPECIAL_ROWS in its input, and the
+    FNN and Criteo shapes timed on both. Returns ``({case: (kernel ms, plain
+    ms)}, the first case's max abs error)``; raises after every case has
+    printed if any failed."""
+    import torch
+
+    from deepctr_torch.ops.kernels import mlp as mlp_k
+
+    in_dim = 16 * (1 + K)   # ipinyou_full_schema: 16 fields of 1+k
+    fnn_dims = (in_dim,) + FNN_HIDDEN + (1,)
+    cases = [
+        ("fnn tanh", BATCH, fnn_dims, "tanh", True),
+        ("fnn tanh, 8 batches", REQUESTS, fnn_dims, "tanh", True),
+        ("fnn tanh ragged", 1000, fnn_dims, "tanh", True),
+        ("snn tanh", BATCH, (SNN_HIDDEN1,) + SNN_HIDDEN + (1,), "tanh", False),
+        ("criteo tanh", BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,), "tanh", True),
+        ("criteo relu", BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,), "relu", False),
+        ("small relu", 300, (24, 32, 16, 1), "relu", False),
+        ("small sigmoid", 77, (24, 32, 16, 1), "sigmoid", False),
+    ]
+    tower_times = {}
+    main_err = None
+    failures = []
+    for name, batch, dims, act, timed in cases:
+        x = torch.from_numpy(
+            rng.normal(size=(batch, dims[0])).astype(np.float32)).to(dev)
+        layers = _tower(rng, dims, dev)
+        got = mlp_k.mlp_tower_fwd(x, layers, act)
+        torch.cuda.synchronize()
+        want = mlp_k.mlp_tower_plain(x, layers, act)
+        err = _check_close(f"kernel vs plain [{batch}, {dims[0]}] "
+                           f"{'-'.join(map(str, dims[1:]))} {act} ({name})",
+                           got.cpu(), want.cpu())
+        if main_err is None:
+            main_err = err
+        failures += _check_special_rows(name, x, layers, act)
+        if not timed:
+            continue
+        times = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = mlp_k.mlp_tower_plain if which == "plain" else mlp_k.mlp_tower_fwd
+            times[which].append(_time_ms(lambda: fn(x, layers, act)))
+        kernel_ms = float(np.mean(times["kernel"]))
+        plain_ms = float(np.mean(times["plain"]))
+        tower_times[name] = (kernel_ms, plain_ms)
+        flop = 2 * batch * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+        print(f"time [{batch}, {dims[0]}]: kernel {kernel_ms:.4f} ms "
+              f"({flop / kernel_ms / 1e9:.2f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms ({flop / plain_ms / 1e9:.2f} TFLOP/s); "
+              f"runs {times}")
+    if failures:
+        raise AssertionError(f"special input rows: the kernel differs from the plain "
+                             f"version in {failures}")
+    return tower_times, main_err
+
+
 def _phase6_training_kernels(dev, rng) -> dict:
     """The forward with dropout and the backward kernel against the plain
     tower and autograd through it, for FNN's tanh tower and DeepFM's relu
@@ -507,6 +659,7 @@ def _phase6_training_kernels(dev, rng) -> dict:
     in_dim = 16 * (1 + K)
     seed = 12345
     out = {"fwd_drop_err": 0.0, "bwd_err": 0.0}
+    failures = []
     for act, hidden, batch, width in (("tanh", FNN_HIDDEN, BATCH, in_dim),
                                       ("tanh", FNN_HIDDEN, 1000, in_dim),
                                       ("relu", DEEPFM_HIDDEN, BATCH, in_dim),
@@ -562,6 +715,14 @@ def _phase6_training_kernels(dev, rng) -> dict:
                   f"seed bitwise equal: {same}")
             if not same:
                 raise AssertionError("a device seed gave other bits than the int seed")
+            failures += _check_special_backward(f"bwd kernel vs autograd {tag}", x,
+                                                layers, g, act, drop, seed)
+        failures += _check_special_rows(f"fwd kernel vs plain [{batch}, {width}] "
+                                        f"{'-'.join(map(str, dims[1:]))} {act}",
+                                        x, layers, act)
+    if failures:
+        raise AssertionError(f"special input rows: the kernels differ from the plain "
+                             f"versions in {failures}")
 
     dims = (in_dim,) + FNN_HIDDEN + (1,)
     x = torch.from_numpy(rng.normal(size=(BATCH, in_dim)).astype(np.float32)).to(dev)
@@ -2772,7 +2933,20 @@ def _sass_hmma(lib_path) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port's paths on one GPU.")
+    ap.add_argument("--phases", help="run phases 1-3 (device, build, the tower "
+                    "forward) and then only these kernel phases (a comma list of 3, 6, "
+                    "7), and print no report")
+    args = ap.parse_args(argv)
+    phases = None
+    if args.phases:
+        phases = {int(p) for p in args.phases.split(",")}
+        if not phases <= {3, 6, 7}:
+            ap.error(f"--phases {args.phases}: the kernel phases are 3, 6 and 7")
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2848,48 +3022,16 @@ def main() -> int:
 
     # 3. kernel vs plain on the card; timed at three batch sizes
     rng = np.random.default_rng(SEED)
+    tower_times, main_err = _phase3_tower_fwd(dev, rng)
+    if phases is not None:
+        for phase in sorted(phases - {3}):
+            {6: _phase6_training_kernels, 7: _phase7_fm_kernel}[phase](dev, rng)
+        print(f"chip_smoke: phases 1-3 and {sorted(phases - {3})} only (--phases): "
+              f"no report")
+        return 0
+    kernel_ms, plain_ms = tower_times["fnn tanh"]
     in_dim = 16 * (1 + K)   # ipinyou_full_schema: 16 fields of 1+k
     fnn_dims = (in_dim,) + FNN_HIDDEN + (1,)
-    cases = [
-        ("fnn tanh", BATCH, fnn_dims, "tanh", True),
-        ("fnn tanh, 8 batches", REQUESTS, fnn_dims, "tanh", True),
-        ("fnn tanh ragged", 1000, fnn_dims, "tanh", True),
-        ("snn tanh", BATCH, (SNN_HIDDEN1,) + SNN_HIDDEN + (1,), "tanh", False),
-        ("criteo tanh", BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,), "tanh", True),
-        ("criteo relu", BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,), "relu", False),
-        ("small relu", 300, (24, 32, 16, 1), "relu", False),
-        ("small sigmoid", 77, (24, 32, 16, 1), "sigmoid", False),
-    ]
-    tower_times = {}
-    main_err = None
-    for name, batch, dims, act, timed in cases:
-        x = torch.from_numpy(
-            rng.normal(size=(batch, dims[0])).astype(np.float32)).to(dev)
-        layers = _tower(rng, dims, dev)
-        got = mlp_k.mlp_tower_fwd(x, layers, act)
-        torch.cuda.synchronize()
-        want = mlp_k.mlp_tower_plain(x, layers, act)
-        err = _check_close(f"kernel vs plain [{batch}, {dims[0]}] "
-                           f"{'-'.join(map(str, dims[1:]))} {act} ({name})",
-                           got.cpu(), want.cpu())
-        if main_err is None:
-            main_err = err
-        _check_nan_row(name, x, layers, act)
-        if not timed:
-            continue
-        times = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = mlp_k.mlp_tower_plain if which == "plain" else mlp_k.mlp_tower_fwd
-            times[which].append(_time_ms(lambda: fn(x, layers, act)))
-        kernel_ms = float(np.mean(times["kernel"]))
-        plain_ms = float(np.mean(times["plain"]))
-        tower_times[name] = (kernel_ms, plain_ms)
-        flop = 2 * batch * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
-        print(f"time [{batch}, {dims[0]}]: kernel {kernel_ms:.4f} ms "
-              f"({flop / kernel_ms / 1e9:.2f} TFLOP/s), plain "
-              f"{plain_ms:.4f} ms ({flop / plain_ms / 1e9:.2f} TFLOP/s); "
-              f"runs {times}")
-    kernel_ms, plain_ms = tower_times["fnn tanh"]
 
     # 4. the slice end to end, through the CLI
     from deepctr_torch import cli

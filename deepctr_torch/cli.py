@@ -248,6 +248,7 @@ def _run(cfg, device: torch.device, group=None) -> dict:
         read_manifest,
         save_fm_embeddings,
         save_train_state,
+        stored_table_dtype,
     )
     from .parallel import (
         RankLocalStream,
@@ -256,6 +257,7 @@ def _run(cfg, device: torch.device, group=None) -> dict:
         load_host_shards,
         rank_zero_first,
         save_host_shards,
+        shard_table_dtype,
     )
     from .utils.logging import MetricsLogger
     from .utils.prof import trace
@@ -276,13 +278,27 @@ def _run(cfg, device: torch.device, group=None) -> dict:
                 train_source, group, count_shard_rows(train_source, group), logger.log)
     model = build_model(cfg, schema, device)
     sparse_opt, dense_opt = build_optimizers(cfg)
-    state = init_state(model, schema, sparse_opt, dense_opt, seed=cfg.train.seed,
-                       table_dtype=cfg.train.table_dtype)
     ckpt_path = cfg.train.checkpoint_path
     shards_dir = ckpt_path + ".hostshards" if distributed and ckpt_path else None
     from_shards = shards_dir is not None and os.path.isdir(shards_dir)
     resumed = from_shards or bool(cfg.train.resume and ckpt_path
                                   and os.path.exists(ckpt_path))
+    # the dtype the table trains in. The reference's hand-offs replace the
+    # table (deepctr_tpu/cli.py:277-280, 309-312): FNN seeded from an FM file
+    # trains the file's table in the dtype stored there, SNN after
+    # pretraining the pretraining's f32 table, whatever train.table_dtype
+    # says; a resumed run skips the hand-off and takes its checkpoint's
+    table_dtype = cfg.train.table_dtype
+    fnn_handoff = cfg.model.name == "fnn" and bool(cfg.model.init_from)
+    if fnn_handoff or (cfg.model.name == "snn" and cfg.train.pretrain):
+        if from_shards:
+            table_dtype = shard_table_dtype(shards_dir, group.rank)
+        elif resumed:
+            table_dtype = stored_table_dtype(ckpt_path)
+        else:
+            table_dtype = stored_table_dtype(cfg.model.init_from) if fnn_handoff else "f32"
+    state = init_state(model, schema, sparse_opt, dense_opt, seed=cfg.train.seed,
+                       table_dtype=table_dtype)
     start_epoch = 0
     if resumed and not from_shards:
         state = load_train_state(ckpt_path, state)
@@ -293,8 +309,9 @@ def _run(cfg, device: torch.device, group=None) -> dict:
     # seeded or pretrained table). The FM -> FNN hand-off: for other models
     # init_from means nothing, as in the reference
     if not resumed and cfg.model.name == "fnn" and cfg.model.init_from:
-        init_fnn_from_fm(model, load_fm_embeddings(cfg.model.init_from))
-        logger.log({"event": "init_from_fm", "path": cfg.model.init_from})
+        init_fnn_from_fm(model, load_fm_embeddings(cfg.model.init_from), table_dtype)
+        logger.log({"event": "init_from_fm", "path": cfg.model.init_from,
+                    "table_dtype": table_dtype})
     if not resumed and cfg.model.name == "snn" and cfg.train.pretrain:
         from .models import DaePretrainer, RbmPretrainer
 
@@ -317,7 +334,8 @@ def _run(cfg, device: torch.device, group=None) -> dict:
             device=device)
         init_snn_from_pretrain(model, table, b1)
         del table
-        logger.log({"event": "init_from_pretrain", "kind": cfg.train.pretrain})
+        logger.log({"event": "init_from_pretrain", "kind": cfg.train.pretrain,
+                    "table_dtype": table_dtype})
 
     ckpt_meta = {"sparse_opt": cfg.optim.sparse, "model": cfg.model.name}
     sharded = {}

@@ -117,16 +117,24 @@ __device__ __forceinline__ float activate_deriv(float a, int act) {
 
 // --- 3xTF32 ---------------------------------------------------------------------
 
-// x = hi + lo, both rounded to TF32 as cvt.rna.tf32.f32 rounds a finite
-// value: half a TF32 ulp is added to the bits (ties away from zero) and the
-// 13 bits below TF32's are cleared, hi's first so that x - hi is exact. A
-// NaN's hi is the quiet NaN 0x7FC00000: the NaNs the device makes are
-// 0x7FFFFFFF, whose add would carry into the sign bit and give -0, so a
-// NaN activation would reach the next layer as 0 (its lo is then -0, and
-// hi carries the NaN). The compiler's cvt.rna.tf32.f32 has the same guard,
-// for inf as well.
+// x = hi + lo. hi = cvt.rna.satfinite.tf32.f32(x): rounded to the nearest
+// TF32 value, ties away from zero; a NaN stays a NaN; an inf, or a finite
+// x that would round to inf (|x| >= (2 - 2^-11) 2^127), becomes the largest
+// TF32 value of its sign. lo = x - hi, exact, then rounded the same way by
+// adding half a TF32 ulp to its bits and clearing the 13 bits below TF32's.
+// - A NaN's hi is the NaN: lo is x - hi's NaN rounded, which the add carries
+//   into the sign bit (the device's NaN is 0x7FFFFFFF), -0.
+// - A finite x near FLT_MAX keeps a finite hi and lo, so the products give
+//   the f32 product's finite value.
+// - An inf's lo is the inf. The product's term lo.w_hi is then inf.w, as in
+//   f32; hi.w_hi is finite, or for |w| >= 1 an inf of the same sign, and
+//   hi.w_lo is finite for |w| < 2^11. With hi = inf, as rounding without
+//   saturation gives, hi.w_lo would be inf.0 (NaN) wherever w_lo is 0, and
+//   inf - inf where w_lo has the other sign: about half the weights.
+// The saturating conversion is one instruction where the integer rounding
+// with a select for each case took three more (PERF.md §6).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = x != x ? 0x7FC00000u : (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  asm("cvt.rna.satfinite.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
   lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xFFFFE000u;
 }
 

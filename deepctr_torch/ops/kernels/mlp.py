@@ -49,7 +49,17 @@ from ._build import check, is_cuda, load_library
 Layers = Sequence[tuple[torch.Tensor, torch.Tensor]]
 
 ACTIVATIONS = {"tanh": 0, "relu": 1, "sigmoid": 2}
-_PLAIN_ACTS = {"tanh": torch.tanh, "relu": torch.relu, "sigmoid": torch.sigmoid}
+
+
+def _relu(z: torch.Tensor) -> torch.Tensor:
+    """torch.relu with a zero gradient at NaN, as the reference's
+    jax.nn.relu and its kernel's (a > 0) derivative give (torch.relu's
+    gradient passes a NaN's upstream gradient through); a NaN still goes
+    through."""
+    return torch.where(torch.isnan(z), z.detach(), torch.relu(z))
+
+
+_PLAIN_ACTS = {"tanh": torch.tanh, "relu": _relu, "sigmoid": torch.sigmoid}
 MAX_LAYERS = 8  # kMaxLayers in the CUDA sources
 SEED_LIMIT = 1 << 24  # the reference carries the seed as an exact f32
 

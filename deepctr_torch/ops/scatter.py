@@ -103,3 +103,14 @@ def scatter_add_dedup(table: torch.Tensor, ids: torch.Tensor,
     d = dedupe_grads(ids, rows)
     return table.index_put((d.ids[d.is_last],), d.rows[d.is_last],
                            accumulate=True)
+
+
+def segment_sum_dense(ids: torch.Tensor, rows: torch.Tensor,
+                      num_rows: int) -> torch.Tensor:
+    """Oracle: the dense ``[num_rows, D]`` segment sum of ``rows`` by
+    ``ids``, a plain ``index_add_`` into zeros (the reference's
+    ``jax.ops.segment_sum``). Its order of addition is the library's, so on
+    the card its bits may change from run to run; the tests compare
+    against it."""
+    out = torch.zeros((num_rows,) + rows.shape[1:], dtype=rows.dtype, device=rows.device)
+    return out.index_add_(0, ids.long(), rows)

@@ -5,14 +5,25 @@ reference's ``mesh.py``, with a rank-local stream whose ranks agree on each
 epoch's step count); the table is row-sharded over the ranks with
 all-to-all id and row exchange (``sharded.py``: a step, or a chunk of
 K steps that the card replays as one CUDA graph), or replicated with the
-batch split (``dp.py``); ``comm.py`` counts the bytes a step exchanges;
-``hostckpt.py`` writes and reloads each rank's shard files; ``drill.py``
-(``python -m deepctr_torch.parallel.drill``) kills a rank and restores
-from them. The reference's ``predict_scaling`` (a TPU interconnect model)
-is not ported.
+batch split (``dp.py``); ``comm.py`` counts the bytes a step exchanges
+and predicts the step at N devices from links fitted to a collective
+sweep (``predict_scaling``, ``fit_links``); ``scaling.py`` (``python -m
+deepctr_torch.parallel.scaling``) measures that sweep and the sharded step
+at 1, 2 and 4 GPUs; ``hostckpt.py`` writes and reloads each rank's shard
+files; ``drill.py`` (``python -m deepctr_torch.parallel.drill``) kills a
+rank and restores from them.
 """
 
-from .comm import CommVolume, comm_volume, dense_param_bytes, exchange_capacity
+from .comm import (
+    CommVolume,
+    LinkModel,
+    ScalingPoint,
+    comm_volume,
+    dense_param_bytes,
+    exchange_capacity,
+    fit_links,
+    predict_scaling,
+)
 from .dp import make_dp_train_step, replicate_state
 from .group import (
     Group,
@@ -24,7 +35,7 @@ from .group import (
     rank_rows,
     rank_zero_first,
 )
-from .hostckpt import load_host_shards, save_host_shards
+from .hostckpt import load_host_shards, save_host_shards, shard_table_dtype
 from .sharded import (
     ShardedScanMetrics,
     ShardedTrainState,
@@ -43,9 +54,13 @@ from .sharded import (
 
 __all__ = [
     "CommVolume",
+    "LinkModel",
+    "ScalingPoint",
     "comm_volume",
     "dense_param_bytes",
     "exchange_capacity",
+    "fit_links",
+    "predict_scaling",
     "make_dp_train_step",
     "replicate_state",
     "Group",
@@ -53,6 +68,7 @@ __all__ = [
     "count_shard_rows",
     "load_host_shards",
     "save_host_shards",
+    "shard_table_dtype",
     "local_batch",
     "local_chunk",
     "process_group",

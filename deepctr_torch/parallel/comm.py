@@ -23,14 +23,29 @@ rides the exchange: the reference's split plan (small fields all-gathered
 as replicated subtables) is a TPU gather mechanism that the port does not
 have, so its small-field terms are absent here. The ids are counted at 4
 bytes, as the reference counts them; the port sends them as int64, its
-index type. The reference's ``predict_scaling`` models a TPU's ICI and DCN
-links and is not ported.
+index type.
+
+The scaling model (:func:`predict_scaling`, the reference's, in a GPU
+form) combines these volumes with the links' times into a predicted step
+and weak-scaling efficiency. Its intra-host terms are a :class:`LinkModel`:
+a bandwidth and a latency for the all-to-all and for the ring all-reduce,
+fitted by :func:`fit_links` to a sweep of the two collectives on the cards
+(``python -m deepctr_torch.parallel.scaling``); a step sends
+``A2A_PER_STEP`` all-to-alls and ``ALLREDUCE_PER_STEP`` all-reduces, and
+each pays its latency once. The inter-host term keeps the reference's
+per-host accounting; its bandwidth has no default, since one box cannot
+measure a link between hosts. ``DEFAULT_LINKS`` holds the fit of a sweep
+on four NVIDIA H100 80GB HBM3 at 700.00 W, joined pairwise by NVLink
+(NCCL 2.28.9; PERF.md §5): its comment gives the card, the topology and
+the values.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterable
 
+import numpy as np
 import torch
 
 
@@ -101,3 +116,152 @@ def dense_param_bytes(model: torch.nn.Module) -> int:
     step): every parameter but the table."""
     return sum(p.numel() * p.element_size()
                for name, p in model.named_parameters() if name != "table")
+
+
+# collectives a sharded train step issues (parallel/sharded.py): the id,
+# row and gradient all-to-alls; the weight-sum, loss, dense-gradient and
+# dropped-count all-reduces
+A2A_PER_STEP = 3
+ALLREDUCE_PER_STEP = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class LinkModel:
+    """Intra-host link terms of the sharded step's collectives: a call's
+    time is ``latency + wire bytes / bandwidth``, with the wire bytes a rank
+    moves as :class:`CommVolume` counts them (an all-to-all's payload times
+    (N-1)/N, a ring all-reduce's operand times 2(N-1)/N)."""
+
+    a2a_bytes_per_s: float
+    a2a_latency_s: float
+    allreduce_bytes_per_s: float
+    allreduce_latency_s: float
+
+
+# fitted to the sweep of `python -m deepctr_torch.parallel.scaling --device
+# cuda --ranks 1,2,4` on four NVIDIA H100 80GB HBM3 at 700.00 W (nvidia-smi
+# --query-gpu=name,power.limit), NVLink between every pair (nvidia-smi topo
+# -p2p n; topo -m failed on that machine), NCCL 2.28.9, torch 2.11.0+cu128
+# (PERF.md §5): 223 GB/s and 12.2 µs a call for the all-to-all, 261 GB/s and
+# 12.7 µs for the ring all-reduce
+DEFAULT_LINKS = LinkModel(
+    a2a_bytes_per_s=223391597961.4667, a2a_latency_s=1.2231261984842842e-05,
+    allreduce_bytes_per_s=260732360180.9317, allreduce_latency_s=1.2673683726299912e-05)
+
+
+def wire_bytes(collective: str, payload: int, n: int) -> float:
+    """Bytes a rank moves over the links for one call on ``payload`` bytes
+    a rank in a world of ``n``: the all-to-all keeps 1/n of its payload
+    local; the ring all-reduce moves 2(n-1)/n of its operand."""
+    if collective == "all_to_all":
+        return payload * (n - 1) / n
+    if collective == "all_reduce":
+        return payload * 2 * (n - 1) / n
+    raise ValueError(f"collective {collective!r} (all_to_all|all_reduce)")
+
+
+def _fit_line(wire: np.ndarray, seconds: np.ndarray) -> tuple[float, float]:
+    """``(latency s, bandwidth bytes/s)`` of ``seconds = latency + wire /
+    bandwidth`` by least squares on the relative error (each point weighs
+    1/seconds, so that small payloads fix the latency and large ones the
+    bandwidth); the latency is held at 0 where the free fit makes it
+    negative."""
+    a = np.stack([1.0 / seconds, wire / seconds], axis=1)
+    (lat, inv_bw), *_ = np.linalg.lstsq(a, np.ones_like(seconds), rcond=None)
+    if lat < 0.0:
+        x = wire / seconds
+        lat, inv_bw = 0.0, float(x.sum() / (x * x).sum())
+    if inv_bw <= 0.0:
+        raise ValueError("the sweep's times do not grow with the payload: no "
+                         "bandwidth term to fit")
+    return float(lat), float(1.0 / inv_bw)
+
+
+def fit_links(records: Iterable[dict]) -> LinkModel:
+    """A :class:`LinkModel` fitted to a collective sweep: records
+    ``{"collective": "all_to_all" | "all_reduce", "ranks": N, "bytes":
+    payload a rank, "ms": time of one call}`` (the sweep of
+    ``parallel/scaling.py``). Points of one rank move nothing over a link
+    and are left out. Each collective needs at least two payload sizes."""
+    points = {"all_to_all": [], "all_reduce": []}
+    for r in records:
+        if r["ranks"] > 1:
+            points[r["collective"]].append((
+                r["bytes"], wire_bytes(r["collective"], r["bytes"], r["ranks"]),
+                r["ms"] / 1e3))
+    fitted = {}
+    for collective, pts in points.items():
+        if len({payload for payload, _, _ in pts}) < 2:
+            raise ValueError(f"{collective}: {len(pts)} sweep points of more than one "
+                             f"rank; the fit needs two payload sizes or more")
+        _, wire, seconds = (np.array(v, np.float64) for v in zip(*pts))
+        fitted[collective] = _fit_line(wire, seconds)
+    (a2a_lat, a2a_bw), (ar_lat, ar_bw) = fitted["all_to_all"], fitted["all_reduce"]
+    return LinkModel(a2a_bytes_per_s=a2a_bw, a2a_latency_s=a2a_lat,
+                     allreduce_bytes_per_s=ar_bw, allreduce_latency_s=ar_lat)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScalingPoint:
+    """Predicted weak-scaling step and efficiency at one topology point
+    (the reference's, with its ICI and DCN terms as intra- and inter-host
+    terms)."""
+
+    n_devices: int
+    n_hosts: int
+    wire_bytes: int            # a rank's bytes a step over intra-host links
+    inter_bytes_per_host: int  # a host's bytes a step over the inter-host link
+    t_comp_ms: float
+    t_intra_ms: float
+    t_inter_ms: float
+    efficiency_no_overlap: float   # t_comp / (t_comp + t_comm)
+    efficiency_overlapped: float   # t_comp / max(t_comp, t_comm)
+
+    @property
+    def step_ms(self) -> float:
+        """The predicted step with the exchange not overlapped."""
+        return self.t_comp_ms + self.t_intra_ms + self.t_inter_ms
+
+
+def predict_scaling(vol: CommVolume, t_comp_ms: float, n_hosts: int = 1,
+                    chips_per_host: int | None = None, links: LinkModel | None = None,
+                    inter_bytes_per_s_per_host: float | None = None) -> ScalingPoint:
+    """Combine a step's volumes with link times into its predicted step and
+    efficiency, as the reference's ``predict_scaling`` does.
+
+    Weak scaling: ``t_comp_ms`` is the step measured on one device at the
+    same per-device batch; the exchange adds its time on top. Intra-host:
+    the all-to-alls' and the all-reduce's wire bytes over ``links``'
+    bandwidths, and ``A2A_PER_STEP`` and ``ALLREDUCE_PER_STEP`` latencies
+    where there is more than one device (``links`` defaults to
+    ``DEFAULT_LINKS``). Inter-host, with ``n_hosts`` > 1: the reference's
+    per-host bytes (an all-to-all's remote share of each of the host's
+    devices' payloads, and twice the all-reduced operand, reduced within the
+    host first) over ``inter_bytes_per_s_per_host``, which has no default.
+    ``efficiency_no_overlap`` puts the exchange after the compute;
+    ``efficiency_overlapped`` assumes it hides entirely."""
+    links = links or DEFAULT_LINKS
+    n = vol.n_devices
+    chips_per_host = chips_per_host or _cdiv(n, n_hosts)
+    t_intra = 0.0
+    if n > 1:
+        t_intra = (A2A_PER_STEP * links.a2a_latency_s
+                   + vol.a2a_wire / links.a2a_bytes_per_s
+                   + ALLREDUCE_PER_STEP * links.allreduce_latency_s
+                   + vol.psum_wire / links.allreduce_bytes_per_s) * 1e3
+    inter_bytes, t_inter = 0, 0.0
+    if n_hosts > 1 and n > chips_per_host:
+        if inter_bytes_per_s_per_host is None:
+            raise ValueError("a prediction across hosts needs "
+                             "inter_bytes_per_s_per_host: one box cannot measure it")
+        remote_frac = (n - chips_per_host) / n
+        a2a_payload = vol.ids_a2a + vol.rows_a2a_fwd + vol.rows_a2a_bwd
+        inter_bytes = int(a2a_payload * remote_frac * chips_per_host
+                          + 2 * vol.dense_psum)
+        t_inter = inter_bytes / inter_bytes_per_s_per_host * 1e3
+    t_comm = t_intra + t_inter
+    return ScalingPoint(
+        n_devices=n, n_hosts=n_hosts, wire_bytes=vol.total_wire,
+        inter_bytes_per_host=inter_bytes, t_comp_ms=t_comp_ms, t_intra_ms=t_intra,
+        t_inter_ms=t_inter, efficiency_no_overlap=t_comp_ms / (t_comp_ms + t_comm),
+        efficiency_overlapped=t_comp_ms / max(t_comp_ms, t_comm))

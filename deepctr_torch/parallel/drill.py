@@ -43,13 +43,13 @@ import contextlib
 import hashlib
 import json
 import os
-import subprocess
 import sys
 import tempfile
-import time
 
 import numpy as np
 import torch
+
+from .group import torchrun
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 LEGS = ("kill", "resume", "stream", "scan")
@@ -187,37 +187,6 @@ def _scan_worker(workdir: str, device: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _torchrun(args: list[str], nproc: int, timeout: float, check: bool = True):
-    """``torchrun --standalone --nproc_per_node=nproc ARGS`` from the
-    repository's root; returns ``(exit code, stdout, stderr, seconds)``. Past
-    ``timeout`` the launcher is sent SIGTERM, on which it stops its ranks,
-    and ``RuntimeError`` raises with the end of their output."""
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join(
-                   p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         f"--nproc_per_node={nproc}", *args],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    try:
-        out, err = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired as e:
-        proc.terminate()
-        try:
-            out, err = proc.communicate(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, err = proc.communicate()
-        raise RuntimeError(f"torchrun {' '.join(args)} did not end within {timeout} "
-                           f"s:\n{out[-2000:]}\n{err[-4000:]}") from e
-    seconds = time.perf_counter() - t0
-    if check and proc.returncode != 0:
-        raise RuntimeError(f"torchrun {' '.join(args)} exited {proc.returncode}:\n"
-                           f"{out[-2000:]}\n{err[-4000:]}")
-    return proc.returncode, out, err, seconds
-
-
 def _worker_args(mode: str, workdir: str, device: str) -> list[str]:
     return ["-m", "deepctr_torch.parallel.drill", "--worker", mode,
             "--workdir", workdir, "--device", device]
@@ -232,8 +201,8 @@ def _read(workdir: str, mode: str, nproc: int) -> list[dict]:
 
 
 def leg_kill(workdir: str, device: str, nproc: int) -> None:
-    _torchrun(_worker_args("full", workdir, device), nproc, RUN_LIMIT_S)
-    rc, out, _, seconds = _torchrun(_worker_args("crash", workdir, device), nproc,
+    torchrun(_worker_args("full", workdir, device), nproc, RUN_LIMIT_S)
+    rc, out, _, seconds = torchrun(_worker_args("crash", workdir, device), nproc,
                                     KILL_LIMIT_S, check=False)
     print(f"drill kill: rank 1 died after step 2; the launcher exited {rc} in "
           f"{seconds:.1f} s (limit {KILL_LIMIT_S} s)")
@@ -243,7 +212,7 @@ def leg_kill(workdir: str, device: str, nproc: int) -> None:
     shards = sorted(os.listdir(os.path.join(workdir, "kill.hostshards")))
     if shards != [f"proc{r}.npz" for r in range(nproc)]:
         raise RuntimeError(f"host shard files {shards}")
-    _torchrun(_worker_args("restore", workdir, device), nproc, RUN_LIMIT_S)
+    torchrun(_worker_args("restore", workdir, device), nproc, RUN_LIMIT_S)
     full, restored = _read(workdir, "full", nproc), _read(workdir, "restore", nproc)
     for r, (a, b) in enumerate(zip(full, restored)):
         same = (a["losses"][2:] == b["losses"] and a["step"] == b["step"] == 4
@@ -289,12 +258,12 @@ def leg_resume(workdir: str, device: str, nproc: int) -> None:
     base = _cli_base(workdir, device) + ["data.synthetic_examples=3000"]
     a, b = os.path.join(workdir, "a.ckpt"), os.path.join(workdir, "b.ckpt")
     b_metrics = os.path.join(workdir, "b.jsonl")
-    _torchrun(base + ["train.epochs=2", f"train.checkpoint_path={a}",
+    torchrun(base + ["train.epochs=2", f"train.checkpoint_path={a}",
                       "--device", device], nproc, RUN_LIMIT_S)
-    _torchrun(base + ["train.epochs=1", f"train.checkpoint_path={b}",
+    torchrun(base + ["train.epochs=1", f"train.checkpoint_path={b}",
                       f"train.metrics_path={b_metrics}", "--device", device],
               nproc, RUN_LIMIT_S)
-    _torchrun(base + ["train.epochs=2", f"train.checkpoint_path={b}",
+    torchrun(base + ["train.epochs=2", f"train.checkpoint_path={b}",
                       f"train.metrics_path={b_metrics}", "--device", device],
               nproc, RUN_LIMIT_S)
     resumed = [e for e in _events(b_metrics) if e.get("event") == "resumed_hostshards"]
@@ -328,7 +297,7 @@ def leg_stream(workdir: str, device: str, nproc: int) -> None:
     for prefetch in ("true", "false"):
         ckpt = os.path.join(workdir, f"stream_{prefetch}.ckpt")
         metrics = os.path.join(workdir, f"stream_{prefetch}.jsonl")
-        _torchrun(base + [f"train.prefetch={prefetch}", f"train.checkpoint_path={ckpt}",
+        torchrun(base + [f"train.prefetch={prefetch}", f"train.checkpoint_path={ckpt}",
                           f"train.metrics_path={metrics}", "--device", device],
                   nproc, RUN_LIMIT_S)
         records[prefetch] = [{k: v for k, v in e.items()
@@ -355,7 +324,7 @@ def leg_stream(workdir: str, device: str, nproc: int) -> None:
 
 
 def leg_scan(workdir: str, device: str, nproc: int) -> None:
-    _torchrun(_worker_args("scan", workdir, device), nproc, RUN_LIMIT_S)
+    torchrun(_worker_args("scan", workdir, device), nproc, RUN_LIMIT_S)
     ranks = _read(workdir, "scan", nproc)
     print(f"drill scan: two chunks of 8 sharded steps (3 pad steps) on {nproc} "
           f"ranks, {'a captured graph' if ranks[0]['graph'] else 'eager'} vs eager "

@@ -30,7 +30,10 @@ import dataclasses
 import itertools
 import os
 import shutil
+import subprocess
+import sys
 import tempfile
+import time
 from typing import Callable, Iterator
 
 import numpy as np
@@ -39,6 +42,8 @@ import torch.distributed as dist
 
 from ..data import Batch
 from ..data.stream import StreamSource
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,3 +243,35 @@ class RankLocalStream:
                 yield b
         finally:
             it.close()
+
+
+def torchrun(args: list[str], nproc: int, timeout: float, check: bool = True):
+    """``torchrun --standalone --nproc_per_node=nproc ARGS`` from the root
+    of the checkout, with it on ``PYTHONPATH``; returns ``(exit code,
+    stdout, stderr, seconds)``. Past ``timeout`` the launcher is sent
+    SIGTERM, on which it stops its ranks, and ``RuntimeError`` raises with
+    the end of their output."""
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (_ROOT, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={nproc}", *args],
+        cwd=_ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired as e:
+        proc.terminate()
+        try:
+            out, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        raise RuntimeError(f"torchrun {' '.join(args)} did not end within {timeout} "
+                           f"s:\n{out[-2000:]}\n{err[-4000:]}") from e
+    seconds = time.perf_counter() - t0
+    if check and proc.returncode != 0:
+        raise RuntimeError(f"torchrun {' '.join(args)} exited {proc.returncode}:\n"
+                           f"{out[-2000:]}\n{err[-4000:]}")
+    return proc.returncode, out, err, seconds

@@ -90,6 +90,14 @@ def _as_tensor(a: np.ndarray, bf16: bool) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def shard_table_dtype(dirpath: str, rank: int) -> str:
+    """The dtype rank ``rank``'s shard file stores the table in, ``"bf16"``
+    or ``"f32"``."""
+    with np.load(os.path.join(dirpath, f"proc{rank}.npz"), allow_pickle=False) as z:
+        bf16 = z["__bf16_leaves"].tolist() if "__bf16_leaves" in z.files else []
+    return "bf16" if 1 in bf16 else "f32"   # leaf 1: the table, after the step
+
+
 @torch.no_grad()
 def load_host_shards(dirpath: str, like: ShardedTrainState,
                      group: Group) -> tuple[ShardedTrainState, int]:

@@ -230,31 +230,49 @@ def load_fm_embeddings(path: str) -> np.ndarray:
     return table.astype(np.float32)
 
 
+def stored_table_dtype(path: str) -> str:
+    """The dtype the table is stored in, ``"bf16"`` or ``"f32"``, from the
+    manifest of a train-state checkpoint (its ``scoring`` entry names the
+    table's leaf) or of the FM file :func:`save_fm_embeddings` writes (one
+    leaf)."""
+    manifest = read_manifest(path)
+    leaf = manifest["scoring"]["table_leaf"] if "scoring" in manifest else 0
+    return "bf16" if leaf in manifest.get("bf16_leaves", ()) else "f32"
+
+
 @torch.no_grad()
-def init_fnn_from_fm(model: torch.nn.Module, fm_table: np.ndarray) -> None:
-    """Replace FNN's embedding table with the trained FM (w|v) rows, in
-    place, in the dtype of the model's table (the configured
-    ``train.table_dtype``)."""
-    fm_table = torch.as_tensor(np.asarray(fm_table, np.float32))
+def init_fnn_from_fm(model: torch.nn.Module, fm_table: np.ndarray,
+                     table_dtype: str = "f32") -> None:
+    """Replace FNN's embedding table with the trained FM (w|v) rows, as the
+    reference's ``init_fnn_from_fm`` does: the table becomes the FM table in
+    the dtype the FM file stores it in (``table_dtype``, see
+    :func:`stored_table_dtype`), whatever dtype the model's table had. An f32
+    FM file so gives an f32 table where ``train.table_dtype=bf16``
+    (``deepctr_tpu/cli.py:277-280``)."""
+    if table_dtype not in ("f32", "bf16"):
+        raise ValueError(f"table_dtype {table_dtype!r} (f32|bf16)")
+    fm_table = torch.tensor(np.asarray(fm_table, np.float32), device=model.table.device)
     if fm_table.shape != model.table.shape:
         raise ValueError(
             f"FM table {tuple(fm_table.shape)} does not match FNN table "
             f"{tuple(model.table.shape)}; train FM with the same schema and k"
         )
-    model.table.copy_(fm_table)
+    model.table.data = fm_table.to(torch.bfloat16) if table_dtype == "bf16" else fm_table
 
 
 @torch.no_grad()
 def init_snn_from_pretrain(model: torch.nn.Module, table, b1) -> None:
-    """Seed SNN's supervised phase from the DAE or RBM pretraining output, in
-    place: the table (in the dtype of the model's) and ``b1``."""
+    """Seed SNN's supervised phase from the DAE or RBM pretraining output, as
+    the reference's ``init_snn_from_pretrain`` does: the table becomes a
+    copy of the pretrained one, in its dtype (the pretraining's f32), and
+    ``b1`` is copied in."""
     table = torch.as_tensor(table)
     if table.shape != model.table.shape:
         raise ValueError(
             f"pretrained table {tuple(table.shape)} != SNN table "
             f"{tuple(model.table.shape)}"
         )
-    model.table.copy_(table)
+    model.table.data = table.to(model.table.device, copy=True)
     model.b1.copy_(torch.as_tensor(b1))
 
 

@@ -80,6 +80,19 @@ def test_scatter_totals_is_the_exact_sum_rounded_once():
     assert torch.equal(t_scatter.scatter_totals(300, ids[perm], rows[perm]), got)
 
 
+@pytest.mark.parametrize("seed", [4, 5])
+def test_segment_sum_dense_matches_jax(seed):
+    """The oracle: ``index_add_`` into zeros against the reference's
+    ``jax.ops.segment_sum``, and against ``scatter_totals``."""
+    ids, rows = _occurrences(seed)
+    want = j_scatter.segment_sum_dense(jnp.asarray(ids), jnp.asarray(rows), V)
+    got = t_scatter.segment_sum_dense(torch.from_numpy(ids), torch.from_numpy(rows), V)
+    assert got.shape == (V, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), t_scatter.scatter_totals(
+        V, torch.from_numpy(ids), torch.from_numpy(rows)).numpy(), rtol=RTOL, atol=ATOL)
+
+
 def test_scatter_add_dedup_matches_jax():
     ids, rows = _occurrences(1)
     table = _table(2)

@@ -388,8 +388,8 @@ def test_pretrain_to_snn_handoff_and_finetune(tiny_schema, tiny_dataset):
 
 def test_init_snn_from_pretrain_checks_the_shape(tiny_schema):
     """The reference's error for a table of another shape; a bf16 model
-    table takes the pretrained f32 table rounded, as the FM -> FNN hand-off
-    does."""
+    table is replaced by a copy of the pretrained f32 table, as the
+    reference's hand-off replaces it."""
     model = t_models.make_snn(tiny_schema, hidden1=H1, mlp=TMlpSpec(hidden=(8,)),
                               device="cpu")
     with pytest.raises(ValueError, match="pretrained table .* != SNN table"):
@@ -397,9 +397,56 @@ def test_init_snn_from_pretrain_checks_the_shape(tiny_schema):
     table, b1, _ = _pretrain_params(tiny_schema, seed=5)
     model.table.data = model.table.data.to(torch.bfloat16)
     t_ckpt.init_snn_from_pretrain(model, table, b1)
-    assert model.table.dtype == torch.bfloat16
-    assert torch.equal(model.table.data, torch.from_numpy(table).to(torch.bfloat16))
+    assert model.table.dtype == torch.float32
+    assert torch.equal(model.table.data, torch.from_numpy(table))
+    assert model.table.data_ptr() != torch.from_numpy(table).data_ptr()
     np.testing.assert_array_equal(model.b1.detach().numpy(), b1)
+
+
+def test_snn_handoff_after_rbm_on_a_bf16_state_matches_jax(tiny_schema, tiny_dataset):
+    """RBM pretraining's f32 table handed to an SNN whose state was made with
+    a bf16 table (``train.table_dtype=bf16``): the reference's hand-off and
+    the port's both give an f32 table, bit for bit, and three Adagrad steps
+    from there follow the JAX step."""
+    schema, ds = tiny_schema, tiny_dataset
+    table, b1 = t_pretrain_snn(
+        t_snn.RbmPretrainer(m=M), schema, H1, ds.ids[:4 * BATCH],
+        sparse_opt=t_sparse.SparseSgd(0.1), batch_size=BATCH, epochs=1, device="cpu")
+    assert table.dtype == torch.float32
+    jmodel, model = _snn_pair(schema)
+    jopt, topt = j_sparse.SparseAdagrad(0.1), t_sparse.SparseAdagrad(0.1)
+    jstate = j_init_state(jmodel, schema, jopt, optax.adagrad(0.05), seed=0,
+                          table_dtype="bf16")
+    tstate = t_init_state(model, schema, topt, make_dense_optimizer("adagrad", 0.05),
+                          seed=0, table_dtype="bf16")
+    model.load_state_dict(t_ckpt.params_from_jax(np.asarray(jstate.table, np.float32),
+                                                 jstate.dense))
+    params = j_ckpt.init_snn_from_pretrain({"table": jstate.table, "dense": jstate.dense},
+                                           table.numpy(), b1.numpy())
+    jstate = jstate._replace(table=params["table"], dense=params["dense"])
+    t_ckpt.init_snn_from_pretrain(model, table, b1)
+    assert jstate.table.dtype == jnp.float32 and tstate.table.dtype == torch.float32
+    np.testing.assert_array_equal(tstate.table.numpy(), np.asarray(jstate.table))
+
+    from deepctr_torch.train import make_train_step as t_make_train_step
+    from deepctr_tpu.train import make_train_step as j_make_train_step
+
+    jstep = j_make_train_step(jmodel, schema, jopt, optax.adagrad(0.05), jit=False)
+    tstep = t_make_train_step(schema, topt, make_dense_optimizer("adagrad", 0.05))
+    ones = np.ones(BATCH, np.float32)
+    for i in range(3):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        ids, labels = ds.ids[sl], ds.labels[sl]
+        jstate, jm = jstep(jstate, jnp.asarray(ids), jnp.asarray(labels), jnp.asarray(ones))
+        tstate, tm = tstep(tstate, ids, labels, ones)
+        np.testing.assert_allclose(float(tm.loss), float(jm.loss), rtol=RTOL, atol=ATOL)
+    assert jstate.table.dtype == jnp.float32 and tstate.table.dtype == torch.float32
+    np.testing.assert_allclose(tstate.table.numpy(), np.asarray(jstate.table),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tstate.sparse_state.acc.numpy(),
+                               np.asarray(jstate.sparse_state.acc), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(model.b1.detach().numpy(), np.asarray(jstate.dense["b1"]),
+                               rtol=RTOL, atol=ATOL)
 
 
 def _write_schema(schema, tmp_path):

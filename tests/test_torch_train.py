@@ -8,6 +8,7 @@ and the JAX tower runs through its Pallas kernels in interpret mode
 (``use_pallas=True``), whose dropout is the counter hash the port has.
 """
 
+import json
 import os
 
 import jax
@@ -300,30 +301,76 @@ def test_fm_handoff_decodes_a_bf16_fm_table(tmp_path):
 
 
 @pytest.mark.parametrize("table_dtype", ["f32", "bf16"])
-def test_fnn_init_from_fm_matches_jax(schema, tmp_path, table_dtype):
-    """An f32 FM table lands in the port's FNN as in the reference's run();
-    with a bf16 table the port casts it to the configured dtype."""
+def test_fnn_init_from_fm_matches_jax(schema, data, tmp_path, table_dtype):
+    """An f32 FM table lands in the port's FNN as in the reference's run():
+    the hand-off replaces the table, so from a state made with either table
+    dtype both packages hold the FM table in f32, bit for bit, and three
+    Adagrad steps from there follow the JAX step."""
     fm = np.random.default_rng(2).normal(0.0, 0.3, (schema.padded_vocab_size, 1 + K))
     fm = fm.astype(np.float32)
     path = str(tmp_path / "fm.fm_table")
     j_ckpt.save_fm_embeddings(path, jnp.asarray(fm))
+    assert t_ckpt.stored_table_dtype(path) == "f32"
+    jsopt, jdopt, tsopt, tdopt = _optimizers("adagrad")
     jmodel = make_fnn(schema, k=K, mlp=MlpSpec(hidden=HIDDEN))
-    jstate = j_init_state(jmodel, schema, j_sparse.SparseAdagrad(0.1),
-                          optax.adagrad(0.05))
-    want = j_ckpt.init_fnn_from_fm({"table": jstate.table, "dense": jstate.dense},
-                                   j_ckpt.load_fm_embeddings(path))["table"]
-    model = t_make_fnn(schema, k=K, mlp=TMlpSpec(hidden=HIDDEN), device="cpu")
-    t_init_state(model, schema, t_sparse.SparseAdagrad(0.1),
-                 make_dense_optimizer("adagrad", 0.05), table_dtype=table_dtype)
-    t_ckpt.init_fnn_from_fm(model, t_ckpt.load_fm_embeddings(path))
-    if table_dtype == "f32":
-        np.testing.assert_array_equal(model.table.detach().numpy(), np.asarray(want))
-    else:
-        assert model.table.dtype == torch.bfloat16
-        np.testing.assert_array_equal(model.table.detach().float().numpy(),
-                                      fm.astype(ml_dtypes.bfloat16).astype(np.float32))
+    jstate = j_init_state(jmodel, schema, jsopt, jdopt, seed=0, table_dtype=table_dtype)
+    state = _port_state_from_jax(schema, jstate, 0.0, tsopt, tdopt, table_dtype)
+    jstate = jstate._replace(table=j_ckpt.init_fnn_from_fm(
+        {"table": jstate.table, "dense": jstate.dense},
+        j_ckpt.load_fm_embeddings(path))["table"])
+    t_ckpt.init_fnn_from_fm(state.model, t_ckpt.load_fm_embeddings(path))
+    assert jstate.table.dtype == jnp.float32 and state.table.dtype == torch.float32
+    np.testing.assert_array_equal(state.table.numpy(), np.asarray(jstate.table))
+
+    jstep = j_make_train_step(jmodel, schema, jsopt, jdopt)
+    tstep = t_make_train_step(schema, tsopt, tdopt)
+    for i in range(3):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        ids, labels = data.ids[sl], data.labels[sl]
+        weights = np.ones(BATCH, np.float32)
+        jstate, jm = jstep(jstate, jnp.asarray(ids), jnp.asarray(labels),
+                           jnp.asarray(weights))
+        state, tm = tstep(state, ids, labels, weights)
+        np.testing.assert_allclose(float(tm.loss), float(jm.loss), rtol=RTOL, atol=ATOL)
+    assert jstate.table.dtype == jnp.float32 and state.table.dtype == torch.float32
+    np.testing.assert_allclose(state.table.numpy(), np.asarray(jstate.table),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(state.sparse_state.acc.numpy(),
+                               np.asarray(jstate.sparse_state.acc), rtol=RTOL, atol=ATOL)
+    _, got_dense = t_ckpt.params_to_jax(state.model)
+    for a, b in zip(t_ckpt.jax_leaves(got_dense),
+                    jax.tree_util.tree_leaves(jstate.dense), strict=True):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=RTOL, atol=ATOL)
     with pytest.raises(ValueError, match="does not match"):
-        t_ckpt.init_fnn_from_fm(model, fm[:-1])
+        t_ckpt.init_fnn_from_fm(state.model, fm[:-1])
+
+
+def test_cli_fnn_from_an_f32_fm_file_trains_an_f32_table(schema, tmp_path, capsys):
+    """With ``train.table_dtype=bf16`` the CLI's FNN seeded from an f32 FM
+    file trains and saves an f32 table, as the reference's run does; the
+    ``init_from_fm`` event names the dtype, and the run resumes from its
+    checkpoint in f32, with the FM file gone."""
+    schema_path = tmp_path / "schema.json"
+    schema_path.write_text(schema.to_json())
+    path = str(tmp_path / "fm.fm_table")
+    t_ckpt.save_fm_embeddings(path, np.random.default_rng(3).normal(
+        0.0, 0.3, (schema.padded_vocab_size, 1 + K)).astype(np.float32))
+    ckpt, metrics = str(tmp_path / "fnn.ckpt"), tmp_path / "m.jsonl"
+    argv = [f"data.schema_path={schema_path}", "data.synthetic_examples=400",
+            f"model.k={K}", "model.hidden=8", f"model.init_from={path}",
+            f"train.batch_size={BATCH}", "train.table_dtype=bf16",
+            f"train.checkpoint_path={ckpt}", f"train.metrics_path={metrics}"]
+    assert t_cli.main(argv + ["train.epochs=1", "--device", "cpu"]) == 0
+    assert t_ckpt.stored_table_dtype(ckpt) == "f32"
+    os.remove(path)   # resuming skips the hand-off: the FM file is not read
+    assert t_cli.main(argv + ["train.epochs=2", "train.resume=true",
+                              "--device", "cpu"]) == 0
+    capsys.readouterr()
+    events = [json.loads(line) for line in metrics.read_text().splitlines()]
+    handoff = [e for e in events if e.get("event") == "init_from_fm"]
+    assert [e["table_dtype"] for e in handoff] == ["f32"]
+    assert [e.get("event") for e in events].count("resumed") == 1
+    assert t_ckpt.read_manifest(ckpt)["epoch"] == 2
 
 
 def test_init_state_draws_from_the_seed(schema):
