@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, retraining, sharded and
-multi-process training paths once on one GPU, and its default training
-route, the scan route of CUDA graphs, unsharded and sharded.
+multi-process training paths once on one GPU, its default training route,
+the scan route of CUDA graphs, unsharded and sharded, and its model-family
+reproduction suite at a cut budget.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``, and imports nothing of JAX.
@@ -195,6 +196,22 @@ Phases, each printing its own lines:
     ``torch.cuda.set_sync_debug_mode("error")`` for FNN and Criteo: no host
     sync; (e) the tower launches of the CLI run: 8 a replay and each
     capture's warm-up step.
+19. the model-family suite, ``deepctr_torch.tools.reproduce`` (the
+    counterpart of ``tools/reproduce.py``, whose full run writes
+    ``RESULTS_TORCH.md``) at a cut budget: LR, FM, FNN seeded from FM's
+    table, SNN-RBM after pretraining, DeepFM and IPNN, 2 epochs each of
+    batch 512 on its 120,000 synthetic rows, each through ``cli.run`` on
+    the scan route. First the suite's FNN step alone at batch 512: the
+    memory one capture keeps, wall and device ms a step over 5 replays and
+    the busy share (``torch.profiler``). Then the suite, with the counts set
+    to 0 just before it: its family table in MODELS order, every AUC finite
+    and above 0.5; the tower forward, backward and FM scorer launches equal
+    to the scan route's prediction (a replay adds its capture's, one graph
+    a run and one warm-up step a capture, the eval forward once an eval
+    batch); no graph alive after the last run, no private graph pool left,
+    and the device memory within one capture's keep of what it was before
+    the first run (cuBLAS's workspace of each stream, 32 MiB, cleared on
+    both sides and counted); the seconds, launches and memory printed.
 Phases 8-13 train through the CLI, so on the scan route: their launch
 counts add each replay's captured launches (the wrappers run but launch
 nothing during a capture), and each capture's warm-up step on a clone of
@@ -2905,6 +2922,188 @@ def _phase18_sharded_scan(dev, root, tmp, schema_path) -> dict:
             "criteo_launches": launches[8]}
 
 
+REPRODUCE_ARGV = ["--models", "lr,fm,fnn,snn_rbm,deepfm,ipnn", "--epochs", "2",
+                  "--no-tuned", "--no-convergence-study"]
+REPRODUCE_TOWER = ("fnn", "snn_rbm", "deepfm", "ipnn")   # runs with the tower kernels
+REPRODUCE_FM = ("fm", "deepfm")                          # runs with the FM scorer
+EVAL_BATCH = 8192                                        # train.loop.evaluate's batch
+
+
+def _reproduce_fnn_graph(dev, args) -> dict:
+    """The suite's FNN step at its batch, 512 (ipinyou_like, k=10, tower
+    200-300-100 tanh, dropout 0, Adagrad 0.1/0.05, K = 8), from a seeded
+    state on the suite's data: the memory one capture keeps (its graph pool
+    and static buffers), wall and device ms a step over 5 replays after the
+    capturing one, and the device's busy share of a replay
+    (``torch.profiler``). Releases the graph before it returns."""
+    import gc
+
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch.config import RunConfig
+    from deepctr_torch.data import ipinyou_like_schema, synthetic
+    from deepctr_torch.tools import reproduce
+    from deepctr_torch.train import init_state, make_scan_train_step
+
+    raw = reproduce.model_config("fnn", args, "unused")
+    raw["model"]["init_from"] = None
+    cfg = RunConfig.from_dict(raw)
+    schema = ipinyou_like_schema()
+    b, k = cfg.train.batch_size, cfg.train.scan_steps
+    ds = synthetic.generate(schema, num_examples=(SCAN_TIMED_CHUNKS + 1) * k * b,
+                            seed=7, teacher=args.teacher)
+    chunks = [(torch.from_numpy(ds.ids[c * k * b:(c + 1) * k * b]).to(dev).long()
+               .reshape(k, b, -1),
+               torch.from_numpy(ds.labels[c * k * b:(c + 1) * k * b]).to(dev).reshape(k, b),
+               torch.ones(k, b, device=dev)) for c in range(SCAN_TIMED_CHUNKS + 1)]
+    sopt, dopt = cli.build_optimizers(cfg)
+    state = init_state(cli.build_model(cfg, schema, dev), schema, sopt, dopt, seed=SEED)
+    scan = make_scan_train_step(schema, sopt, dopt)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    scan(state, *chunks[0])
+    torch.cuda.synchronize()
+    pool = torch.cuda.memory_allocated() - before
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for c in range(1, SCAN_TIMED_CHUNKS + 1):
+        scan(state, *chunks[c])
+    end.record()
+    end.synchronize()
+    steps = SCAN_TIMED_CHUNKS * k
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    span = start.elapsed_time(end) / steps
+    prof = _profile_loop(lambda i: scan(state, *chunks[1 + i]), SCAN_TIMED_CHUNKS,
+                         f"reproduce fnn graph at batch {b}", per=f"chunk of {k} steps")
+    out = {"pool_mib": pool / 2**20, "wall_ms": wall, "span_ms": span,
+           "device_ms": prof["device_us"] / k / 1e3, "busy": prof["busy"],
+           "capture_s": scan.graph[0].capture_s,
+           "examples_per_s": b / (wall / 1e3)}
+    print(f"reproduce fnn graph at batch {b}: the capture keeps {out['pool_mib']:.1f} "
+          f"MiB (graph pool and static buffers), capture {out['capture_s']:.2f} s; wall "
+          f"{wall:.4f} ms a step (host clock), span {span:.4f} ms a step (CUDA events), "
+          f"device busy {out['device_ms']:.4f} ms a step, {100 * prof['busy']:.1f}% of "
+          f"the wall (profiler), {out['examples_per_s']:.0f} examples/s; kernels named "
+          f"{sorted(prof['kernels'])}")
+    del scan, state
+    gc.collect()
+    return out
+
+
+def _live_graphs() -> int:
+    """The scan route's graphs still alive in this process."""
+    import gc
+
+    from deepctr_torch.train.step import _ChunkGraph
+
+    return sum(isinstance(o, _ChunkGraph) for o in gc.get_objects())
+
+
+def _private_pool_mib() -> float:
+    """Device memory still held in private (CUDA graph) pools, after
+    ``empty_cache`` has returned the pools of released graphs."""
+    import torch
+
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s["segment_pool_id"]) != (0, 0)) / 2**20
+
+
+def _allocated_without_workspaces() -> tuple[int, int]:
+    """(device bytes allocated, bytes of them that were cuBLAS workspaces).
+    cuBLAS keeps a workspace (32 MiB on the H100) for each stream it has run
+    on, and each capture's warm-up runs on a side stream from torch's pool
+    (up to 32 a device): they are cleared here, so that what is compared is
+    what the runs kept."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated()
+    return allocated, held - allocated
+
+
+def _phase19_reproduce(dev, tmp) -> dict:
+    """The model-family suite of ``deepctr_torch.tools.reproduce`` (the
+    counterpart of ``tools/reproduce.py``) at a cut budget, on the card:
+    a well-formed table in MODELS order with every AUC finite and above
+    0.5; the kernels' launches as the scan route predicts them (one a step,
+    a replay adding its capture's, one warm-up step a capture, one graph a
+    run, and the eval forward once an eval batch); and every run's graph
+    and pool released: no live graph, no private pool, and the device
+    memory after the last run within one capture's keep of before the
+    first (cuBLAS's workspaces cleared on both sides)."""
+    import torch
+
+    from deepctr_torch.tools import reproduce
+    from deepctr_torch.utils.artifacts import float_or_none, parse_md_table
+
+    args = reproduce.parse_args(REPRODUCE_ARGV)
+    fnn = _reproduce_fnn_graph(dev, args)
+    if _live_graphs():
+        raise AssertionError("reproduce: the FNN graph outlived its step")
+    out = os.path.join(tmp, "RESULTS_TORCH.md")
+    argv = REPRODUCE_ARGV + ["--device", "cuda", "--out", out]
+    before, _ = _allocated_without_workspaces()
+    print("reproduce: python -m deepctr_torch.tools.reproduce " + " ".join(argv))
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = reproduce.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    after, workspaces = _allocated_without_workspaces()
+    live, pools = _live_graphs(), _private_pool_mib()
+    with open(out) as f:
+        text = f.read()
+    start = text.index("### Model family (shared dataset")
+    rows = parse_md_table(text[start:])   # the last table of this cut
+    names = REPRODUCE_ARGV[1].split(",")
+    for r in rows:
+        print(f"  {r['run']}: AUC {r['AUC']}, logloss {r['logloss']}, wall {r['wall s']} s, "
+              f"peak {r['peak MiB']} MiB, {r['examples/s']} examples/s (RESULTS.md "
+              f"{r['RESULTS.md AUC']})")
+    labels = [r["run"] for r in rows]
+    if labels != [m for m in reproduce.MODELS if m in names]:
+        raise AssertionError(f"reproduce: rows {labels}, not {names} in MODELS order")
+    aucs = [float_or_none(r["AUC"]) for r in rows]
+    if not all(a is not None and np.isfinite(a) and a > 0.5 for a in aucs):
+        raise AssertionError(f"reproduce: an AUC not finite or not above 0.5: {aucs}")
+
+    # the launches the scan route predicts: data of 120,000 rows, 85% trained
+    n_train = int(args.examples * (1 - TEST_FRACTION))
+    steps = args.epochs * SCAN_K * -(-(n_train // args.batch) // SCAN_K)
+    evals = args.epochs * -(-(args.examples - n_train) // EVAL_BATCH)
+    want = {"fwd_eval": len(REPRODUCE_TOWER) * (steps + 1 + evals), "fwd_dropout": 0,
+            "bwd": len(REPRODUCE_TOWER) * (steps + 1),
+            "fm_score": len(REPRODUCE_FM) * (steps + 1 + evals), "captures": len(names)}
+    print(f"reproduce: {len(names)} runs in {seconds:.1f} s ({res['seconds']:.1f} s in "
+          f"main), {steps} steps a run; launches {launches}, predicted {want} (a "
+          f"run's steps, one warm-up step for its one capture, {evals} eval batches "
+          f"of the forward); device memory {before / 2**20:.1f} MiB before the first "
+          f"run, {after / 2**20:.1f} MiB after the last with its state released "
+          f"and {workspaces / 2**20:.1f} MiB of cuBLAS workspaces cleared (one "
+          f"capture keeps {fnn['pool_mib']:.1f} MiB); live graphs {live}; "
+          f"private pools {pools} MiB")
+    if launches != want:
+        raise AssertionError(f"reproduce: launches {launches}, predicted {want}")
+    if live or pools:
+        raise AssertionError(f"reproduce: {live} graphs and {pools} MiB of graph pools "
+                             f"outlived their runs")
+    if after - before > fnn["pool_mib"] * 2**20:
+        raise AssertionError(f"reproduce: {(after - before) / 2**20:.1f} MiB more device "
+                             f"memory after the suite than before it")
+    return {"launches": launches, "seconds": seconds, "fnn": fnn}
+
+
 def _template_args(mangled) -> str:
     """``<64, true>`` for a mangled ``ILi64ELb1EE``; '' for none."""
     if not mangled:
@@ -3154,6 +3353,7 @@ def main(argv=None) -> int:
                                            sharded.pop("criteo"))
         _phase17_scan(dev, root, tmp, schema, schema_path)
         sharded_scan = _phase18_sharded_scan(dev, root, tmp, schema_path)
+        reproduced = _phase19_reproduce(dev, tmp)
 
     work = _tower_work(BATCH, fnn_dims)
     criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))
@@ -3172,6 +3372,7 @@ def main(argv=None) -> int:
         "library_ms": None,
         "launches_distributed": distributed["launches"]["fwd_eval"],
         "launches_sharded_scan": sharded_scan["criteo_launches"]["fwd_eval"],
+        "launches_reproduce": reproduced["launches"]["fwd_eval"],
         "ms_criteo": tower_times["criteo tanh"][0],
         "plain_ms_criteo": tower_times["criteo tanh"][1],
         "bound_ms_criteo": _bound(*criteo["fwd"])["bound_ms"],
@@ -3208,6 +3409,7 @@ def main(argv=None) -> int:
         "launches_criteo": sharded["criteo_launches"]["bwd"],
         "launches_distributed": distributed["launches"]["bwd"],
         "launches_sharded_scan": sharded_scan["criteo_launches"]["bwd"],
+        "launches_reproduce": reproduced["launches"]["bwd"],
         "ms_criteo": train_k["criteo_bwd_ms"],
         "plain_ms_criteo": train_k["criteo_bwd_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["bwd"])["bound_ms"],
@@ -3223,6 +3425,7 @@ def main(argv=None) -> int:
         **fm_bound,
         "library_ms": None,
         "launches_sharded_scan": sharded_scan["fm_launches"]["fm_score"],
+        "launches_reproduce": reproduced["launches"]["fm_score"],
         "launch_floor_ms": fm_kernel["floor_ms"],
         "ms_8192": fm_kernel["ms_train"],
         "ms_8192_past_l2": fm_kernel["ms_train_cold"],

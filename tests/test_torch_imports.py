@@ -1,11 +1,16 @@
 """deepctr_torch and chip_smoke.py never import jax, optax or ml_dtypes
 (the machine with the GPU has none), nor any module of the JAX package
-``deepctr_tpu``: the port keeps its own copies of what it needs."""
+``deepctr_tpu``: the port keeps its own copies of what it needs. The
+evidence tools run there too: ``deepctr_torch.tools.reproduce`` loads none
+of them, ``tools/parity_report_torch.py`` (which runs the NumPy oracle of
+``deepctr_tpu.reference_impl``) no jax, optax or ml_dtypes."""
 
 import ast
 import os
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -120,3 +125,47 @@ print("ok")
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.strip() == "ok"
+
+
+TOOL_SCRIPTS = {
+    # the port's reproduction suite, tiny, on the CPU: nothing of the JAX
+    # package either
+    "reproduce": ("""
+import contextlib, io, sys, tempfile
+from deepctr_torch.tools import reproduce
+with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+    res = reproduce.main(["--models", "lr", "--examples", "2000", "--epochs", "1",
+                          "--batch", "256", "--no-tuned", "--no-convergence-study",
+                          "--device", "cpu", "--out", tmp + "/R.md"])
+assert res["runs"] == 1, res
+""", ("jax", "jaxlib", "optax", "ml_dtypes", "deepctr_tpu")),
+    # the parity tool runs the NumPy oracle of deepctr_tpu.reference_impl,
+    # whose imports load no jax
+    "parity": ("""
+import contextlib, io, runpy, sys, tempfile
+with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+    sys.argv = ["parity_report_torch.py", "--seeds", "1", "--examples", "2000",
+                "--epochs", "1", "--models", "lr", "--device", "cpu", "--out", tmp + "/P.md"]
+    runpy.run_path("tools/parity_report_torch.py", run_name="__main__")
+assert "deepctr_tpu.reference_impl" in sys.modules
+""", ("jax", "jaxlib", "optax", "ml_dtypes")),
+}
+
+
+@pytest.mark.parametrize("tool", sorted(TOOL_SCRIPTS))
+def test_evidence_tools_load_no_jax(tool):
+    """The two evidence tools run on the card's machine, which has no jax:
+    ``deepctr_torch.tools.reproduce`` loads none of jax, optax, ml_dtypes
+    or ``deepctr_tpu``; ``tools/parity_report_torch.py`` none of jax, optax
+    or ml_dtypes."""
+    body, banned = TOOL_SCRIPTS[tool]
+    script = body + f"""
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {banned!r})
+assert not bad, bad
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().endswith("ok")
