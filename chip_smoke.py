@@ -209,9 +209,27 @@ Phases, each printing its own lines:
     to the scan route's prediction (a replay adds its capture's, one graph
     a run and one warm-up step a capture, the eval forward once an eval
     batch); no graph alive after the last run, no private graph pool left,
-    and the device memory within one capture's keep of what it was before
-    the first run (cuBLAS's workspace of each stream, 32 MiB, cleared on
-    both sides and counted); the seconds, launches and memory printed.
+    and the device memory read twice on each side of the suite, as held
+    and with cuBLAS's workspaces (32 MiB a stream) cleared, each within 64
+    MiB of before (every capture warms up and captures on the device's one
+    capture stream, so the suite's captures add no workspace); the
+    seconds, launches, captures, both readings and the workspace bytes the
+    clearing frees printed.
+20. the benchmark entry points: ``python3 bench_torch.py`` (the
+    counterpart of ``bench.py``: FNN at full iPinYou width, batch 8192,
+    bf16 table, the scan route's graph, 5 repeats of 5 replays, against
+    the NumPy oracle measured in the run) in a subprocess: its last line's
+    keys, its ``device`` equal to phase 1's card line, ``vs_baseline``
+    above 1, and the tower launches of one repeat (8 forward with dropout
+    and 8 backward a replay); then ``python -m
+    deepctr_torch.tools.bench_suite --sections parser,models,lookup,serving``
+    in a subprocess, in a temporary directory (the checkout's
+    ``BENCH_TORCH.*`` stay as they are): its ``BENCH_TORCH.json``, each
+    model's examples/s above 0, the launches a replay of 8 steps (8 forward
+    with dropout and 8 backward for FNN and DeepFM, 8 ``fm_score`` for FM
+    and DeepFM, none for LR), one tower forward a scored batch, each
+    section's peak device memory, and its ``BENCH_TORCH.md`` naming the
+    card.
 Phases 8-13 train through the CLI, so on the scan route: their launch
 counts add each replay's captured launches (the wrappers run but launch
 nothing during a capture), and each capture's warm-up step on a clone of
@@ -2927,6 +2945,13 @@ REPRODUCE_ARGV = ["--models", "lr,fm,fnn,snn_rbm,deepfm,ipnn", "--epochs", "2",
 REPRODUCE_TOWER = ("fnn", "snn_rbm", "deepfm", "ipnn")   # runs with the tower kernels
 REPRODUCE_FM = ("fm", "deepfm")                          # runs with the FM scorer
 EVAL_BATCH = 8192                                        # train.loop.evaluate's batch
+# device memory after the suite may exceed what it was before by this much,
+# read as held (cuBLAS workspaces and all) and with the workspaces cleared:
+# what the runs keep (a capture's pool: 0.6 MiB once the capture stream has
+# its workspaces, on an NVIDIA H100 80GB HBM3 at 700 W) and, as held, at most
+# two new workspaces of 32 MiB. A new side stream for each of the suite's six
+# captures would hold 192 MiB more
+MEMORY_SLACK_MIB = 64
 
 
 def _reproduce_fnn_graph(dev, args) -> dict:
@@ -3038,8 +3063,9 @@ def _phase19_reproduce(dev, tmp) -> dict:
     a replay adding its capture's, one warm-up step a capture, one graph a
     run, and the eval forward once an eval batch); and every run's graph
     and pool released: no live graph, no private pool, and the device
-    memory after the last run within one capture's keep of before the
-    first (cuBLAS's workspaces cleared on both sides)."""
+    memory after the last run within ``MEMORY_SLACK_MIB`` of before the
+    first, read as held and with cuBLAS's workspaces cleared on both
+    sides."""
     import torch
 
     from deepctr_torch.tools import reproduce
@@ -3051,7 +3077,7 @@ def _phase19_reproduce(dev, tmp) -> dict:
         raise AssertionError("reproduce: the FNN graph outlived its step")
     out = os.path.join(tmp, "RESULTS_TORCH.md")
     argv = REPRODUCE_ARGV + ["--device", "cuda", "--out", out]
-    before, _ = _allocated_without_workspaces()
+    before, before_ws = _allocated_without_workspaces()
     print("reproduce: python -m deepctr_torch.tools.reproduce " + " ".join(argv))
     _reset_counts()
     t0 = time.perf_counter()
@@ -3061,6 +3087,7 @@ def _phase19_reproduce(dev, tmp) -> dict:
     seconds = time.perf_counter() - t0
     launches = _counts()
     after, workspaces = _allocated_without_workspaces()
+    held, before_held = after + workspaces, before + before_ws
     live, pools = _live_graphs(), _private_pool_mib()
     with open(out) as f:
         text = f.read()
@@ -3088,20 +3115,116 @@ def _phase19_reproduce(dev, tmp) -> dict:
     print(f"reproduce: {len(names)} runs in {seconds:.1f} s ({res['seconds']:.1f} s in "
           f"main), {steps} steps a run; launches {launches}, predicted {want} (a "
           f"run's steps, one warm-up step for its one capture, {evals} eval batches "
-          f"of the forward); device memory {before / 2**20:.1f} MiB before the first "
-          f"run, {after / 2**20:.1f} MiB after the last with its state released "
-          f"and {workspaces / 2**20:.1f} MiB of cuBLAS workspaces cleared (one "
-          f"capture keeps {fnn['pool_mib']:.1f} MiB); live graphs {live}; "
+          f"of the forward); device memory as held {before_held / 2**20:.1f} MiB "
+          f"before the first run and {held / 2**20:.1f} MiB after the last with its "
+          f"state released ({launches['captures']} captures); with cuBLAS's "
+          f"workspaces cleared {before / 2**20:.1f} MiB before and "
+          f"{after / 2**20:.1f} MiB after ({workspaces / 2**20:.1f} MiB of workspaces "
+          f"freed; one capture keeps {fnn['pool_mib']:.1f} MiB); live graphs {live}; "
           f"private pools {pools} MiB")
     if launches != want:
         raise AssertionError(f"reproduce: launches {launches}, predicted {want}")
     if live or pools:
         raise AssertionError(f"reproduce: {live} graphs and {pools} MiB of graph pools "
                              f"outlived their runs")
-    if after - before > fnn["pool_mib"] * 2**20:
+    if held - before_held > MEMORY_SLACK_MIB * 2**20:
+        raise AssertionError(f"reproduce: {(held - before_held) / 2**20:.1f} MiB more "
+                             f"device memory held after the suite than before it")
+    if after - before > MEMORY_SLACK_MIB * 2**20:
         raise AssertionError(f"reproduce: {(after - before) / 2**20:.1f} MiB more device "
                              f"memory after the suite than before it")
     return {"launches": launches, "seconds": seconds, "fnn": fnn}
+
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "protocol", "sigma", "device"}
+BENCH_SECTIONS = "parser,models,lookup,serving"
+# the suite's launches a replay of SCAN_K steps, by model: the tower's forward
+# with dropout and its backward once a step where there is a tower (dropout
+# 0.5), the FM scorer once a step in FM and DeepFM
+BENCH_MODEL_LAUNCHES = {
+    "lr": {"fwd": 0, "fwd_dropout": 0, "bwd": 0, "fm_score": 0},
+    "fm": {"fwd": 0, "fwd_dropout": 0, "bwd": 0, "fm_score": SCAN_K},
+    "fnn": {"fwd": SCAN_K, "fwd_dropout": SCAN_K, "bwd": SCAN_K, "fm_score": 0},
+    "deepfm": {"fwd": SCAN_K, "fwd_dropout": SCAN_K, "bwd": SCAN_K, "fm_score": SCAN_K},
+}
+
+
+def _run_tool(argv, cwd, root, tag) -> list:
+    """One of the benchmark entry points in a subprocess (``root`` on its
+    path): its stdout's lines, each printed; raises unless it exits 0."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *argv], cwd=cwd, env=env, capture_output=True,
+                         text=True, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    for line in lines:
+        print(f"  {tag}: {line[:400]}")
+    if res.returncode != 0:
+        raise AssertionError(f"{tag} exited {res.returncode}: {res.stderr[-3000:]}")
+    print(f"{tag}: {time.perf_counter() - t0:.1f} s")
+    return lines
+
+
+def _phase20_bench(root, tmp, card) -> dict:
+    """``bench_torch.py`` and ``deepctr_torch.tools.bench_suite`` on the card,
+    each in a subprocess (``bench_torch.py`` imports the NumPy oracle of
+    ``deepctr_tpu.reference_impl``, which this script must not): the
+    headline's last line, its card and baseline, its launches; the suite's
+    rates, launches and peak memory by section."""
+    lines = _run_tool([os.path.join(root, "bench_torch.py")], root, root, "bench_torch")
+    line = json.loads(lines[-1])
+    if set(line) != BENCH_KEYS or line["metric"] != "fnn_train_examples_per_s_per_gpu":
+        raise AssertionError(f"bench_torch: last line {line}")
+    if line["device"] != card:
+        raise AssertionError(f"bench_torch: device {line['device']!r}, phase 1 read {card!r}")
+    if not (np.isfinite(line["value"]) and line["value"] > 0 and line["vs_baseline"] > 1):
+        raise AssertionError(f"bench_torch: value {line['value']}, vs_baseline "
+                             f"{line['vs_baseline']} (must be above 1)")
+    got = [re.search(r"launches over one repeat of (\d+) replays: forward (\d+), with "
+                     r"dropout (\d+), backward (\d+)", x) for x in lines]
+    got = [m for m in got if m]
+    if len(got) != 1:
+        raise AssertionError("bench_torch: no launch line")
+    replays, fwd, drop, bwd = (int(v) for v in got[0].groups())
+    if (fwd, drop, bwd) != (SCAN_K * replays,) * 3:
+        raise AssertionError(f"bench_torch: launches {fwd}, {drop}, {bwd} over {replays} "
+                             f"replays; predicted {SCAN_K} each a replay")
+    print(f"bench_torch: {line['value']} examples/s, sigma {line['sigma']}, vs_baseline "
+          f"{line['vs_baseline']} on {line['device']}; launches over one repeat of "
+          f"{replays} replays {fwd} / {drop} / {bwd}, as predicted")
+
+    suite_dir = os.path.join(tmp, "bench_suite")
+    os.makedirs(suite_dir)
+    _run_tool(["-m", "deepctr_torch.tools.bench_suite", "--sections", BENCH_SECTIONS],
+              suite_dir, root, "bench_suite")
+    with open(os.path.join(suite_dir, "BENCH_TORCH.json")) as f:
+        results = json.load(f)
+    with open(os.path.join(suite_dir, "BENCH_TORCH.md")) as f:
+        if card not in f.read():
+            raise AssertionError(f"bench_suite: BENCH_TORCH.md does not name {card!r}")
+    for model, want in BENCH_MODEL_LAUNCHES.items():
+        rate = results[f"train_examples_per_s/{model}"]
+        if not (np.isfinite(rate) and rate > 0):
+            raise AssertionError(f"bench_suite: {model} at {rate} examples/s")
+        if results[f"launches_per_replay/{model}"] != want:
+            raise AssertionError(f"bench_suite: {model}'s launches a replay "
+                                 f"{results[f'launches_per_replay/{model}']}, predicted "
+                                 f"{want}")
+    for mode in ("f32", "bf16", "int8"):
+        if results[f"launches_per_batch/{mode}"] != 1:
+            raise AssertionError(f"bench_suite: serving {mode}: "
+                                 f"{results[f'launches_per_batch/{mode}']} tower "
+                                 f"launches a batch, predicted 1")
+    for section in BENCH_SECTIONS.split(","):
+        peak = results[f"device_peak_mib/{section}"]
+        print(f"bench_suite: {section}: peak device memory {peak:.1f} MiB")
+        if section != "parser" and not peak > 0:
+            raise AssertionError(f"bench_suite: {section} used no device memory")
+    print("bench_suite: examples/s " + ", ".join(
+        f"{m} {results[f'train_examples_per_s/{m}']:,.0f}" for m in BENCH_MODEL_LAUNCHES)
+        + "; launches a replay as predicted; one tower forward a scored batch")
+    return {"launches": {"fwd_dropout": drop, "bwd": bwd}, "line": line}
 
 
 def _template_args(mangled) -> str:
@@ -3354,6 +3477,7 @@ def main(argv=None) -> int:
         _phase17_scan(dev, root, tmp, schema, schema_path)
         sharded_scan = _phase18_sharded_scan(dev, root, tmp, schema_path)
         reproduced = _phase19_reproduce(dev, tmp)
+        bench = _phase20_bench(root, tmp, card)
 
     work = _tower_work(BATCH, fnn_dims)
     criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))
@@ -3391,6 +3515,7 @@ def main(argv=None) -> int:
         "launches_criteo": sharded["criteo_launches"]["fwd_dropout"],
         "launches_distributed": distributed["launches"]["fwd_dropout"],
         "launches_sharded_scan": sharded_scan["criteo_launches"]["fwd_dropout"],
+        "launches_bench": bench["launches"]["fwd_dropout"],
         "ms_criteo": train_k["criteo_fwd_drop_ms"],
         "plain_ms_criteo": train_k["criteo_fwd_drop_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["fwd"])["bound_ms"],
@@ -3410,6 +3535,7 @@ def main(argv=None) -> int:
         "launches_distributed": distributed["launches"]["bwd"],
         "launches_sharded_scan": sharded_scan["criteo_launches"]["bwd"],
         "launches_reproduce": reproduced["launches"]["bwd"],
+        "launches_bench": bench["launches"]["bwd"],
         "ms_criteo": train_k["criteo_bwd_ms"],
         "plain_ms_criteo": train_k["criteo_bwd_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["bwd"])["bound_ms"],

@@ -56,6 +56,18 @@ from ..data import Schema
 # one eager warm-up step on a clone of its state, whose launches count
 CAPTURES = 0
 
+# the side stream of every warm-up and capture, one a device: cuBLAS keeps a
+# workspace for each stream it has run on, so a new stream a capture would
+# hold one more workspace for every graph captured
+_CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The device's one capture stream, made at its first capture."""
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device=device)
+    return _CAPTURE_STREAMS[device]
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -333,16 +345,17 @@ class _ChunkGraph:
     second outputs in a ``[K]`` int64 one.
 
     Before the capture one eager step runs on a clone of the state, on the
-    capture's side stream, so that what a first call sets up (cuBLAS's
-    handle and workspace, the kernels' library, their shared-memory limits,
-    an NCCL communicator) is not set up inside the capture; the real state
-    is not touched. In a sharded step that warm-up runs collectives, and
-    so does every replay: capturing is collective, and every rank must
-    capture at the same chunk. It does, since the key changes on every
-    rank at once: the chunk shape and ``lr_scale`` (``lr_decay ** epoch``)
-    are the same on every rank, a new state object is new on every rank,
-    and the addresses of one state's tensors change only where a caller
-    replaces them, which ``fit`` does on no rank. The capture itself runs
+    device's one capture stream (:func:`_capture_stream`), so that what a
+    first call sets up (cuBLAS's handle and workspace, the kernels' library,
+    their shared-memory limits, an NCCL communicator) is not set up inside
+    the capture; the real state is not touched. In a sharded step that
+    warm-up runs collectives, and so does every replay: capturing is
+    collective, and every rank must capture at the same chunk. It does,
+    since the key changes on every rank at once: the chunk shape and
+    ``lr_scale`` (``lr_decay ** epoch``) are the same on every rank, a new
+    state object is new on every rank, and the addresses of one state's
+    tensors change only where a caller replaces them, which ``fit`` does on
+    no rank. The capture itself runs
     nothing; ``capture_error_mode="thread_local"`` leaves other threads
     (the process group's watchdog) free to query the device meanwhile. Its
     launch counts are taken back and added again at every replay
@@ -371,7 +384,7 @@ class _ChunkGraph:
 
         t0 = time.perf_counter()
         warm = state.clone()
-        stream = torch.cuda.Stream(device=device)
+        stream = _capture_stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
             body(warm, self.ids[0], self.labels[0], self.weights[0], lr_scale,

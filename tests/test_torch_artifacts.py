@@ -4,8 +4,10 @@ original, and the artifacts its tools wrote on the card.
 1. ``deepctr_torch/utils/artifacts.py`` parses, reads stamps and hashes as
    ``deepctr_tpu/utils/artifacts.py`` does, on the repo's stamped files;
 2. ``RESULTS_TORCH.md`` (``python -m deepctr_torch.tools.reproduce --study
-   all``) and ``PARITY_TORCH.md`` (``python tools/parity_report_torch.py
-   --seeds 6 --examples 40000``) carry the stamps of their tools at HEAD:
+   all``), ``PARITY_TORCH.md`` (``python tools/parity_report_torch.py
+   --seeds 6 --examples 40000``) and ``BENCH_TORCH.md`` (``python -m
+   deepctr_torch.tools.bench_suite`` with every section; its gates are in
+   ``tests/test_torch_bench.py``) carry the stamps of their tools at HEAD:
    any edit to a tool invalidates its artifact until the tool is re-run on
    the card;
 3. each artifact passes its gates: every parity row inside its own band,
@@ -27,6 +29,7 @@ REPO = ref.REPO_ROOT
 ARTIFACTS = {
     "RESULTS_TORCH.md": "deepctr_torch/tools/reproduce.py",
     "PARITY_TORCH.md": "tools/parity_report_torch.py",
+    "BENCH_TORCH.md": "deepctr_torch/tools/bench_suite.py",
 }
 STAMPED = ["RESULTS.md", "PARITY.md", "SCALING.md", "BENCH.md", *ARTIFACTS]
 TOOLS = ["tools/reproduce.py", "tools/parity_report.py", *ARTIFACTS.values()]

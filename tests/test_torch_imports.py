@@ -1,9 +1,10 @@
 """deepctr_torch and chip_smoke.py never import jax, optax or ml_dtypes
 (the machine with the GPU has none), nor any module of the JAX package
 ``deepctr_tpu``: the port keeps its own copies of what it needs. The
-evidence tools run there too: ``deepctr_torch.tools.reproduce`` loads none
-of them, ``tools/parity_report_torch.py`` (which runs the NumPy oracle of
-``deepctr_tpu.reference_impl``) no jax, optax or ml_dtypes."""
+evidence and benchmark tools run there too: ``deepctr_torch.tools.reproduce``
+and ``deepctr_torch.tools.bench_suite`` load none of them,
+``tools/parity_report_torch.py`` and ``bench_torch.py`` (which run the NumPy
+oracle of ``deepctr_tpu.reference_impl``) no jax, optax or ml_dtypes."""
 
 import ast
 import os
@@ -149,15 +150,43 @@ with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringI
     runpy.run_path("tools/parity_report_torch.py", run_name="__main__")
 assert "deepctr_tpu.reference_impl" in sys.modules
 """, ("jax", "jaxlib", "optax", "ml_dtypes")),
+    # the benchmark suite reuses bench_torch.py's builder, and loads
+    # nothing of the JAX package
+    "bench_suite": ("""
+import contextlib, io, os, sys, tempfile
+import torch
+from deepctr_torch.data import make_schema
+from deepctr_torch.tools import bench_suite
+torch.set_num_threads(1)   # the suite's workers share the CPUs
+with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+    os.chdir(tmp)
+    res = bench_suite.main(["--sections", "parser,lookup", "--device", "cpu", "--small"])
+assert res["embedding_lookups_per_s"] > 0, res
+h = bench_suite._bench_torch().build(make_schema([("a", 4), ("b", 8)]), "cpu",
+                                     hidden=(4,))
+assert h.state.step == 0 and "bench_torch" in sys.modules
+""", ("jax", "jaxlib", "optax", "ml_dtypes", "deepctr_tpu")),
+    # the headline's baseline is the NumPy oracle of deepctr_tpu.reference_impl
+    "bench_torch": ("""
+import contextlib, io, sys
+import torch
+import bench_torch
+torch.set_num_threads(1)   # the suite's workers share the CPUs
+with contextlib.redirect_stdout(io.StringIO()):
+    line = bench_torch.main(["--device", "cpu", "--small"])
+assert line["device"] == "cpu", line
+assert "deepctr_tpu.reference_impl" in sys.modules
+""", ("jax", "jaxlib", "optax", "ml_dtypes")),
 }
 
 
 @pytest.mark.parametrize("tool", sorted(TOOL_SCRIPTS))
 def test_evidence_tools_load_no_jax(tool):
-    """The two evidence tools run on the card's machine, which has no jax:
-    ``deepctr_torch.tools.reproduce`` loads none of jax, optax, ml_dtypes
-    or ``deepctr_tpu``; ``tools/parity_report_torch.py`` none of jax, optax
-    or ml_dtypes."""
+    """The evidence and benchmark tools run on the card's machine, which has
+    no jax: ``deepctr_torch.tools.reproduce`` and
+    ``deepctr_torch.tools.bench_suite`` load none of jax, optax, ml_dtypes
+    or ``deepctr_tpu``; ``tools/parity_report_torch.py`` and
+    ``bench_torch.py`` none of jax, optax or ml_dtypes."""
     body, banned = TOOL_SCRIPTS[tool]
     script = body + f"""
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {banned!r})
