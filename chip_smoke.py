@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, retraining, sharded and
 multi-process training paths once on one GPU, its default training route,
-the scan route of CUDA graphs, unsharded and sharded, and its model-family
-reproduction suite at a cut budget.
+the scan route of CUDA graphs, unsharded and sharded, its model-family
+reproduction suite at a cut budget, its benchmark entry points, the
+scaling report's executed-bytes check and the substrate lab.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``, and imports nothing of JAX.
@@ -229,7 +230,22 @@ Phases, each printing its own lines:
     with dropout and 8 backward for FNN and DeepFM, 8 ``fm_score`` for FM
     and DeepFM, none for LR), one tower forward a scored batch, each
     section's peak device memory, and its ``BENCH_TORCH.md`` naming the
-    card.
+    card;
+21. the scaling report and the substrate lab: (a) in a world of one NCCL
+    rank, full-width iPinYou FNN (capacity 2.0, f32 wire, bf16 table; and
+    capacity 1.25, bf16 wire, f32 table) and FM (bf16 table): a sharded train
+    step, an eval step and a scan step's capture under
+    ``parallel/sharded.py::record_collectives``, every collective's bytes
+    and calls against ``parallel/comm.py::sent_volume``, as
+    ``deepctr_torch.tools.scaling_report`` checks them (ids 1,179,648 B,
+    rows 3,244,032 B in bf16, gradients 6,488,064 B, the dense all-reduce
+    503,604 B and 3 scalar all-reduces a train step for the headline;
+    the capture's warm-up step one step's, its captured collectives K
+    steps'); (b) ``python -m deepctr_torch.tools.substrate_lab --exp
+    rank2`` at its defaults (120,000 examples: LR, FM, SNN-RBM and FNN
+    seeded from FM through ``cli.run`` on the scan route) with its gate,
+    SNN and FNN above LR by more than 0.02 AUC, each AUC and the seconds,
+    and the tower forward (both branches), backward and FM scorer launched.
 Phases 8-13 train through the CLI, so on the scan route: their launch
 counts add each replay's captured launches (the wrappers run but launch
 nothing during a capture), and each capture's warm-up step on a clone of
@@ -3227,6 +3243,57 @@ def _phase20_bench(root, tmp, card) -> dict:
     return {"launches": {"fwd_dropout": drop, "bwd": bwd}, "line": line}
 
 
+# phase 21 (a): the executed-bytes cases in a world of one NCCL rank, as
+# (model, capacity factor, wire, table) of scaling_report's grid
+EXECUTED_CASES = [("fnn", 2.0, "f32", "bf16"), ("fnn", 1.25, "bf16", "f32"),
+                  ("fm", 2.0, "f32", "bf16")]
+
+
+def _phase21_scaling_and_substrate(dev) -> dict:
+    """(a) the sharded train step, eval step and scan capture of full-width
+    FNN and FM in a world of one NCCL rank under ``record_collectives``:
+    every collective's bytes and calls equal ``sent_volume``'s (the rows
+    ``deepctr_torch.tools.scaling_report`` writes; a mismatch raises); (b)
+    ``deepctr_torch.tools.substrate_lab --exp rank2`` at its defaults, with
+    the counts set to 0 just before it and read just after: its gate (SNN
+    and FNN above LR by more than 0.02 AUC), each AUC, and the tower
+    forward, backward and FM scorer launched."""
+    import torch
+
+    from deepctr_torch import parallel as par
+    from deepctr_torch.tools import scaling_report, substrate_lab
+
+    t_phase = time.perf_counter()
+    with par.process_group(dev) as group:
+        cases = scaling_report.executed_cases(group, small=False, grid=EXECUTED_CASES)
+    bad = []
+    for case in cases:
+        for r in scaling_report.case_rows(case):
+            print(f"  executed bytes: {r['label']}, {r['collective']}: {r['calls']} calls, "
+                  f"accounted {r['accounted']:,} B, executed {r['executed']:,} B, "
+                  f"match {r['match']}")
+            if not r["match"]:
+                bad.append(r)
+    if bad:
+        raise AssertionError(f"executed bytes differ from sent_volume's: {bad}")
+    t_exec = time.perf_counter() - t_phase
+    print(f"scaling report: {len(cases)} cases in a world of one NCCL rank, every "
+          f"collective as sent_volume accounts it ({t_exec:.1f} s)")
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    aucs = substrate_lab.main(["--exp", "rank2"])["rank2"]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    print(f"substrate lab rank2: AUC {aucs} (gate: snn and fnn above lr by more than "
+          f"{substrate_lab.GATE}) in {seconds:.1f} s; launches {launches}")
+    if not all(launches[k] for k in ("fwd_eval", "fwd_dropout", "bwd", "fm_score")):
+        raise AssertionError(f"substrate lab: a kernel was not launched: {launches}")
+    print(f"phase 21 in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "aucs": aucs, "seconds": seconds}
+
+
 def _template_args(mangled) -> str:
     """``<64, true>`` for a mangled ``ILi64ELb1EE``; '' for none."""
     if not mangled:
@@ -3478,6 +3545,7 @@ def main(argv=None) -> int:
         sharded_scan = _phase18_sharded_scan(dev, root, tmp, schema_path)
         reproduced = _phase19_reproduce(dev, tmp)
         bench = _phase20_bench(root, tmp, card)
+        substrate = _phase21_scaling_and_substrate(dev)
 
     work = _tower_work(BATCH, fnn_dims)
     criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))
@@ -3497,6 +3565,7 @@ def main(argv=None) -> int:
         "launches_distributed": distributed["launches"]["fwd_eval"],
         "launches_sharded_scan": sharded_scan["criteo_launches"]["fwd_eval"],
         "launches_reproduce": reproduced["launches"]["fwd_eval"],
+        "launches_substrate": substrate["launches"]["fwd_eval"],
         "ms_criteo": tower_times["criteo tanh"][0],
         "plain_ms_criteo": tower_times["criteo tanh"][1],
         "bound_ms_criteo": _bound(*criteo["fwd"])["bound_ms"],
@@ -3516,6 +3585,7 @@ def main(argv=None) -> int:
         "launches_distributed": distributed["launches"]["fwd_dropout"],
         "launches_sharded_scan": sharded_scan["criteo_launches"]["fwd_dropout"],
         "launches_bench": bench["launches"]["fwd_dropout"],
+        "launches_substrate": substrate["launches"]["fwd_dropout"],
         "ms_criteo": train_k["criteo_fwd_drop_ms"],
         "plain_ms_criteo": train_k["criteo_fwd_drop_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["fwd"])["bound_ms"],
@@ -3536,6 +3606,7 @@ def main(argv=None) -> int:
         "launches_sharded_scan": sharded_scan["criteo_launches"]["bwd"],
         "launches_reproduce": reproduced["launches"]["bwd"],
         "launches_bench": bench["launches"]["bwd"],
+        "launches_substrate": substrate["launches"]["bwd"],
         "ms_criteo": train_k["criteo_bwd_ms"],
         "plain_ms_criteo": train_k["criteo_bwd_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["bwd"])["bound_ms"],
@@ -3552,6 +3623,7 @@ def main(argv=None) -> int:
         "library_ms": None,
         "launches_sharded_scan": sharded_scan["fm_launches"]["fm_score"],
         "launches_reproduce": reproduced["launches"]["fm_score"],
+        "launches_substrate": substrate["launches"]["fm_score"],
         "launch_floor_ms": fm_kernel["floor_ms"],
         "ms_8192": fm_kernel["ms_train"],
         "ms_8192_past_l2": fm_kernel["ms_train_cold"],

@@ -7,7 +7,8 @@ all-to-all id and row exchange (``sharded.py``: a step, or a chunk of
 K steps that the card replays as one CUDA graph), or replicated with the
 batch split (``dp.py``); ``comm.py`` counts the bytes a step exchanges
 and predicts the step at N devices from links fitted to a collective
-sweep (``predict_scaling``, ``fit_links``); ``scaling.py`` (``python -m
+sweep (``predict_scaling``, ``fit_links``), and ``sharded.py``'s
+``record_collectives`` shows what a step really sends; ``scaling.py`` (``python -m
 deepctr_torch.parallel.scaling``) measures that sweep and the sharded step
 at 1, 2 and 4 GPUs; ``hostckpt.py`` writes and reloads each rank's shard
 files; ``drill.py`` (``python -m deepctr_torch.parallel.drill``) kills a
@@ -22,7 +23,9 @@ from .comm import (
     dense_param_bytes,
     exchange_capacity,
     fit_links,
+    inter_host_bytes,
     predict_scaling,
+    sent_volume,
 )
 from .dp import make_dp_train_step, replicate_state
 from .group import (
@@ -47,6 +50,7 @@ from .sharded import (
     make_sharded_scan_train_step,
     make_sharded_train_step,
     pack_table,
+    record_collectives,
     shard_rows,
     sharded_state_from_state,
     unpack_table,
@@ -60,7 +64,9 @@ __all__ = [
     "dense_param_bytes",
     "exchange_capacity",
     "fit_links",
+    "inter_host_bytes",
     "predict_scaling",
+    "sent_volume",
     "make_dp_train_step",
     "replicate_state",
     "Group",
@@ -84,6 +90,7 @@ __all__ = [
     "make_sharded_scan_train_step",
     "make_sharded_train_step",
     "pack_table",
+    "record_collectives",
     "shard_rows",
     "sharded_state_from_state",
     "unpack_table",

@@ -3,16 +3,21 @@
 Port of ``exchange_capacity``, ``CommVolume``, ``comm_volume`` and
 ``dense_param_bytes`` from ``deepctr_tpu/parallel/comm.py``: the volumes
 are closed-form in the step's shapes, and the sharded step
-(``parallel/sharded.py``) takes its capacity from :func:`exchange_capacity`,
-so the accounting cannot drift from execution.
+(``parallel/sharded.py``) takes its capacity from :func:`exchange_capacity`.
+What holds the accounting to execution is a check, not the shared formula:
+``parallel/sharded.py::record_collectives`` records every collective the
+train and eval steps issue, and ``python -m
+deepctr_torch.tools.scaling_report`` (with ``tests/test_torch_scaling_report.py``
+on two gloo ranks, and ``chip_smoke.py`` on the card) requires its bytes
+and calls to equal :func:`sent_volume`'s, exactly.
 
 Exchange inventory of one sharded train step:
 
 ================  =========================  ==========================
 collective        payload (per rank)         purpose
 ================  =========================  ==========================
-all_to_all        [N, C] int64 (counted i32) id requests
-all_to_all        [N, C, D] f32 or bf16      gathered rows, owner->user
+all_to_all        [N, C] int64               id requests
+all_to_all        [N, C, D] table or wire    gathered rows, owner->user
 all_to_all        [N, C, D] f32 or bf16      occurrence grads, user->owner
 all_reduce        dense params               tower grad sync
 all_reduce        3 scalars                  weight sum, loss, drop counter
@@ -21,9 +26,14 @@ all_reduce        3 scalars                  weight sum, loss, drop counter
 with N = world size, C = exchange capacity, D = row width. Every slot
 rides the exchange: the reference's split plan (small fields all-gathered
 as replicated subtables) is a TPU gather mechanism that the port does not
-have, so its small-field terms are absent here. The ids are counted at 4
-bytes, as the reference counts them; the port sends them as int64, its
-index type.
+have, so its small-field terms are absent here. An eval step sends the
+first two all-to-alls and nothing else.
+
+:func:`comm_volume` keeps the reference's accounting: ids at 4 bytes, the
+rows at the wire's width both ways. :func:`sent_volume` counts what the
+port's step sends: ids as int64 (its index type), the looked-up rows in the
+narrower of the table's dtype and the wire's (a bf16 table on an f32 wire
+sends bf16 rows), the gradients at the wire's width.
 
 The scaling model (:func:`predict_scaling`, the reference's, in a GPU
 form) combines these volumes with the links' times into a predicted step
@@ -33,11 +43,11 @@ fitted by :func:`fit_links` to a sweep of the two collectives on the cards
 (``python -m deepctr_torch.parallel.scaling``); a step sends
 ``A2A_PER_STEP`` all-to-alls and ``ALLREDUCE_PER_STEP`` all-reduces, and
 each pays its latency once. The inter-host term keeps the reference's
-per-host accounting; its bandwidth has no default, since one box cannot
-measure a link between hosts. ``DEFAULT_LINKS`` holds the fit of a sweep
-on four NVIDIA H100 80GB HBM3 at 700.00 W, joined pairwise by NVLink
-(NCCL 2.28.9; PERF.md §5): its comment gives the card, the topology and
-the values.
+per-host accounting (:func:`inter_host_bytes`); its bandwidth has no
+default, since one box cannot measure a link between hosts.
+``DEFAULT_LINKS`` holds the fit of a sweep on four NVIDIA H100 80GB HBM3 at
+700.00 W, joined pairwise by NVLink (NCCL 2.28.9; PERF.md §5): its comment
+gives the card, the topology and the values.
 """
 
 from __future__ import annotations
@@ -58,6 +68,11 @@ def exchange_capacity(m: int, n: int, capacity_factor: float) -> int:
     return max(1, min(max(m, 1), int(capacity_factor * _cdiv(max(m, 1), n))))
 
 
+ID_BYTES = 8        # the port's index dtype, int64
+DTYPE_BYTES = {"f32": 4, "bf16": 2}   # train.exchange_dtype and train.table_dtype
+_DTYPE_NAMES = {"ids": {4: "int32", 8: "int64"}, "rows": {2: "bf16", 4: "f32"}}
+
+
 @dataclasses.dataclass(frozen=True)
 class CommVolume:
     """Per-rank, per-step exchanged bytes, by collective.
@@ -72,6 +87,7 @@ class CommVolume:
     rows_a2a_fwd: int       # [N, C, D]
     rows_a2a_bwd: int       # [N, C, D]
     dense_psum: int         # dense param bytes (operand size)
+    row_dim: int = 11       # D
 
     @property
     def a2a_wire(self) -> int:
@@ -90,11 +106,38 @@ class CommVolume:
     def bytes_per_example(self) -> float:
         return self.total_wire / max(self.batch_per_device, 1)
 
+    def _dtype(self, kind: str, payload: int, per_slot: int) -> str:
+        slots = self.n_devices * self.capacity * per_slot
+        width = payload // slots if slots else 0
+        return _DTYPE_NAMES[kind].get(width, f"{width}-byte")
+
+    def table(self) -> str:
+        """A markdown table of the collectives, each labelled with the dtype
+        its payload is sent in, payload and wire bytes a rank; the
+        reference's ``CommVolume.table`` without the split plan's rows."""
+        d = self.row_dim
+        rows = [
+            (f"id all_to_all [N,C] {self._dtype('ids', self.ids_a2a, 1)}",
+             self.ids_a2a, "all_to_all"),
+            (f"row all_to_all fwd [N,C,D] {self._dtype('rows', self.rows_a2a_fwd, d)}",
+             self.rows_a2a_fwd, "all_to_all"),
+            (f"grad all_to_all bwd [N,C,D] {self._dtype('rows', self.rows_a2a_bwd, d)}",
+             self.rows_a2a_bwd, "all_to_all"),
+            ("dense tower grad all_reduce f32 (operand)", self.dense_psum, "all_reduce"),
+        ]
+        out = ["| collective | payload bytes/rank | wire bytes/rank |", "|---|---|---|"]
+        for name, b, collective in rows:
+            out.append(f"| {name} | {b:,} | {int(wire_bytes(collective, b, self.n_devices)):,} |")
+        out.append(f"| **total wire** |  | **{self.total_wire:,}** |")
+        return "\n".join(out)
+
 
 def comm_volume(schema, batch_per_device: int, n_devices: int,
                 capacity_factor: float = 2.0, dense_param_bytes: int = 0,
                 row_dim: int = 11, exchange_bytes: int = 4) -> CommVolume:
-    """Closed-form per-rank, per-step exchange volumes of the sharded step.
+    """Closed-form per-rank, per-step exchange volumes of the sharded step,
+    the reference's accounting: ids at 4 bytes, the rows at the wire's
+    width both ways (:func:`sent_volume` counts what the port sends).
     ``exchange_bytes`` is the width of the row and gradient payload (4 for
     f32, 2 for ``train.exchange_dtype=bf16``)."""
     n = n_devices
@@ -108,7 +151,29 @@ def comm_volume(schema, batch_per_device: int, n_devices: int,
         rows_a2a_fwd=n * cap * row_dim * exchange_bytes,
         rows_a2a_bwd=n * cap * row_dim * exchange_bytes,
         dense_psum=dense_param_bytes,
+        row_dim=row_dim,
     )
+
+
+def sent_volume(schema, batch_per_device: int, n_devices: int,
+                capacity_factor: float = 2.0, dense_param_bytes: int = 0,
+                row_dim: int = 11, exchange_bytes: int = 4,
+                table_bytes: int = 4) -> CommVolume:
+    """The bytes the port's sharded step sends a rank a step
+    (``parallel/sharded.py``): :func:`comm_volume` with the ids as int64
+    and the looked-up rows in the narrower of the table's dtype
+    (``table_bytes``) and the wire's (``exchange_bytes``); the occurrence
+    gradients at the wire's width and the dense gradients as one f32
+    all-reduce of ``dense_param_bytes``, as there. The three scalar
+    all-reduces (weight sum, loss, dropped count) are not counted, as the
+    reference counts none. An eval step sends ``ids_a2a`` and
+    ``rows_a2a_fwd`` only."""
+    vol = comm_volume(schema, batch_per_device, n_devices, capacity_factor,
+                      dense_param_bytes, row_dim, exchange_bytes)
+    slots = n_devices * vol.capacity
+    return dataclasses.replace(
+        vol, ids_a2a=slots * ID_BYTES,
+        rows_a2a_fwd=slots * row_dim * min(table_bytes, exchange_bytes))
 
 
 def dense_param_bytes(model: torch.nn.Module) -> int:
@@ -201,6 +266,19 @@ def fit_links(records: Iterable[dict]) -> LinkModel:
                      allreduce_bytes_per_s=ar_bw, allreduce_latency_s=ar_lat)
 
 
+def inter_host_bytes(vol: CommVolume, n_hosts: int, chips_per_host: int) -> int:
+    """A host's bytes a step over the link between hosts, the reference's
+    per-host accounting: the remote share of each of the host's devices'
+    all-to-all payloads, and twice the all-reduced operand (reduced within
+    the host first); 0 on one host."""
+    n = vol.n_devices
+    if n_hosts <= 1 or n <= chips_per_host:
+        return 0
+    remote_frac = (n - chips_per_host) / n
+    a2a_payload = vol.ids_a2a + vol.rows_a2a_fwd + vol.rows_a2a_bwd
+    return int(a2a_payload * remote_frac * chips_per_host + 2 * vol.dense_psum)
+
+
 @dataclasses.dataclass(frozen=True)
 class ScalingPoint:
     """Predicted weak-scaling step and efficiency at one topology point
@@ -249,15 +327,11 @@ def predict_scaling(vol: CommVolume, t_comp_ms: float, n_hosts: int = 1,
                    + vol.a2a_wire / links.a2a_bytes_per_s
                    + ALLREDUCE_PER_STEP * links.allreduce_latency_s
                    + vol.psum_wire / links.allreduce_bytes_per_s) * 1e3
-    inter_bytes, t_inter = 0, 0.0
-    if n_hosts > 1 and n > chips_per_host:
+    inter_bytes, t_inter = inter_host_bytes(vol, n_hosts, chips_per_host), 0.0
+    if inter_bytes:
         if inter_bytes_per_s_per_host is None:
             raise ValueError("a prediction across hosts needs "
                              "inter_bytes_per_s_per_host: one box cannot measure it")
-        remote_frac = (n - chips_per_host) / n
-        a2a_payload = vol.ids_a2a + vol.rows_a2a_fwd + vol.rows_a2a_bwd
-        inter_bytes = int(a2a_payload * remote_frac * chips_per_host
-                          + 2 * vol.dense_psum)
         t_inter = inter_bytes / inter_bytes_per_s_per_host * 1e3
     t_comm = t_intra + t_inter
     return ScalingPoint(

@@ -36,8 +36,9 @@ limit (``nvidia-smi``), ``nvidia-smi topo -m`` (null where the machine
 refuses it) and ``topo -p2p n`` (which pairs of cards NVLink joins), which
 cards reach each other's memory (peer access), the NCCL version, the sweep,
 the steps, the fitted ``LinkModel``, and for each configuration and N > 1
-``predict_scaling`` of the step's volume as the port sends it (int64 ids,
-rows in the narrower of the table's and the wire's dtype) with ``t_comp_ms``
+``predict_scaling`` of the step's volume as the port sends it
+(``comm.py::sent_volume``: int64 ids, rows in the narrower of the table's
+and the wire's dtype) with ``t_comp_ms``
 the configuration's N = 1 device ms, beside the measured step. A table of
 them is printed. ``--small`` is the tool's own test: a tiny schema and
 tower, 64 rows a rank, a sweep of 256 KiB to 4 MiB; on the CPU no number is
@@ -165,21 +166,6 @@ def _case(name: str, small: bool):
                  else cli._load_schema_only(cfg))
 
 
-def _sent_volume(schema, cfg, n: int, rows: int, table: torch.Tensor, dense_bytes: int):
-    """The step's ``CommVolume`` as the port sends it: ids as int64, the
-    looked-up rows in the narrower of the table's and the wire's dtype, the
-    gradients in the wire's."""
-    from .comm import comm_volume
-
-    wire = 2 if cfg.train.exchange_dtype == "bf16" else 4
-    d = table.shape[1]
-    vol = comm_volume(schema, rows, n, cfg.train.capacity_factor, dense_bytes,
-                      row_dim=d, exchange_bytes=wire)
-    return dataclasses.replace(
-        vol, ids_a2a=2 * vol.ids_a2a,
-        rows_a2a_fwd=n * vol.capacity * d * min(wire, table.element_size()))
-
-
 def _device_us(run, calls: int, steps: int) -> dict:
     """Device µs a step of each kernel, by name, from ``torch.profiler``
     over ``calls`` calls of ``run`` (each of ``steps`` steps) after one call
@@ -211,7 +197,7 @@ def _step_case(name: str, group, small: bool) -> dict:
     """(b) for one configuration in this world."""
     from .. import cli
     from ..data import synthetic
-    from .comm import dense_param_bytes
+    from .comm import DTYPE_BYTES, dense_param_bytes, sent_volume
     from .sharded import (
         init_sharded_state,
         make_sharded_scan_train_step,
@@ -271,8 +257,11 @@ def _step_case(name: str, group, small: bool) -> dict:
                     if "nccl" in k.lower()}
             replay = dict(list(_device_us(lambda: scan(sst, *chunks[1]), 1,
                                           SCAN_K).items())[:REPLAY_KERNELS])
-        vol = _sent_volume(schema, cfg, group.world, rows, sst.model.table,
-                           dense_param_bytes(sst.model))
+        table = sst.model.table
+        vol = sent_volume(schema, rows, group.world, cfg.train.capacity_factor,
+                          dense_param_bytes(sst.model), row_dim=table.shape[1],
+                          exchange_bytes=DTYPE_BYTES[cfg.train.exchange_dtype],
+                          table_bytes=table.element_size())
     finally:
         scan.graph.clear()   # before the group ends (make_sharded_scan_train_step)
     every = [None] * group.world

@@ -49,9 +49,10 @@ What differs from the reference, and why:
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
-from typing import NamedTuple
+from typing import Iterator, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -156,7 +157,42 @@ def bucket_by_owner(flat_ids: torch.Tensor, n: int, sentinel: int,
     return Buckets(send, order, owner_s, rank, dropped, src, valid)
 
 
+class Collective(NamedTuple):
+    """One collective a step issued, as :func:`record_collectives` saw it."""
+
+    op: str              # "all_to_all" or "all_reduce"
+    nbytes: int          # the operand's bytes on this rank
+    dtype: torch.dtype
+    shape: tuple         # () for the scalar all-reduces
+    captured: bool       # issued while a CUDA graph was being captured
+
+
+_RECORD: list[Collective] | None = None
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[list[Collective]]:
+    """Record every collective the sharded steps issue while the block runs:
+    yields the list that each call of :func:`_all_to_all` and
+    :func:`all_reduce_sum` appends a :class:`Collective` to (the port's
+    counterpart of reading the lowered step's collectives). A replay of a
+    captured graph issues what its capture recorded and records nothing."""
+    global _RECORD
+    held, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = held
+
+
+def _record(op: str, t: torch.Tensor) -> None:
+    _RECORD.append(Collective(op, t.numel() * t.element_size(), t.dtype, tuple(t.shape),
+                              t.is_cuda and torch.cuda.is_current_stream_capturing()))
+
+
 def _all_to_all(x: torch.Tensor) -> torch.Tensor:
+    if _RECORD is not None:
+        _record("all_to_all", x)
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x.contiguous())
     return out
@@ -295,6 +331,8 @@ def _wire(exchange_dtype: str):
 
 
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    if _RECORD is not None:
+        _record("all_reduce", t)
     dist.all_reduce(t)
     return t
 

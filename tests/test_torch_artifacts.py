@@ -5,15 +5,18 @@ original, and the artifacts its tools wrote on the card.
    ``deepctr_tpu/utils/artifacts.py`` does, on the repo's stamped files;
 2. ``RESULTS_TORCH.md`` (``python -m deepctr_torch.tools.reproduce --study
    all``), ``PARITY_TORCH.md`` (``python tools/parity_report_torch.py
-   --seeds 6 --examples 40000``) and ``BENCH_TORCH.md`` (``python -m
+   --seeds 6 --examples 40000``), ``BENCH_TORCH.md`` (``python -m
    deepctr_torch.tools.bench_suite`` with every section; its gates are in
-   ``tests/test_torch_bench.py``) carry the stamps of their tools at HEAD:
-   any edit to a tool invalidates its artifact until the tool is re-run on
-   the card;
+   ``tests/test_torch_bench.py``) and ``SCALING_TORCH.md`` (``python -m
+   deepctr_torch.tools.scaling_report`` on four cards) carry the stamps of
+   their tools at HEAD: any edit to a tool invalidates its artifact until
+   the tool is re-run on the card;
 3. each artifact passes its gates: every parity row inside its own band,
    with the live oracle reproducing ``PARITY.md``'s; the family tables the
-   gates ``tests/test_reproduce.py`` puts on ``RESULTS.md``; both headers
-   name the NVIDIA card and its power limit.
+   gates ``tests/test_reproduce.py`` puts on ``RESULTS.md``; every
+   executed-against-accounted row of ``SCALING_TORCH.md`` reads ``yes``, as
+   ``tests/test_artifacts.py`` holds ``SCALING.md``'s; every header names
+   the NVIDIA card and its power limit.
 """
 
 import os
@@ -30,6 +33,7 @@ ARTIFACTS = {
     "RESULTS_TORCH.md": "deepctr_torch/tools/reproduce.py",
     "PARITY_TORCH.md": "tools/parity_report_torch.py",
     "BENCH_TORCH.md": "deepctr_torch/tools/bench_suite.py",
+    "SCALING_TORCH.md": "deepctr_torch/tools/scaling_report.py",
 }
 STAMPED = ["RESULTS.md", "PARITY.md", "SCALING.md", "BENCH.md", *ARTIFACTS]
 TOOLS = ["tools/reproduce.py", "tools/parity_report.py", *ARTIFACTS.values()]
@@ -171,3 +175,20 @@ def test_results_snn_mechanism_separates_the_optimizers():
     auc = {r["run"]: port.float_or_none(r["AUC"]) for r in rows}
     for snn in ("snn_dae", "snn_rbm"):
         assert auc[f"{snn} adagrad@2ep"] >= auc[f"{snn} sgd@2ep"] + 0.05, auc
+
+
+def test_scaling_executed_rows_all_match():
+    """SCALING_TORCH.md's executed-against-accounted table ships no row but
+    ``yes``, from a run on cards, with the train, eval and scan steps of
+    every case (the counterpart of ``tests/test_artifacts.py::
+    test_scaling_hlo_validation_rows_all_match``)."""
+    text = _read("SCALING_TORCH.md")
+    start = text.index("## Accounted against executed")
+    rows = port.parse_md_table(text[start:])
+    assert rows and {r["match"] for r in rows} == {"yes"}, [
+        r for r in rows if r["match"] != "yes"]
+    assert all(r["accounted bytes/rank"] == r["executed bytes/rank"] for r in rows)
+    steps = {r["step / config"].split()[0] for r in rows}
+    assert steps == {"train", "eval", "scan"}, steps
+    assert all("(captured)" in r["step / config"] for r in rows
+               if r["step / config"].startswith("scan")), "the scan rows were not captured"

@@ -1,8 +1,9 @@
 """deepctr_torch and chip_smoke.py never import jax, optax or ml_dtypes
 (the machine with the GPU has none), nor any module of the JAX package
 ``deepctr_tpu``: the port keeps its own copies of what it needs. The
-evidence and benchmark tools run there too: ``deepctr_torch.tools.reproduce``
-and ``deepctr_torch.tools.bench_suite`` load none of them,
+evidence and benchmark tools run there too: ``deepctr_torch.tools.reproduce``,
+``deepctr_torch.tools.bench_suite``, ``deepctr_torch.tools.scaling_report``
+and ``deepctr_torch.tools.substrate_lab`` load none of them,
 ``tools/parity_report_torch.py`` and ``bench_torch.py`` (which run the NumPy
 oracle of ``deepctr_tpu.reference_impl``) no jax, optax or ml_dtypes."""
 
@@ -36,6 +37,7 @@ import deepctr_torch.parallel.comm, deepctr_torch.parallel.dp
 import deepctr_torch.parallel.group, deepctr_torch.parallel.sharded
 import deepctr_torch.parallel.hostckpt, deepctr_torch.parallel.drill
 import deepctr_torch.parallel.scaling
+import deepctr_torch.tools.scaling_report, deepctr_torch.tools.substrate_lab
 from deepctr_torch import parallel
 schema = make_schema([("a", 4), ("tags", 10, 3)])
 model = make_fnn(schema, k=2, mlp=MlpSpec(hidden=(8,)), device="cpu")
@@ -165,6 +167,16 @@ assert res["embedding_lookups_per_s"] > 0, res
 h = bench_suite._bench_torch().build(make_schema([("a", 4), ("b", 8)]), "cpu",
                                      hidden=(4,))
 assert h.state.step == 0 and "bench_torch" in sys.modules
+""", ("jax", "jaxlib", "optax", "ml_dtypes", "deepctr_tpu")),
+    # the scaling report's accounting and the substrate lab's record: nothing
+    # of the JAX package
+    "scaling_report": ("""
+import contextlib, io, sys
+from deepctr_torch.tools import scaling_report, substrate_lab
+text = "\\n".join(scaling_report.inventory_section(small=False))
+assert "2,359,296" in text and "5,111,808" in text, text
+with contextlib.redirect_stdout(io.StringIO()):
+    assert substrate_lab.main(["--exp", "rank8", "--device", "cpu"]) == {"rank8": {}}
 """, ("jax", "jaxlib", "optax", "ml_dtypes", "deepctr_tpu")),
     # the headline's baseline is the NumPy oracle of deepctr_tpu.reference_impl
     "bench_torch": ("""
