@@ -166,7 +166,10 @@ Phases, each printing its own lines:
     for bit; (d) eager steps and replays in turns at FNN, FM, DeepFM and
     SNN widths: wall ms a step (host clock), the device's span a step
     (CUDA events), busy ms a step and busy share (``torch.profiler``),
-    capture seconds and peak device memory; the sorted-mode Adagrad update,
+    capture seconds, the bytes the capture's warm-up keeps of the state,
+    and peak device memory, the graph's at most 0.25 GiB over the eager
+    route's (the warm-up runs on the state itself and puts back what it
+    wrote: no copy of the state); the sorted-mode Adagrad update,
     static-shape form against the boolean-mask form it replaced, at
     Criteo's and SNN's shapes; (e) ``configs/fnn_full_ipinyou.json``
     through the CLI with ``train.scan_steps=8`` and ``=0`` in turns, 2
@@ -190,7 +193,9 @@ Phases, each printing its own lines:
     chunk of 3 real and 5 weight-0 steps with Adam; (c) FNN's and the
     Criteo config's sharded eager steps and graph replays in turns (wall
     ms a step, the device's span a step, busy share, device ops a chunk and the
-    NCCL names the profiler gives, capture s, peak memory), and its CLI
+    NCCL names the profiler gives, capture s and the bytes its warm-up
+    keeps, peak memory, the graph's at most 0.25 GiB over the eager
+    route's), and its CLI
     run with ``train.scan_steps=8`` and ``=0`` in turns, 40 steps each:
     checkpoints equal leaf for leaf, each run's examples/s and peak
     device memory; (d) a replay under
@@ -240,16 +245,31 @@ Phases, each printing its own lines:
     ``deepctr_torch.tools.scaling_report`` checks them (ids 1,179,648 B,
     rows 3,244,032 B in bf16, gradients 6,488,064 B, the dense all-reduce
     503,604 B and 3 scalar all-reduces a train step for the headline;
-    the capture's warm-up step one step's, its captured collectives K
-    steps'); (b) ``python -m deepctr_torch.tools.substrate_lab --exp
+    the capture's warm-up step one step's and one ``all_gather`` of the
+    ids whose rows it puts back, its captured collectives K steps'); (b)
+    ``python -m deepctr_torch.tools.substrate_lab --exp
     rank2`` at its defaults (120,000 examples: LR, FM, SNN-RBM and FNN
     seeded from FM through ``cli.run`` on the scan route) with its gate,
     SNN and FNN above LR by more than 0.02 AUC, each AUC and the seconds,
     and the tower forward (both branches), backward and FM scorer launched.
+22. the scan route at a state of 55% of the card: FNN at ``bench.py``'s
+    widths (k=10, 200-300-100 tanh, dropout 0.5) on iPinYou's 16 fields
+    with the url field grown until the f32 table and its f32 Adagrad
+    accumulator (sorted mode) take 55% of ``torch.cuda.mem_get_info()``'s
+    total (about 530 M rows of 88 B on an 80 GB card), made on the card and
+    filled in place from a CUDA generator; 8 eager steps of 8192, then the
+    state filled again in place from the same seeds and one chunk of 8 on
+    the graph route (``make_scan_train_step``): losses equal bit for bit,
+    the graph chunk's peak device memory at most 0.25 GiB over the eager
+    steps', the tower forward with dropout and backward launched 9 times
+    each (the warm-up step and a replay); the state's bytes, both peaks,
+    the capture's seconds and the bytes its warm-up kept, and the graph's
+    wall ms a step over 3 more replays. A route that copied the state at a
+    capture would run out of memory here.
 Phases 8-13 train through the CLI, so on the scan route: their launch
 counts add each replay's captured launches (the wrappers run but launch
-nothing during a capture), and each capture's warm-up step on a clone of
-the state; the runs of 10, 20 and 5 batches are padded to whole chunks
+nothing during a capture), and each capture's warm-up step on the state
+(restored after it); the runs of 10, 20 and 5 batches are padded to whole chunks
 (16, 24 and 8 steps). Under phase 13's ``train.debug_nans`` a chunk runs
 as 8 eager steps. The sharded CLI runs of phases 15 (c), (d) and 16 (a)
 take the sharded scan route too (the configs' ``train.scan_steps`` is 8):
@@ -315,6 +335,10 @@ RETRAIN_TEST_ROWS = 16_384
 RETRAIN_SHORT_STEPS = 5     # the profiled and the Adam runs
 SCAN_K = 8                  # phase 17: steps a graph, the configs' train.scan_steps
 SCAN_TIMED_CHUNKS = 5       # chunks of SCAN_K steps timed on each route
+# phases 17, 18 and 22: a graph's peak device memory over the eager route's
+# (the capture's warm-up keeps a few rows of the state, never a copy of it)
+GRAPH_PEAK_GAP_GIB = 0.25
+CAPACITY_SHARE = 0.55       # phase 22: the table and its accumulator, of the card
 TEST_FRACTION = 0.15        # the configs' held-out share
 FM_CONFIG = "configs/fm_k10.json"
 FNN_CONFIG = "configs/fnn_full_ipinyou.json"
@@ -1138,7 +1162,7 @@ def _reset_counts() -> None:
 def _counts() -> dict:
     """The kernels' launch counts (a graph replay adds what its capture
     recorded), and the graphs captured: each capture ran one eager warm-up
-    step on a clone of its state, whose launches count too."""
+    step on its state (then restored), whose launches count too."""
     from deepctr_torch.ops.kernels import interaction as fm_k
     from deepctr_torch.ops.kernels import mlp as mlp_k
     from deepctr_torch.train import step as step_m
@@ -1159,7 +1183,7 @@ def _route_steps(cfg, batches: int) -> int:
 def _graph_launches(launches: dict, steps: int) -> int:
     """The tower's training launches of a CLI run of ``steps`` steps on the
     scan route: one a step (a replay adds its capture's), and one more a
-    capture for its warm-up step on a clone of the state. Raises unless the
+    capture for its warm-up step on the state (then restored). Raises unless the
     run captured a graph."""
     if launches["captures"] < 1:
         raise AssertionError(f"no graph captured on the scan route: {launches}")
@@ -2478,7 +2502,9 @@ def _graph_vs_eager(tag, state, scan, step, chunk) -> None:
     print(f"scan {tag}: one replay of a {chunk[0].shape[0]}-step graph vs as many eager "
           f"steps from one state: losses, table, optimizer states, tower, step "
           f"({g.step}) and generator bit-identical: {same}; capture {graph.capture_s:.2f} s "
-          f"(one warm-up step on a clone, then the capture), first call "
+          f"(one warm-up step on the state, which keeps "
+          f"{graph.snapshot_bytes / 2**20:.2f} MiB of it and puts it back, then the "
+          f"capture), first call "
           f"{first_s:.2f} s; launches of that call {launches} (the warm-up step's and "
           f"the replay's), per replay {dict(zip(('fwd', 'fwd_dropout', 'bwd', 'fm_score'), graph.launches))}")
     if not same:
@@ -2498,8 +2524,10 @@ def _time_routes(tag, state, scan, step, chunks) -> dict:
     graph, graph, eager), each from a clone of the state: after one warm-up
     chunk (the graph's capture), SCAN_TIMED_CHUNKS chunks timed on the host
     clock to a synchronize (wall) and between CUDA events (the device's
-    span, idle gaps included); the peak device memory of the turn; then
-    ``torch.profiler`` over warm chunks of each route for the busy share."""
+    span, idle gaps included); the peak device memory of the turn, the
+    graph's at most ``GRAPH_PEAK_GAP_GIB`` over the eager route's (the
+    capture holds no copy of the state); then ``torch.profiler`` over warm
+    chunks of each route for the busy share."""
     import torch
 
     steps = SCAN_TIMED_CHUNKS * SCAN_K
@@ -2531,7 +2559,9 @@ def _time_routes(tag, state, scan, step, chunks) -> dict:
         out[which].append({
             "wall_ms": wall, "span_ms": start.elapsed_time(end) / steps,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "capture_s": scan.graph[0].capture_s if which == "graph" else None})
+            "capture_s": scan.graph[0].capture_s if which == "graph" else None,
+            "snapshot_mib": (scan.graph[0].snapshot_bytes / 2**20 if which == "graph"
+                             else None)})
         del st
     for which in ("eager", "graph"):
         st = state.clone()
@@ -2550,7 +2580,9 @@ def _time_routes(tag, state, scan, step, chunks) -> dict:
                       for key in ("wall_ms", "span_ms", "peak_gib")}
         res[which].update(busy=out[which + "_busy"], device_ms=out[which + "_device_ms"],
                           nccl=out[which + "_nccl"], ops=out[which + "_ops"])
-    res["graph"]["capture_s"] = float(np.mean([r["capture_s"] for r in out["graph"]]))
+    for key in ("capture_s", "snapshot_mib"):
+        res["graph"][key] = float(np.mean([r[key] for r in out["graph"]]))
+    gap = res["graph"]["peak_gib"] - res["eager"]["peak_gib"]
     print(f"scan {tag} timed ({SCAN_TIMED_CHUNKS} chunks of {SCAN_K} steps of {BATCH} "
           f"after one warm-up chunk, in turns): " + "; ".join(
               f"{w}: wall {res[w]['wall_ms']:.4f} ms a step (host clock), span "
@@ -2558,9 +2590,14 @@ def _time_routes(tag, state, scan, step, chunks) -> dict:
               f"{res[w]['device_ms']:.4f} ms a step and {100 * res[w]['busy']:.1f}% "
               f"of the wall (profiler), peak {res[w]['peak_gib']:.2f} GiB"
               for w in ("eager", "graph"))
-          + f"; capture {res['graph']['capture_s']:.2f} s; runs {out['eager']} "
+          + f"; capture {res['graph']['capture_s']:.2f} s, its warm-up keeping "
+            f"{res['graph']['snapshot_mib']:.2f} MiB of the state; graph peak - eager "
+            f"peak {gap:.3f} GiB (gate {GRAPH_PEAK_GAP_GIB}); runs {out['eager']} "
             f"{out['graph']}; kernels the profiler names under replay: "
             f"{out['graph_named']}")
+    if gap > GRAPH_PEAK_GAP_GIB:
+        raise AssertionError(f"scan {tag}: the graph route's peak is {gap:.3f} GiB over "
+                             f"the eager route's (gate {GRAPH_PEAK_GAP_GIB} GiB)")
     return res
 
 
@@ -2633,9 +2670,12 @@ def _phase17_scan(dev, root, tmp, schema, schema_path) -> dict:
     (a) graph against eager, bit for bit, for FNN (bf16, dense mode,
     dropout 0.5), FNN with Adam, FM k=10, DeepFM and SNN's fine-tune (f32
     927,658 x 200, sorted mode), each replayed twice (c); (b) a chunk of 3
-    real steps and 5 pad steps; (d) the two routes timed; (e) the CLI with
-    ``train.scan_steps=8`` and ``=0`` in turns; (f) no host sync in a
-    replay, nor in a warm eager step."""
+    real steps and 5 pad steps; (d) the two routes timed, and gated: the
+    graph route's peak device memory at most ``GRAPH_PEAK_GAP_GIB`` over
+    the eager route's for FNN, FM, DeepFM and SNN (the capture's warm-up
+    runs on the state and restores it, keeping only the batch's rows);
+    (e) the CLI with ``train.scan_steps=8`` and ``=0`` in turns; (f) no
+    host sync in a replay, nor in a warm eager step."""
     import torch
 
     from deepctr_torch.data import synthetic
@@ -2772,7 +2812,9 @@ def _sharded_graph_vs_eager(tag, sst, scan, step, chunk):
           f"(NCCL exchanges and all-reduces inside) vs as many eager sharded steps "
           f"from one state, bit for bit (losses, dropped {gm.dropped.tolist()}, table "
           f"shard, optimizer states, tower, step {g.step}, generator): {same}; capture "
-          f"{graph.capture_s:.2f} s, first call {first_s:.2f} s; launches of that call "
+          f"{graph.capture_s:.2f} s (its warm-up keeping "
+          f"{graph.snapshot_bytes / 2**20:.2f} MiB of the state), first call "
+          f"{first_s:.2f} s; launches of that call "
           f"{launches}, per replay "
           f"{dict(zip(('fwd', 'fwd_dropout', 'bwd', 'fm_score'), graph.launches))}")
     if not all(same.values()):
@@ -2841,7 +2883,11 @@ def _phase18_sharded_scan(dev, root, tmp, schema_path) -> dict:
     against the unsharded graph of phase 17 from the same state; (b) a
     chunk of 3 real and 5 pad steps with Adam; (c) the Criteo CLI with
     ``train.scan_steps=8`` and ``=0`` in turns, checkpoints equal, and both
-    routes timed; (d) no host sync in a replay; (e) the tower launches."""
+    routes timed for FNN and Criteo, gated: the graph route's peak device
+    memory at most ``GRAPH_PEAK_GAP_GIB`` over the eager route's (the
+    capture's warm-up restores the shard's rows that every rank's ids
+    reach, gathered by one ``all_gather``, and copies no shard); (d) no
+    host sync in a replay; (e) the tower launches."""
     import torch
 
     from deepctr_torch import cli
@@ -3294,6 +3340,129 @@ def _phase21_scaling_and_substrate(dev) -> dict:
     return {"launches": launches, "aucs": aucs, "seconds": seconds}
 
 
+def _capacity_schema(total_bytes: int):
+    """``ipinyou_full_schema``'s 16 fields (18 slots, FNN's tower input 176)
+    with the url field grown until the f32 table of 1+k and its f32 Adagrad
+    accumulator take ``CAPACITY_SHARE`` of ``total_bytes``."""
+    from deepctr_torch.data import ipinyou_full_schema, make_schema
+
+    base = ipinyou_full_schema()
+    rows = int(CAPACITY_SHARE * total_bytes) // (2 * 4 * (1 + K))
+    grow = rows - base.padded_vocab_size
+    return make_schema([(f.name, f.vocab_size + (grow if f.name == "url" else 0),
+                         f.max_len) for f in base.fields])
+
+
+def _phase22_capacity(dev) -> dict:
+    """The scan route at a single-card state of ``CAPACITY_SHARE`` of the
+    card's memory (FNN at ``bench.py``'s widths, sorted mode): 8 eager
+    steps, then the state filled again in place from the same seeds and one
+    graph chunk of 8 from it, losses bit for bit, the graph's peak at most
+    ``GRAPH_PEAK_GAP_GIB`` over the eager steps'. ``models/base.py::
+    init_table`` draws a full f32 temporary, so the table is filled in
+    place here."""
+    import torch
+
+    from deepctr_torch.models import MlpSpec, make_fnn
+    from deepctr_torch.models.base import init_mlp
+    from deepctr_torch.optim import SparseAdagrad, make_dense_optimizer
+    from deepctr_torch.train import (TrainState, dense_params, make_scan_train_step,
+                                     make_train_step)
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    schema = _capacity_schema(total)
+    sopt = SparseAdagrad(0.05, mode="sorted")
+    dopt = make_dense_optimizer("adagrad", 0.02)
+    model = make_fnn(schema, k=K, mlp=MlpSpec(hidden=FNN_HIDDEN, activation="tanh",
+                                             dropout=DROPOUT), device=dev)
+    model.table.requires_grad_(False)
+    state = TrainState(step=0, model=model, sparse_state=sopt.init(model.table),
+                       dense_state=dopt.init(dense_params(model)),
+                       generator=torch.Generator())
+
+    def fill():
+        gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+        with torch.no_grad():
+            model.table.normal_(0.0, model.init_sigma, generator=gen)
+            model.table[schema.pad_id] = 0.0
+            init_mlp(model.mlp, gen)
+            state.sparse_state.acc.fill_(sopt.initial_accumulator)
+            for acc in state.dense_state:
+                acc.fill_(dopt.initial_accumulator_value)
+        state.step = 0
+        state.generator.manual_seed(SEED + 22)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    offsets = schema.offsets
+    ids = torch.cat([torch.randint(int(o), int(o) + f.vocab_size, (SCAN_K, BATCH, f.max_len),
+                                   generator=gen, device=dev)
+                     for o, f in zip(offsets, schema.fields)], dim=-1)
+    labels = (torch.rand(SCAN_K, BATCH, generator=gen, device=dev) < 0.25).float()
+    weights = torch.ones(SCAN_K, BATCH, device=dev)
+    state_bytes = sum(t.numel() * t.element_size() for t in (
+        model.table, state.sparse_state.acc, *dense_params(model), *state.dense_state))
+    print(f"capacity: {schema.padded_vocab_size:,} rows x {1 + K} f32 table and "
+          f"accumulator, {state_bytes / 2**30:.2f} GiB of state, "
+          f"{state_bytes / total:.3f} of the card's {total / 2**30:.2f} GiB "
+          f"({free / 2**30:.2f} GiB free before it)")
+
+    step = make_train_step(schema, sopt, dopt)
+    scan = make_scan_train_step(schema, sopt, dopt)
+    peaks = {}
+    fill()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eager = torch.stack([step(state, ids[i], labels[i], weights[i])[1].loss
+                         for i in range(SCAN_K)])
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    peaks["eager"] = torch.cuda.max_memory_allocated() / 2**30
+
+    fill()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    state, losses = scan(state, ids, labels, weights)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _counts()
+    peaks["graph"] = torch.cuda.max_memory_allocated() / 2**30
+    graph = scan.graph[0]
+    same = torch.equal(losses, eager)
+    replays = 3
+    t0 = time.perf_counter()
+    for _ in range(replays):
+        scan(state, ids, labels, weights)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / (replays * SCAN_K)
+    gap = peaks["graph"] - peaks["eager"]
+    print(f"capacity: 8 eager steps ({eager_s:.2f} s) and one graph chunk of 8 "
+          f"from the same state (first call {first_s:.2f} s: capture "
+          f"{graph.capture_s:.2f} s, its warm-up keeping "
+          f"{graph.snapshot_bytes / 2**20:.2f} MiB of the state): losses bit-identical "
+          f"{same} {losses.tolist()}; peak device memory eager {peaks['eager']:.3f} GiB, "
+          f"graph {peaks['graph']:.3f} GiB, gap {gap:.3f} GiB (gate "
+          f"{GRAPH_PEAK_GAP_GIB}); graph wall {wall_ms:.4f} ms a step over {replays} "
+          f"replays (host clock); launches of the first call {launches}")
+    ok = (same and bool(torch.isfinite(losses).all()) and gap <= GRAPH_PEAK_GAP_GIB
+          and launches["fwd_dropout"] == launches["bwd"] == SCAN_K + 1)
+    result = {"rows": schema.padded_vocab_size, "state_gib": state_bytes / 2**30,
+              "share": state_bytes / total, "peaks_gib": peaks,
+              "capture_s": graph.capture_s, "snapshot_mib": graph.snapshot_bytes / 2**20,
+              "wall_ms": wall_ms, "launches": launches}
+    scan.graph.clear()
+    del graph, state, model, step, scan, ids, labels, weights, eager, losses
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"capacity: {result}, losses equal {same}")
+    print(f"phase 22 in {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
 def _template_args(mangled) -> str:
     """``<64, true>`` for a mangled ``ILi64ELb1EE``; '' for none."""
     if not mangled:
@@ -3546,6 +3715,7 @@ def main(argv=None) -> int:
         reproduced = _phase19_reproduce(dev, tmp)
         bench = _phase20_bench(root, tmp, card)
         substrate = _phase21_scaling_and_substrate(dev)
+    capacity = _phase22_capacity(dev)
 
     work = _tower_work(BATCH, fnn_dims)
     criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))
@@ -3586,6 +3756,7 @@ def main(argv=None) -> int:
         "launches_sharded_scan": sharded_scan["criteo_launches"]["fwd_dropout"],
         "launches_bench": bench["launches"]["fwd_dropout"],
         "launches_substrate": substrate["launches"]["fwd_dropout"],
+        "launches_capacity": capacity["launches"]["fwd_dropout"],
         "ms_criteo": train_k["criteo_fwd_drop_ms"],
         "plain_ms_criteo": train_k["criteo_fwd_drop_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["fwd"])["bound_ms"],
@@ -3607,6 +3778,7 @@ def main(argv=None) -> int:
         "launches_reproduce": reproduced["launches"]["bwd"],
         "launches_bench": bench["launches"]["bwd"],
         "launches_substrate": substrate["launches"]["bwd"],
+        "launches_capacity": capacity["launches"]["bwd"],
         "ms_criteo": train_k["criteo_bwd_ms"],
         "plain_ms_criteo": train_k["criteo_bwd_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["bwd"])["bound_ms"],

@@ -160,7 +160,7 @@ def bucket_by_owner(flat_ids: torch.Tensor, n: int, sentinel: int,
 class Collective(NamedTuple):
     """One collective a step issued, as :func:`record_collectives` saw it."""
 
-    op: str              # "all_to_all" or "all_reduce"
+    op: str              # "all_to_all", "all_reduce" or "all_gather"
     nbytes: int          # the operand's bytes on this rank
     dtype: torch.dtype
     shape: tuple         # () for the scalar all-reduces
@@ -173,10 +173,11 @@ _RECORD: list[Collective] | None = None
 @contextlib.contextmanager
 def record_collectives() -> Iterator[list[Collective]]:
     """Record every collective the sharded steps issue while the block runs:
-    yields the list that each call of :func:`_all_to_all` and
-    :func:`all_reduce_sum` appends a :class:`Collective` to (the port's
-    counterpart of reading the lowered step's collectives). A replay of a
-    captured graph issues what its capture recorded and records nothing."""
+    yields the list that each call of :func:`_all_to_all`,
+    :func:`all_reduce_sum` and :func:`touched_shard_rows` appends a
+    :class:`Collective` to (the port's counterpart of reading the lowered
+    step's collectives). A replay of a captured graph issues what its
+    capture recorded and records nothing."""
     global _RECORD
     held, _RECORD = _RECORD, []
     try:
@@ -344,6 +345,24 @@ def all_reduce_dense(grads: list[torch.Tensor]) -> list[torch.Tensor]:
                                                 grads)]
 
 
+def touched_shard_rows(ids: torch.Tensor, group: Group, sentinel: int) -> torch.Tensor:
+    """The local rows of this rank's shard that a sharded step on every
+    rank's batch ``ids`` (this rank's ``[b, S]``) can write: the ids every
+    rank holds, gathered by one ``all_gather``, kept where ``id % N`` is
+    this rank, as local rows ``id // N``, and the sentinel row. Every rank
+    must call it; it reads the rows back to the host (outside any
+    capture)."""
+    n = group.world
+    ids = ids.contiguous()
+    if _RECORD is not None:
+        _record("all_gather", ids)
+    every = [torch.empty_like(ids) for _ in range(n)]
+    dist.all_gather(every, ids)
+    flat = torch.cat(every).reshape(-1)
+    mine = flat[flat % n == group.rank] // n
+    return torch.unique(torch.cat([mine, mine.new_tensor([sentinel])]))
+
+
 class ShardedStepMetrics(NamedTuple):
     loss: torch.Tensor      # the global loss
     dropped: torch.Tensor   # occurrences dropped over every rank
@@ -443,11 +462,15 @@ def make_sharded_scan_train_step(schema: Schema, sparse_opt, dense_opt, group: G
     replay of a CUDA graph of the K steps, both all-to-all exchanges and
     the all-reduces of each captured inside (``train/step.py::
     chunk_route``, ``_ChunkGraph``); a capture or a collective that fails
-    raises. Every rank must call it with chunks of one shape and the same
-    ``lr_scale``. Weight-0 steps that pad a short chunk are full steps, as
-    the reference's: ``state.step`` counts them, they draw a seed, move
-    Adam's moments, and count the occurrences they drop (an all-pad step
-    sends every occurrence to the pad id's owner).
+    raises. Each capture's warm-up step runs on the shard itself and puts
+    back the rows of its batch that every rank's ids reach
+    (:func:`touched_shard_rows`, one ``all_gather`` a capture), so the
+    route holds one copy of the shard. Every rank must call it with chunks
+    of one shape and the same ``lr_scale``. Weight-0 steps that pad a
+    short chunk are full steps, as the reference's: ``state.step`` counts
+    them, they draw a seed, move Adam's moments, and count the occurrences
+    they drop (an all-pad step sends every occurrence to the pad id's
+    owner).
 
     A graph that captured NCCL collectives holds the communicator's
     resources: release it (``scan_step.graph.clear()``, or drop the step)
@@ -455,7 +478,9 @@ def make_sharded_scan_train_step(schema: Schema, sparse_opt, dense_opt, group: G
     forever."""
     body = _sharded_step_body(schema, sparse_opt, dense_opt, group, l2,
                               capacity_factor, exchange_dtype, check_finite)
+    sentinel = shard_rows(schema.padded_vocab_size, group.world)
     run = chunk_route(body, eager=check_finite,
+                      touched=lambda ids: touched_shard_rows(ids, group, sentinel),
                       seed_map=lambda seed: rank_seed(seed, group.rank), dropped=True)
 
     def scan_step(state: ShardedTrainState, ids, labels, weights,

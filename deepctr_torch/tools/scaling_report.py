@@ -19,7 +19,8 @@ from the JAX package's accounting. Its sections:
    ``sent_volume``'s closed forms on every rank. On the card the scan step's
    first call captures a CUDA graph, whose replays issue what the capture
    recorded: its captured collectives are K steps' and its warm-up step's
-   one step's; on the CPU the K steps run eagerly. The three scalar
+   one step's and one ``all_gather`` (the ids whose rows the warm-up puts
+   back); on the CPU the K steps run eagerly. The three scalar
    all-reduces (weight sum, loss, dropped count) have their own row, since
    ``CommVolume`` counts none, as the reference's does not. Any mismatch
    raises once the file is written.
@@ -144,7 +145,9 @@ def case_rows(case: dict) -> list[dict]:
     bytes a rank, and ``match``: every rank issued exactly the accounted
     calls, each of the accounted bytes. A scan step's row is its K steps';
     where its first call captured a graph, the row reads the captured
-    collectives, and its warm-up step's must be one step's too."""
+    collectives, and its warm-up step's must be one step's too, beside the
+    one ``all_gather`` of the ids whose rows the warm-up puts back
+    (``parallel/sharded.py::touched_shard_rows``, once a capture)."""
     from ..parallel.comm import CommVolume
 
     vol = CommVolume(**case["volume"])
@@ -159,7 +162,10 @@ def case_rows(case: dict) -> list[dict]:
             if step == "scan":
                 captured = [c for c in records if c[4]]
                 if captured:   # a graph's capture, after one eager warm-up step
-                    warm_ok &= _by_kind([c for c in records if not c[4]]) == want
+                    warm = [c for c in records if not c[4]]
+                    gathers = [c for c in warm if c[0] == "all_gather"]
+                    warm_ok &= len(gathers) == 1 and _by_kind(
+                        [c for c in warm if c[0] != "all_gather"]) == want
                     records = captured
             per_rank.append(_by_kind(records))
         if step == "scan":
@@ -307,8 +313,9 @@ def executed_section(cases: list[dict]) -> tuple[list[str], list[dict]]:
            "accounted bytes (ids as int64, forward rows in the narrower of the "
            "table's and the wire's dtype, gradients at the wire's width). A scan "
            "row is its K steps'; `captured` means the collectives recorded inside "
-           "a CUDA graph's capture (its warm-up step's, one step's, are checked "
-           "too), `eager` K eager steps on the CPU.\n",
+           "a CUDA graph's capture (its warm-up step's, one step's and one "
+           "`all_gather` of the ids whose rows it puts back, are checked too), "
+           "`eager` K eager steps on the CPU.\n",
            "| step / config | collective | calls | accounted bytes/rank | "
            "executed bytes/rank | match |",
            "|---|---|---|---|---|---|"]

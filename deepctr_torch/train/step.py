@@ -17,7 +17,11 @@ What differs from the reference, and why:
   dispatch, is K eager steps on the CPU and, on the card, one replay of a
   CUDA graph that holds the K whole steps (:class:`_ChunkGraph`).
   :func:`chunk_route` serves the sharded step's scan route too
-  (``parallel/sharded.py::make_sharded_scan_train_step``).
+  (``parallel/sharded.py::make_sharded_scan_train_step``). Like the
+  reference's donated scan step, it keeps one copy of the state on the
+  device: each capture's warm-up step runs on the real state and then puts
+  back what it wrote, the dense leaves and the table's and the sparse
+  state's rows of the batch's ids (:func:`_warm_up`).
 - The reference's split plan (``ops/split_embed.py``) is not ported: its
   one-hot matmuls are a TPU gather mechanism. One gather of all slots and
   one scatter of the occurrence gradients give the same per-row sums, up to
@@ -53,7 +57,8 @@ from ..ops.kernels.mlp import SEED_LIMIT
 from ..data import Schema
 
 # CUDA graphs of K steps captured since the last reset; each capture ran
-# one eager warm-up step on a clone of its state, whose launches count
+# one eager warm-up step on its state (then restored, :func:`_warm_up`),
+# whose launches count
 CAPTURES = 0
 
 # the side stream of every warm-up and capture, one a device: cuBLAS keeps a
@@ -244,8 +249,9 @@ def make_scan_train_step(schema: Schema, sparse_opt, dense_opt, l2: float = 0.0,
     pad a short chunk are full steps, as in the reference (a dropout seed
     each, Adam's moments and count move; SGD and Adagrad leave the table
     and accumulator as they were, since the gradient is 0)."""
+    pad_id = schema.pad_id
     run = chunk_route(_step_body(schema, sparse_opt, dense_opt, l2, check_finite),
-                      eager=check_finite)
+                      eager=check_finite, touched=lambda ids: touched_rows(ids, pad_id))
 
     def scan_step(state: TrainState, ids, labels, weights, lr_scale: float = 1.0,
                   seeds=None):
@@ -256,7 +262,7 @@ def make_scan_train_step(schema: Schema, sparse_opt, dense_opt, l2: float = 0.0,
     return scan_step
 
 
-def chunk_route(body, eager: bool, seed_map=None, dropped: bool = False):
+def chunk_route(body, eager: bool, touched, seed_map=None, dropped: bool = False):
     """``run(state, ids [K, B, S], labels [K, B], weights [K, B], lr_scale,
     seeds) -> (state, losses [K], dropped [K] or None)``: a chunk of K steps,
     the scan route of the single-device and the sharded step alike.
@@ -267,7 +273,12 @@ def chunk_route(body, eager: bool, seed_map=None, dropped: bool = False):
     card it is one replay of a :class:`_ChunkGraph` of K calls of ``body``,
     captured at the first chunk and again whenever the chunk's shape,
     ``lr_scale``, the state object or its tensors' addresses change; a
-    capture that fails raises. ``seed_map`` maps each dropout seed drawn
+    capture that fails raises. Each capture first runs one warm-up step on
+    the state itself and puts back what it wrote (:func:`_warm_up`), so the
+    route holds one copy of the state: ``touched(ids)`` gives the rows of
+    the table (and of each table-shaped sparse-state leaf) that a step on
+    the batch ``ids`` can write (:func:`touched_rows`; the sharded step's
+    gathers every rank's ids). ``seed_map`` maps each dropout seed drawn
     from the state's generator (or given) to the one the body takes, on
     both routes (the sharded step mixes in its rank). With ``dropped``
     the body's second output is a count kept step by step (the sharded
@@ -294,7 +305,7 @@ def chunk_route(body, eager: bool, seed_map=None, dropped: bool = False):
         if not graph or not graph[0].fits(state, key):
             graph.clear()   # its pool goes before the next capture
             graph.append(_ChunkGraph(body, state, ids, labels, weights, lr_scale, key,
-                                     seed_map, dropped))
+                                     touched, seed_map, dropped))
         return graph[0].run(state, ids, labels, weights, seeds)
 
     run.graph = graph
@@ -324,6 +335,51 @@ def _state_tensors(state: TrainState) -> list[torch.Tensor]:
     return out
 
 
+def touched_rows(ids: torch.Tensor, pad_id: int) -> torch.Tensor:
+    """The table rows a single-device step on the batch ``ids`` can write:
+    its unique ids and the pad row (a host sync, outside any capture)."""
+    flat = ids.reshape(-1)
+    return torch.unique(torch.cat([flat, flat.new_tensor([pad_id])]))
+
+
+def _warm_up(body, state: TrainState, ids, labels, weights, lr_scale: float, seed,
+             touched: torch.Tensor) -> int:
+    """One eager call of ``body`` on ``state`` itself, then every bit it
+    wrote put back in place: what a capture's first call must set up is set
+    up, the state ends as it began, and no second copy of it is made.
+    Returns the bytes it kept meanwhile.
+
+    Before the step it keeps only what one step can change: the rows
+    ``touched`` of the table and of each table-shaped sparse-state leaf
+    (the sorted update writes those rows alone; the dense update rewrites
+    every row, but an untouched row's gradient is 0 and it keeps its bits),
+    and a copy of every other tensor of :func:`_state_tensors` (the dense
+    parameters, the model's buffers, the dense optimizer's state with
+    Adam's count), ``state.step`` and the generator's state. After the step,
+    or a failure in it, these go back with ``index_copy_`` and ``copy_``
+    into the same tensors, so the addresses a graph key holds stay valid."""
+    table = state.model.table
+    rowwise = [table, *(t for t in state.sparse_state if t.shape == table.shape)]
+    held = {id(t) for t in rowwise}
+    whole = [t for t in _state_tensors(state) if id(t) not in held]
+    with torch.no_grad():
+        rows = [t.index_select(0, touched) for t in rowwise]
+        copies = [t.clone() for t in whole]
+    kept_bytes = sum(t.numel() * t.element_size() for t in rows + copies)
+    step, generator = state.step, state.generator.get_state()
+    try:
+        body(state, ids, labels, weights, lr_scale, seed)
+    finally:
+        with torch.no_grad():
+            for t, kept in zip(rowwise, rows):
+                t.index_copy_(0, touched, kept)
+            for t, kept in zip(whole, copies):
+                t.copy_(kept)
+        state.step = step
+        state.generator.set_state(generator)
+    return kept_bytes
+
+
 class _ChunkGraph:
     """K whole train steps (gather, model with its kernels, loss, backward,
     sparse and dense updates; in a sharded step also its NCCL exchanges
@@ -344,13 +400,16 @@ class _ChunkGraph:
     losses land in a static ``[K]`` buffer, and with ``dropped`` the body's
     second outputs in a ``[K]`` int64 one.
 
-    Before the capture one eager step runs on a clone of the state, on the
+    Before the capture one eager step runs on the state itself, on the
     device's one capture stream (:func:`_capture_stream`), so that what a
     first call sets up (cuBLAS's handle and workspace, the kernels' library,
     their shared-memory limits, an NCCL communicator) is not set up inside
-    the capture; the real state is not touched. In a sharded step that
-    warm-up runs collectives, and so does every replay: capturing is
-    collective, and every rank must capture at the same chunk. It does,
+    the capture; :func:`_warm_up` then puts back every bit it wrote (the
+    rows ``touched`` gives for the chunk's first batch, and the dense
+    leaves), so the route holds no second copy of the state. In a sharded
+    step that warm-up and ``touched``'s gather run collectives, and so does
+    every replay: capturing is collective, and every rank must capture at
+    the same chunk. It does,
     since the key changes on every rank at once: the chunk shape and
     ``lr_scale`` (``lr_decay ** epoch``) are the same on every rank, a new
     state object is new on every rank, and the addresses of one state's
@@ -363,7 +422,8 @@ class _ChunkGraph:
     """
 
     def __init__(self, body, state: TrainState, ids, labels, weights,
-                 lr_scale: float, key: tuple, seed_map=None, dropped: bool = False):
+                 lr_scale: float, key: tuple, touched, seed_map=None,
+                 dropped: bool = False):
         device = state.model.table.device
         k, b = ids.shape[:2]
         self.key = key
@@ -383,14 +443,14 @@ class _ChunkGraph:
         self._load(ids, labels, weights)
 
         t0 = time.perf_counter()
-        warm = state.clone()
         stream = _capture_stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            body(warm, self.ids[0], self.labels[0], self.weights[0], lr_scale,
-                 self.seeds[0])
+            # the bytes of the state the warm-up held meanwhile
+            self.snapshot_bytes = _warm_up(
+                body, state, self.ids[0], self.labels[0], self.weights[0], lr_scale,
+                self.seeds[0], touched(self.ids[0]))
         torch.cuda.current_stream(device).wait_stream(stream)
-        del warm
 
         self.graph = torch.cuda.CUDAGraph()
         before = launch_counts()

@@ -45,7 +45,8 @@ def build_state(cfg: dict, arrays: dict, prefix: str):
     else:
         model = make_fnn(schema, k=cfg["k"], device="cpu", mlp=MlpSpec(
             hidden=tuple(cfg["hidden"]), dropout=cfg.get("dropout", 0.0)))
-    sopt = make_sparse_optimizer(cfg["sparse"], cfg["sparse_lr"])
+    sopt = make_sparse_optimizer(cfg["sparse"], cfg["sparse_lr"], **(
+        {"mode": cfg["sparse_mode"]} if "sparse_mode" in cfg else {}))
     dopt = make_dense_optimizer(cfg["dense"], cfg["dense_lr"])
     state = init_state(model, schema, sopt, dopt, seed=cfg.get("seed", 0),
                        table_dtype=cfg.get("table_dtype", "f32"))
@@ -209,8 +210,53 @@ def run_cli(name, cfg, arrays, group, out):
     out[f"{name}/best_auc"] = np.array(res["best_auc"])
 
 
+def run_warmup(name, cfg, arrays, group, out):
+    """One sharded step, then the sharded body through the scan route's
+    warm-up (``train/step.py::_warm_up``) on the second batch, with the
+    rows ``touched_shard_rows`` gathers, under ``record_collectives``:
+    whether the warm-up step changed the shard, whether the state equals a
+    clone taken before it, the touched and shard rows, and each recorded
+    collective's op and bytes."""
+    from deepctr_torch.parallel import sharded
+    from deepctr_torch.train import step as t_step
+
+    schema, sopt, dopt, state = build_state(cfg, arrays, f"{name}/init/")
+    sst = par.sharded_state_from_state(state, group)
+    cf = cfg["capacity_factor"]
+    step = par.make_sharded_train_step(schema, sopt, dopt, group, capacity_factor=cf)
+    first, second = (par.local_batch(b, group) for b in _batches(cfg, arrays, name))
+    sst, _ = step(sst, first.ids, first.labels, first.weights)
+    body = sharded._sharded_step_body(schema, sopt, dopt, group, 0.0, cf, "f32", False)
+    want = sst.clone()
+    seen = {}
+
+    def spy(st, *args):
+        res = body(st, *args)
+        seen["changed"] = not torch.equal(st.model.table, want.model.table)
+        return res
+
+    ids = torch.from_numpy(second.ids).long()
+    sentinel = par.shard_rows(schema.padded_vocab_size, group.world)
+    with par.record_collectives() as records:
+        touched = sharded.touched_shard_rows(ids, group, sentinel)
+        t_step._warm_up(spy, sst, ids, torch.from_numpy(second.labels),
+                        torch.from_numpy(second.weights), 1.0,
+                        sharded.rank_seed(77, group.rank), touched)
+    leaves = zip(t_step._state_tensors(sst), t_step._state_tensors(want), strict=True)
+    out[f"{name}/changed"] = np.array(seen["changed"])
+    out[f"{name}/same"] = np.array(
+        sst.step == want.step
+        and torch.equal(sst.generator.get_state(), want.generator.get_state())
+        and all(torch.equal(a.detach(), b.detach()) for a, b in leaves))
+    out[f"{name}/touched"] = np.array(touched.numel())
+    out[f"{name}/shard_rows"] = np.array(sst.model.table.shape[0])
+    out[f"{name}/ops"] = np.array([c.op for c in records], dtype=str)
+    out[f"{name}/nbytes"] = np.array([c.nbytes for c in records])
+
+
 CASES = {"trajectory": run_trajectory, "scan": run_scan, "eval": run_eval,
-         "roundtrip": run_roundtrip, "repeat": run_repeat, "cli": run_cli}
+         "roundtrip": run_roundtrip, "repeat": run_repeat, "cli": run_cli,
+         "warmup": run_warmup}
 
 
 def main(argv) -> int:
