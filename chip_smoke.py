@@ -3,7 +3,8 @@
 multi-process training paths once on one GPU, its default training route,
 the scan route of CUDA graphs, unsharded and sharded, its model-family
 reproduction suite at a cut budget, its benchmark entry points, the
-scaling report's executed-bytes check and the substrate lab.
+scaling report's executed-bytes check, the substrate lab and the parity
+checks of the sharded step against the single-device step.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``, and imports nothing of JAX.
@@ -266,6 +267,24 @@ Phases, each printing its own lines:
     the capture's seconds and the bytes its warm-up kept, and the graph's
     wall ms a step over 3 more replays. A route that copied the state at a
     capture would run out of memory here.
+23. the parity checks (``deepctr_torch/parallel/parity.py``, the rank
+    program of the drill's ``parity`` leg and the counterpart of
+    ``__graft_entry__.py::dryrun_multichip``) in a world of one NCCL rank on
+    cuda:0, with the counts set to 0 just before and read just after: at
+    the reference's size (``ipinyou_like_schema()``, FNN k=10 200-300-100
+    tanh, 16 rows) its seven checks: five sharded SGD steps against five
+    single-device steps (losses rtol 1e-4 / atol 1e-5, table and dense
+    leaves rtol 2e-4 / atol 1e-4), five Adagrad steps (finite, no drops,
+    learning), the sharded eval against the single-device eval (rtol 2e-4
+    / atol 2e-3), a starved capacity's drops, the dropout-0.5 tower twice
+    from one init bit for bit, a bf16 table with the bf16 wire, and a
+    stream-fed sharded scan epoch through ``DevicePrefetcher`` and a CUDA
+    graph (every row once); at full iPinYou width (8192 rows) checks 1 and
+    3, and 5 and 6 at ``bench.py``'s configuration. Each check's largest
+    difference a leaf beside its tolerance, whether checks 1 and 3 are the
+    single-device step's bits (a world of one is that step), the tower
+    launches a check, the seconds. The same checks on 2 and 4 GPUs are
+    ``python -m deepctr_torch.parallel.drill --legs parity``.
 Phases 8-13 train through the CLI, so on the scan route: their launch
 counts add each replay's captured launches (the wrappers run but launch
 nothing during a capture), and each capture's warm-up step on the state
@@ -3463,6 +3482,34 @@ def _phase22_capacity(dev) -> dict:
     return result
 
 
+def _phase23_parity(dev) -> dict:
+    """``parallel/parity.py``'s checks at both sizes in a world of one NCCL
+    rank, with the kernel counts set to 0 just before and read just after;
+    any miss raises, and so does a tower kernel that was not launched."""
+    from deepctr_torch import parallel as par
+    from deepctr_torch.parallel import parity
+
+    t_phase = time.perf_counter()
+    _reset_counts()
+    with par.process_group(dev) as group:
+        results = [parity.run_parity(group, size) for size in parity.SIZES]
+    launches = _counts()
+    for res in results:
+        for line in parity.report_lines(res):
+            print(f"  {line}")
+        bits = {c["check"]: all(x["bitwise"] for x in c["leaves"])
+                for c in res["checks"] if c["check"] in (1, 3)}
+        print(f"parity {res['size']}: {len(res['checks'])} checks in {res['seconds']:.2f} "
+              f"s; checks 1 and 3 bit-identical to the single-device step in a world "
+              f"of one: {bits}")
+    parity.raise_misses(results)
+    print(f"parity: tower launches {launches}; phase 23 in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not all(launches[k] for k in ("fwd_eval", "fwd_dropout", "bwd")):
+        raise AssertionError(f"parity: a tower kernel was not launched: {launches}")
+    return {"launches": launches}
+
+
 def _template_args(mangled) -> str:
     """``<64, true>`` for a mangled ``ILi64ELb1EE``; '' for none."""
     if not mangled:
@@ -3716,6 +3763,7 @@ def main(argv=None) -> int:
         bench = _phase20_bench(root, tmp, card)
         substrate = _phase21_scaling_and_substrate(dev)
     capacity = _phase22_capacity(dev)
+    parity = _phase23_parity(dev)
 
     work = _tower_work(BATCH, fnn_dims)
     criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))
@@ -3736,6 +3784,7 @@ def main(argv=None) -> int:
         "launches_sharded_scan": sharded_scan["criteo_launches"]["fwd_eval"],
         "launches_reproduce": reproduced["launches"]["fwd_eval"],
         "launches_substrate": substrate["launches"]["fwd_eval"],
+        "launches_parity": parity["launches"]["fwd_eval"],
         "ms_criteo": tower_times["criteo tanh"][0],
         "plain_ms_criteo": tower_times["criteo tanh"][1],
         "bound_ms_criteo": _bound(*criteo["fwd"])["bound_ms"],
@@ -3757,6 +3806,7 @@ def main(argv=None) -> int:
         "launches_bench": bench["launches"]["fwd_dropout"],
         "launches_substrate": substrate["launches"]["fwd_dropout"],
         "launches_capacity": capacity["launches"]["fwd_dropout"],
+        "launches_parity": parity["launches"]["fwd_dropout"],
         "ms_criteo": train_k["criteo_fwd_drop_ms"],
         "plain_ms_criteo": train_k["criteo_fwd_drop_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["fwd"])["bound_ms"],
@@ -3779,6 +3829,7 @@ def main(argv=None) -> int:
         "launches_bench": bench["launches"]["bwd"],
         "launches_substrate": substrate["launches"]["bwd"],
         "launches_capacity": capacity["launches"]["bwd"],
+        "launches_parity": parity["launches"]["bwd"],
         "ms_criteo": train_k["criteo_bwd_ms"],
         "plain_ms_criteo": train_k["criteo_bwd_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["bwd"])["bound_ms"],

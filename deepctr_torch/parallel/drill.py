@@ -1,15 +1,17 @@
 """Fault drill of multi-process training: ``python -m deepctr_torch.parallel.drill``.
 
-The port's analogue of ``tools/multihost_sim.py`` phases 3-5, under
-``torchrun`` with one process per device (``--device cuda``, the default:
-one rank per GPU, at least two; ``--device cpu``: two gloo ranks). Four
-legs, each a set of ``torchrun`` launches in a work directory:
+The port's analogue of ``tools/multihost_sim.py`` phases 3-5 and of
+``__graft_entry__.py::dryrun_multichip``, under ``torchrun`` with one
+process per device (``--device cuda``, the default: one rank per GPU, at
+least two, ``--nproc`` of them, every GPU by default; ``--device cpu``:
+``--nproc`` gloo ranks, two by default). Five legs, each a set of
+``torchrun`` launches in a work directory:
 
-- ``kill``: two ranks train a tiny FM (row-sharded, Adagrad); host shards
+- ``kill``: the ranks train a tiny FM (row-sharded, Adagrad); host shards
   are saved after step 2 (``parallel/hostckpt.py``); rank 1 dies
   (``os._exit(13)``) and rank 0 attempts step 3, whose collective cannot
   complete. The launcher must exit non-zero within ``KILL_LIMIT_S`` with no
-  ``done`` line printed. A fresh pair restores from the shard files, and its
+  ``done`` line printed. Fresh ranks restore from the shard files, and their
   steps 3-4 must equal an uninterrupted 4-step run: losses and each rank's
   table shard, bit for bit.
 - ``resume``: the CLI (``train.sharded=true train.distributed=true``, FNN
@@ -17,11 +19,11 @@ legs, each a set of ``torchrun`` launches in a work directory:
   two; its shard files must equal those of two epochs run straight through,
   key for key and bit for bit.
 - ``stream``: the production shape in one run: a rank-local stream over
-  three shards of unequal lengths, the bf16 wire, ``capacity_factor=1.25``
-  and host shards, once with the prefetcher and once without. The two
-  histories and shard files must be identical, and every epoch's
-  ``epoch_steps`` event must give the step count and ``rows_skipped`` the
-  shards' row counts give.
+  three shards of unequal lengths (N of them past three ranks), the bf16
+  wire, ``capacity_factor=1.25`` and host shards, once with the
+  prefetcher and once without. The two histories and shard files must be
+  identical, and every epoch's ``epoch_steps`` event must give the step
+  count and ``rows_skipped`` the shards' row counts give.
 - ``scan``: the sharded scan route. From one state (FNN with dropout 0.5,
   Adam, ``capacity_factor=1.0``), two chunks of 8 steps, the second with 3
   weight-0 pad steps, through ``make_sharded_scan_train_step`` and the
@@ -30,10 +32,17 @@ legs, each a set of ``torchrun`` launches in a work directory:
   same on every rank. On the card the chunks are a captured graph's
   replays, with NCCL's collectives across the ranks inside; on the CPU
   both sides are eager steps.
+- ``parity``: ``parallel/parity.py``'s seven checks of the sharded step
+  against the single-device step on every rank, the reference's
+  ``dryrun_multichip`` one for one at its tolerances, at the reference's
+  size (``dryrun``) and at full iPinYou width (``full``, 8192 rows a rank;
+  ``--parity-size``, both by default on the card). Each rank writes what it
+  measured; the leg raises on any miss, and where the ranks' global losses
+  or drop counts differ.
 The CLI legs take the configs' default ``train.scan_steps=8``, the
 sharded scan route, too.
 
-Any failure raises. ``--legs`` picks legs (default: all four).
+Any failure raises. ``--legs`` picks legs (default: all five).
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import json
 import os
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -52,12 +62,19 @@ import torch
 from .group import torchrun
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-LEGS = ("kill", "resume", "stream", "scan")
+LEGS = ("kill", "resume", "stream", "scan", "parity")
+PARITY_SIZES = ("dryrun", "full", "both")
 KILL_LIMIT_S = 60         # the launcher must give up on the dead rank by then
 RUN_LIMIT_S = 300         # any other launch
 SEED = 0
 BATCH = 128               # the global batch; each of N ranks takes BATCH / N rows
 STREAM_ROWS = (1100, 700, 500)   # the stream leg's shards, of unequal lengths
+
+
+def _stream_rows(nproc: int) -> tuple[int, ...]:
+    """The stream leg's shard rows: :data:`STREAM_ROWS`, and past three
+    ranks one shorter shard more a rank, so that every rank streams one."""
+    return STREAM_ROWS + tuple(300 - 10 * i for i in range(nproc - len(STREAM_ROWS)))
 
 
 def _schema():
@@ -182,6 +199,19 @@ def _scan_worker(workdir: str, device: str) -> None:
             json.dump(out, f)
 
 
+def _parity_worker(workdir: str, device: str, size: str) -> None:
+    """One rank of the parity leg: ``parallel/parity.py``'s checks at
+    ``size`` (or both sizes); what it measured goes to
+    ``<workdir>/parity_rank<r>.json``, misses included."""
+    from . import parity, process_group
+
+    sizes = list(parity.SIZES) if size == "both" else [size]
+    with process_group(device) as group:
+        results = [parity.run_parity(group, s) for s in sizes]
+        with open(os.path.join(workdir, f"parity_rank{group.rank}.json"), "w") as f:
+            json.dump(results, f)
+
+
 # ---------------------------------------------------------------------------
 # The launcher
 # ---------------------------------------------------------------------------
@@ -281,9 +311,10 @@ def leg_stream(workdir: str, device: str, nproc: int) -> None:
     from ..data import synthetic
 
     schema = _schema()
+    shard_rows = _stream_rows(nproc)
     paths = []
-    for i, n in enumerate(STREAM_ROWS + (400,)):
-        path = os.path.join(workdir, f"shard_{i}.yx" if i < len(STREAM_ROWS)
+    for i, n in enumerate(shard_rows + (400,)):
+        path = os.path.join(workdir, f"shard_{i}.yx" if i < len(shard_rows)
                             else "test.yx")
         synthetic.write_yx_file(synthetic.generate(schema, num_examples=n, k=3,
                                                    seed=SEED + 20 + i), path)
@@ -307,12 +338,12 @@ def leg_stream(workdir: str, device: str, nproc: int) -> None:
     want = []
     for epoch in range(2):
         rng = np.random.default_rng(SEED + epoch)   # StreamSource.epoch_order
-        rows = [STREAM_ROWS[i] for i in rng.permutation(len(STREAM_ROWS))]
+        rows = [shard_rows[i] for i in rng.permutation(len(shard_rows))]
         full = [sum(rows[r::nproc]) // (BATCH // nproc) for r in range(nproc)]
         want.append((min(full), (sum(full) - nproc * min(full)) * (BATCH // nproc)))
     same = _same_files(*(os.path.join(workdir, f"stream_{p}.ckpt.hostshards")
                          for p in ("true", "false")), nproc)
-    print(f"drill stream: shards of {STREAM_ROWS} rows over {nproc} ranks, bf16 "
+    print(f"drill stream: shards of {shard_rows} rows over {nproc} ranks, bf16 "
           f"wire, capacity 1.25: (steps, rows_skipped) by epoch "
           f"{[(e['steps'], e['rows_skipped']) for e in steps]} (from the row counts: "
           f"{want}); prefetch on and off: histories equal "
@@ -338,20 +369,77 @@ def leg_scan(workdir: str, device: str, nproc: int) -> None:
                            "the pad step dropped nothing")
 
 
+def leg_parity(workdir: str, device: str, nproc: int, size: str | None = None) -> None:
+    from . import parity
+
+    size = size or ("both" if device == "cuda" else "dryrun")
+    _, _, _, seconds = torchrun(_worker_args("parity", workdir, device)
+                                + ["--parity-size", size], nproc, RUN_LIMIT_S)
+    ranks = _read(workdir, "parity", nproc)
+    for results in ranks:
+        for res in results:
+            print("\n".join(parity.report_lines(res)))
+    disagree = []
+    for s, per_rank in enumerate(zip(*ranks)):
+        for c, checks in enumerate(zip(*(res["checks"] for res in per_rank))):
+            for key in ("losses", "dropped"):
+                if len({json.dumps(ch.get(key)) for ch in checks}) > 1:
+                    disagree.append(f"{per_rank[0]['size']} check {checks[0]['check']}: "
+                                    f"{key} by rank {[ch.get(key) for ch in checks]}")
+    flat = [res for results in ranks for res in results]
+    print(f"drill parity: {', '.join(res['size'] for res in ranks[0])} on {nproc} "
+          f"{device} ranks ({ranks[0][0]['device']}): "
+          f"{sum(c['ok'] for res in flat for c in res['checks'])} of "
+          f"{sum(len(res['checks']) for res in flat)} rank checks within the "
+          f"reference's tolerances, the launch {seconds:.1f} s, the checks "
+          f"{[round(res['seconds'], 2) for res in ranks[0]]} s on rank 0")
+    parity.raise_misses(flat)
+    if disagree:
+        raise RuntimeError("the ranks disagree on the global losses or drop counts:\n"
+                           + "\n".join(disagree))
+
+
+def _nproc(device: str, asked: int | None) -> int:
+    """The ranks to start: on the card one a GPU, every GPU unless
+    ``asked``; on the CPU ``asked`` gloo ranks, two by default. Fewer than
+    two, or more than the GPUs, is refused; nothing falls back to the CPU."""
+    if asked is not None and asked < 2:
+        raise SystemExit(f"--nproc {asked}: the drill needs two ranks or more")
+    if device == "cpu":
+        nproc = 2 if asked is None else asked
+    else:
+        count = torch.cuda.device_count()
+        if asked is None and count < 2:
+            raise SystemExit(f"the drill needs two ranks, one a GPU; {count} GPU(s) "
+                             f"here. Use --device cpu for two gloo ranks")
+        nproc = count if asked is None else asked
+        if nproc > count:
+            raise SystemExit(f"--nproc {nproc}: one rank a GPU, and {count} GPU(s) "
+                             f"here. Use --device cpu for gloo ranks")
+    return nproc
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m deepctr_torch.parallel.drill",
                                  description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="cuda: one rank per GPU (two or more); cpu: two gloo ranks")
+                    help="cuda: one rank per GPU (two or more); cpu: gloo ranks")
+    ap.add_argument("--nproc", type=int, help="ranks (default: every GPU on cuda, "
+                    "two on cpu)")
+    ap.add_argument("--parity-size", choices=PARITY_SIZES,
+                    help="the parity leg's size (default: both on cuda, dryrun on cpu)")
     ap.add_argument("--legs", default=",".join(LEGS),
                     help=f"comma list of legs to run, of {','.join(LEGS)}")
     ap.add_argument("--workdir", help="where the legs write (default: a "
                     "temporary directory, removed after)")
-    ap.add_argument("--worker", choices=("full", "crash", "restore", "scan"),
-                    help=argparse.SUPPRESS)   # the kill and scan legs' rank programs
+    ap.add_argument("--worker", choices=("full", "crash", "restore", "scan", "parity"),
+                    help=argparse.SUPPRESS)   # the legs' rank programs
     args = ap.parse_args(argv)
     if args.worker == "scan":
         _scan_worker(args.workdir, args.device)
+        return 0
+    if args.worker == "parity":
+        _parity_worker(args.workdir, args.device, args.parity_size or "dryrun")
         return 0
     if args.worker:
         _fm_worker(args.worker, args.workdir, args.device)
@@ -360,21 +448,18 @@ def main(argv=None) -> int:
     unknown = sorted(set(legs) - set(LEGS))
     if unknown:
         raise SystemExit(f"unknown legs {unknown}; the legs are {', '.join(LEGS)}")
-    if args.device == "cuda":
-        nproc = torch.cuda.device_count()
-        if nproc < 2:
-            raise SystemExit(f"the drill needs two ranks, one a GPU; {nproc} GPU(s) "
-                             f"here. Use --device cpu for two gloo ranks")
-    else:
-        nproc = 2
+    nproc = _nproc(args.device, args.nproc)
+    legs_by_name = {"kill": leg_kill, "resume": leg_resume, "stream": leg_stream,
+                    "scan": leg_scan,
+                    "parity": lambda w, d, n: leg_parity(w, d, n, args.parity_size)}
     with (contextlib.nullcontext(args.workdir) if args.workdir
           else tempfile.TemporaryDirectory(prefix="deepctr_drill_")) as workdir:
         for leg in legs:
             legdir = os.path.join(workdir, leg)
             os.makedirs(legdir, exist_ok=True)
-            {"kill": leg_kill, "resume": leg_resume, "stream": leg_stream,
-             "scan": leg_scan}[leg](
-                legdir, args.device, nproc)
+            t0 = time.perf_counter()
+            legs_by_name[leg](legdir, args.device, nproc)
+            print(f"drill {leg}: passed in {time.perf_counter() - t0:.1f} s")
     print(f"drill: {', '.join(legs)} passed on {nproc} {args.device} ranks")
     return 0
 

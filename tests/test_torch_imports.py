@@ -36,6 +36,7 @@ from deepctr_torch.data import make_schema, synthetic
 import deepctr_torch.parallel.comm, deepctr_torch.parallel.dp
 import deepctr_torch.parallel.group, deepctr_torch.parallel.sharded
 import deepctr_torch.parallel.hostckpt, deepctr_torch.parallel.drill
+import deepctr_torch.parallel.parity
 import deepctr_torch.parallel.scaling
 import deepctr_torch.tools.scaling_report, deepctr_torch.tools.substrate_lab
 from deepctr_torch import parallel

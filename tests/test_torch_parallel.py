@@ -58,6 +58,10 @@ from test_torch_ranks import launch
 RTOL, ATOL = 1e-4, 1e-5
 EVAL_TOL = 2e-5
 SCAN_K = 4          # steps a chunk of the scan cases: 6 real steps, 2 pad
+# __graft_entry__.py::dryrun_multichip's own tolerances (rtol, atol): the
+# losses, the table and dense leaves, the eval's logits
+DRYRUN_LOSS, DRYRUN_STATE, DRYRUN_EVAL = (1e-4, 1e-5), (2e-4, 1e-4), (2e-4, 2e-3)
+DRYRUN_B = 16 * 2   # its global batch, 16 rows a device
 BF16_LOSS = (1e-3, 1e-4)
 BF16_TABLE = (1e-2, 1e-3)
 WIRE = (0.05, 0.025)
@@ -314,6 +318,59 @@ def _jax_scan_run(model, schema, sopt, dopt, chunks, mesh, seed=3, cf=8.0):
             jax.tree_util.tree_map(np.asarray, st.dense))
 
 
+def _jax_dryrun(mesh):
+    """``dryrun_multichip``'s check 1 and 3 sides in the JAX package, with
+    its split plan: five SGD steps of ``ipinyou_like_schema()``'s FNN
+    (200-300-100 tanh) on one device and sharded over ``mesh``, from one
+    seed-0 init, and the eval step of the first batch on each end state.
+    Returns the batches and, for each side, the initial (table, dense),
+    the losses, the final table and dense, and the logits."""
+    from deepctr_tpu.data import synthetic
+    from deepctr_tpu.ops.split_embed import make_split_plan
+    from deepctr_tpu.train.step import make_eval_step
+
+    schema = ipinyou_like_schema()
+    model = make_fnn(schema, k=10, mlp=MlpSpec(hidden=(200, 300, 100),
+                                               activation="tanh", dropout=0.0))
+    split = make_split_plan(schema)
+    sopt, dopt = SparseSgd(0.1), optax.sgd(0.05)
+    ds = synthetic.generate(schema, num_examples=5 * DRYRUN_B, k=4, seed=0)
+    ids = ds.ids.reshape(5, DRYRUN_B, -1)
+    labels = ds.labels.reshape(5, DRYRUN_B)
+    w = jnp.ones(DRYRUN_B, jnp.float32)
+    dense = lambda st: jax.tree_util.tree_map(np.asarray, st.dense)
+    vp = schema.padded_vocab_size
+
+    st = init_state(model, schema, sopt, dopt, seed=0)
+    init = (np.asarray(st.table, np.float32), dense(st))
+    step = make_train_step(model, schema, sopt, dopt, split=split)
+    losses = []
+    for i in range(5):
+        st, m = step(st, jnp.asarray(ids[i]), jnp.asarray(labels[i]), w)
+        losses.append(float(m.loss))
+    logits = make_eval_step(model, schema, split=split)(st.table, st.dense,
+                                                        jnp.asarray(ids[0]))
+    single = (init, losses, np.asarray(st.table, np.float32), dense(st),
+              np.asarray(logits))
+
+    st = init_sharded_state(model, schema, sopt, dopt, mesh, seed=0)
+    np.testing.assert_array_equal(np.asarray(unpack_table(st.table, vp, N)), init[0])
+    step = make_sharded_train_step(model, schema, sopt, dopt, mesh,
+                                   capacity_factor=float(N), split=split)
+    losses = []
+    for i in range(5):
+        st, (loss, dropped) = step(st, *shard_batch_arrays(mesh, ids[i], labels[i],
+                                                           np.asarray(w)))
+        assert int(dropped) == 0
+        losses.append(float(loss))
+    (ids_d,) = shard_batch_arrays(mesh, ids[0])
+    logits = make_sharded_eval_step(model, schema, mesh, capacity_factor=float(N),
+                                    split=split)(st.table, st.dense, ids_d)
+    sharded = (init, losses, np.asarray(unpack_table(st.table, vp, N), np.float32),
+               dense(st), np.asarray(logits))
+    return schema, (ids, labels), single, sharded
+
+
 def _case(inputs, name, cfg, init, batches=None, **extra):
     inputs[f"{name}/config"] = np.array(json.dumps(cfg))
     table, dense = init
@@ -411,6 +468,13 @@ def ranks(schema, data, mesh, tmp_path_factory):
         _case(inputs, name, dict(cfg, case="scan"), ref[name][0], ids=chunks[0],
               labels=chunks[1], weights=chunks[2])
 
+    like, dry_batches, ref["dryrun_single"], ref["dryrun_sharded"] = _jax_dryrun(mesh)
+    _case(inputs, "dryrun", {"case": "dryrun", "schema": like.to_json(), "model": "fnn",
+                             "k": 10, "hidden": [200, 300, 100], "sparse": "sgd",
+                             "sparse_lr": 0.1, "dense": "sgd", "dense_lr": 0.05,
+                             "capacity_factor": float(N)},
+          ref["dryrun_single"][0], dry_batches)
+
     out = launch(inputs, str(tmp_path_factory.mktemp("ranks")))
     return out, ref
 
@@ -435,6 +499,32 @@ def test_two_ranks_fm_trajectory_matches_jax(ranks, opt, against):
     _assert_dense(r0, name, dense)
     np.testing.assert_array_equal(out[1][f"{name}/losses"], r0[f"{name}/losses"])
     assert list(r0[f"{name}/dropped"]) == [0] * len(losses)
+
+
+@pytest.mark.parametrize("against", ["single", "sharded"])
+def test_two_ranks_dryrun_matches_jax(ranks, against):
+    """``__graft_entry__.py::dryrun_multichip``'s check 1 on two gloo ranks
+    from the JAX package's initial values: its schema and FNN, 32 rows a
+    step, five SGD steps, held to JAX's single-device trajectory with the
+    split plan (the reference's own comparison) and to JAX's two-device
+    sharded one, at the reference's tolerances."""
+    out, ref = ranks
+    _, losses, table, dense, _ = ref[f"dryrun_{against}"]
+    for r in (0, 1):
+        np.testing.assert_allclose(out[r]["dryrun/losses"], losses, *DRYRUN_LOSS)
+        assert list(out[r]["dryrun/dropped"]) == [0] * 5
+    np.testing.assert_allclose(out[0]["dryrun/table"], table, *DRYRUN_STATE)
+    _assert_dense(out[0], "dryrun", dense, *DRYRUN_STATE)
+
+
+@pytest.mark.parametrize("against", ["single", "sharded"])
+def test_two_ranks_dryrun_eval_matches_jax(ranks, against):
+    """``dryrun_multichip``'s check 3: the sharded eval step of the first
+    batch on check 1's end state, both ranks' logits against JAX's
+    single-device (split plan) and two-device sharded eval."""
+    out, ref = ranks
+    got = np.concatenate([out[0]["dryrun/logits"], out[1]["dryrun/logits"]])
+    np.testing.assert_allclose(got, ref[f"dryrun_{against}"][4], *DRYRUN_EVAL)
 
 
 def test_two_ranks_count_the_drops_jax_counts(ranks):

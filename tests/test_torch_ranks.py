@@ -80,7 +80,8 @@ def _host(out, name, sst, group):
 
 def run_trajectory(name, cfg, arrays, group, out):
     """Steps of the sharded (or, ``"dp": true``, data-parallel) step on
-    this rank's share of each batch; losses, drops and the final state."""
+    this rank's share of each batch; losses, drops and the final state,
+    which it returns."""
     schema, sopt, dopt, state = build_state(cfg, arrays, f"{name}/init/")
     if cfg.get("dp"):
         state = par.replicate_state(state)
@@ -107,6 +108,18 @@ def run_trajectory(name, cfg, arrays, group, out):
                 out[f"{name}/dense/{key}"] = t.float().numpy()
     else:
         _host(out, name, state, group)
+    return state
+
+
+def run_dryrun(name, cfg, arrays, group, out):
+    """``__graft_entry__.py::dryrun_multichip``'s checks 1 and 3 on this
+    rank: the sharded trajectory, then the sharded eval step of the first
+    batch on its end state (this rank's logits)."""
+    state = run_trajectory(name, cfg, arrays, group, out)
+    ev = par.make_sharded_eval_step(Schema.from_json(cfg["schema"]), group,
+                                    capacity_factor=cfg["capacity_factor"])
+    ids = arrays[f"{name}/ids"][0]
+    out[f"{name}/logits"] = ev(state.model, ids[par.rank_rows(len(ids), group)]).numpy()
 
 
 def run_scan(name, cfg, arrays, group, out):
@@ -254,7 +267,8 @@ def run_warmup(name, cfg, arrays, group, out):
     out[f"{name}/nbytes"] = np.array([c.nbytes for c in records])
 
 
-CASES = {"trajectory": run_trajectory, "scan": run_scan, "eval": run_eval,
+CASES = {"trajectory": run_trajectory, "dryrun": run_dryrun, "scan": run_scan,
+         "eval": run_eval,
          "roundtrip": run_roundtrip, "repeat": run_repeat, "cli": run_cli,
          "warmup": run_warmup}
 
