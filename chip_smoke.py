@@ -3,8 +3,9 @@
 multi-process training paths once on one GPU, its default training route,
 the scan route of CUDA graphs, unsharded and sharded, its model-family
 reproduction suite at a cut budget, its benchmark entry points, the
-scaling report's executed-bytes check, the substrate lab and the parity
-checks of the sharded step against the single-device step.
+scaling report's executed-bytes check, the substrate lab, the parity
+checks of the sharded step against the single-device step and the
+speed-of-light audit of the train step.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and ``nvidia-smi``, and imports nothing of JAX.
@@ -285,6 +286,19 @@ Phases, each printing its own lines:
     single-device step's bits (a world of one is that step), the tower
     launches a check, the seconds. The same checks on 2 and 4 GPUs are
     ``python -m deepctr_torch.parallel.drill --legs parity``.
+24. the speed-of-light audit of the full-vocab FNN step: ``python -m
+    deepctr_torch.tools.step_breakdown`` (the counterpart of
+    ``tools/step_breakdown.py``, ``profile_step.py``,
+    ``bench_step_breakdown.py`` and ``roofline_lab.py``) in a subprocess at
+    ``bench.py``'s configuration, f32 and bf16 tables, every part but
+    ``--quality``: the step's five variants on the graph route, each
+    component timed with its bytes, FLOP and bound, the top device ops of
+    a replay, the full step at batch 8192, 16384 and 32768; its gates
+    passed (first-step losses of ``full``, ``no_sparse``,
+    ``fwd_bwd_no_update`` and ``fwd_only`` bit for bit, the state kept
+    where no update runs, ``full`` equal to ``make_scan_train_step``), the
+    tower launches a replay (8 / 0 / 8; ``fwd_only`` 8 / 0 / 0; the plain
+    tower 0), and its ``ROOFLINE_TORCH.md`` naming phase 1's card.
 Phases 8-13 train through the CLI, so on the scan route: their launch
 counts add each replay's captured launches (the wrappers run but launch
 nothing during a capture), and each capture's warm-up step on the state
@@ -3510,6 +3524,60 @@ def _phase23_parity(dev) -> dict:
     return {"launches": launches}
 
 
+# phase 24: the audit's variants and their tower launches a replay of
+# SCAN_K steps (forward with dropout, forward without, backward)
+ROOFLINE_LAUNCHES = {"full": (SCAN_K, 0, SCAN_K), "no_sparse": (SCAN_K, 0, SCAN_K),
+                     "fwd_bwd_no_update": (SCAN_K, 0, SCAN_K),
+                     "fwd_only": (SCAN_K, 0, 0), "full_plain_tower": (0, 0, 0)}
+
+
+def _phase24_roofline(root, tmp, card) -> dict:
+    """``python -m deepctr_torch.tools.step_breakdown`` (the speed-of-light
+    audit of the full-vocab FNN step) in a subprocess at full width, every
+    part but ``--quality``: exit 0 (the tool raises on its own gates), each
+    gate passed for both tables, the first-step losses of ``full``,
+    ``no_sparse``, ``fwd_bwd_no_update`` and ``fwd_only`` equal bit for bit,
+    the state kept where no update runs, the tower launches a replay as
+    predicted, and its ``ROOFLINE_TORCH.md`` naming phase 1's card. The
+    component tables are among the tool's printed lines."""
+    t_phase = time.perf_counter()
+    out_md = os.path.join(tmp, "ROOFLINE_TORCH.md")
+    _run_tool(["-m", "deepctr_torch.tools.step_breakdown", "--out", out_md], tmp, root,
+              "step_breakdown")
+    with open(os.path.join(tmp, "ROOFLINE_TORCH.json")) as f:
+        res = json.load(f)
+    with open(out_md) as f:
+        if card not in f.read().split("\n|", 1)[0]:
+            raise AssertionError(f"step_breakdown: ROOFLINE_TORCH.md does not name {card!r}")
+    for dtype in ("f32", "bf16"):
+        variants, gates = res["variants"][dtype], res["gates"][dtype]
+        failed = [g for g in gates if not g["ok"]]
+        if failed or len(gates) != 11:
+            raise AssertionError(f"step_breakdown {dtype}: gates {gates}")
+        losses = {variants[n]["first_loss"] for n in ROOFLINE_LAUNCHES
+                  if n != "full_plain_tower"}
+        if len(losses) != 1:
+            raise AssertionError(f"step_breakdown {dtype}: first-step losses {losses}")
+        for name in ("fwd_only", "fwd_bwd_no_update"):
+            if not all(variants[name]["kept_after_replays"].values()):
+                raise AssertionError(f"step_breakdown {dtype}: {name} changed the state: "
+                                     f"{variants[name]['kept_after_replays']}")
+        for name, want in ROOFLINE_LAUNCHES.items():
+            got = variants[name]["launches"]
+            if (got["fwd_dropout"], got["fwd"], got["bwd"]) != want:
+                raise AssertionError(f"step_breakdown {dtype}: {name} launched {got} a "
+                                     f"replay, predicted {want}")
+        roof = res["roofline"][dtype]
+        print(f"step_breakdown {dtype}: {len(gates)} gates passed; first-step loss "
+              f"{losses.pop()!r} bit for bit in 4 variants; full {roof['full_device_ms']:.4f} "
+              f"ms a step against a composite bound of {roof['composite_bound_ms']:.4f} ms; "
+              f"launches a replay as predicted")
+    total = res["launches_total"]
+    print(f"step_breakdown: tower launches over the run {total}; phase 24 in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {"fwd_dropout": total["fwd_dropout"], "bwd": total["bwd"]}}
+
+
 def _template_args(mangled) -> str:
     """``<64, true>`` for a mangled ``ILi64ELb1EE``; '' for none."""
     if not mangled:
@@ -3764,6 +3832,8 @@ def main(argv=None) -> int:
         substrate = _phase21_scaling_and_substrate(dev)
     capacity = _phase22_capacity(dev)
     parity = _phase23_parity(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        roofline = _phase24_roofline(root, tmp, card)
 
     work = _tower_work(BATCH, fnn_dims)
     criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))
@@ -3807,6 +3877,7 @@ def main(argv=None) -> int:
         "launches_substrate": substrate["launches"]["fwd_dropout"],
         "launches_capacity": capacity["launches"]["fwd_dropout"],
         "launches_parity": parity["launches"]["fwd_dropout"],
+        "launches_roofline": roofline["launches"]["fwd_dropout"],
         "ms_criteo": train_k["criteo_fwd_drop_ms"],
         "plain_ms_criteo": train_k["criteo_fwd_drop_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["fwd"])["bound_ms"],
@@ -3830,6 +3901,7 @@ def main(argv=None) -> int:
         "launches_substrate": substrate["launches"]["bwd"],
         "launches_capacity": capacity["launches"]["bwd"],
         "launches_parity": parity["launches"]["bwd"],
+        "launches_roofline": roofline["launches"]["bwd"],
         "ms_criteo": train_k["criteo_bwd_ms"],
         "plain_ms_criteo": train_k["criteo_bwd_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["bwd"])["bound_ms"],

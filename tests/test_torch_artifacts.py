@@ -7,10 +7,12 @@ original, and the artifacts its tools wrote on the card.
    all``), ``PARITY_TORCH.md`` (``python tools/parity_report_torch.py
    --seeds 6 --examples 40000``), ``BENCH_TORCH.md`` (``python -m
    deepctr_torch.tools.bench_suite`` with every section; its gates are in
-   ``tests/test_torch_bench.py``) and ``SCALING_TORCH.md`` (``python -m
-   deepctr_torch.tools.scaling_report`` on four cards) carry the stamps of
-   their tools at HEAD: any edit to a tool invalidates its artifact until
-   the tool is re-run on the card;
+   ``tests/test_torch_bench.py``), ``SCALING_TORCH.md`` (``python -m
+   deepctr_torch.tools.scaling_report`` on four cards) and
+   ``ROOFLINE_TORCH.md`` (``python -m deepctr_torch.tools.step_breakdown
+   --quality``; its gates are in ``tests/test_torch_step_breakdown.py``)
+   carry the stamps of their tools at HEAD: any edit to a tool invalidates
+   its artifact until the tool is re-run on the card;
 3. each artifact passes its gates: every parity row inside its own band,
    with the live oracle reproducing ``PARITY.md``'s; the family tables the
    gates ``tests/test_reproduce.py`` puts on ``RESULTS.md``; every
@@ -34,6 +36,7 @@ ARTIFACTS = {
     "PARITY_TORCH.md": "tools/parity_report_torch.py",
     "BENCH_TORCH.md": "deepctr_torch/tools/bench_suite.py",
     "SCALING_TORCH.md": "deepctr_torch/tools/scaling_report.py",
+    "ROOFLINE_TORCH.md": "deepctr_torch/tools/step_breakdown.py",
 }
 STAMPED = ["RESULTS.md", "PARITY.md", "SCALING.md", "BENCH.md", *ARTIFACTS]
 TOOLS = ["tools/reproduce.py", "tools/parity_report.py", *ARTIFACTS.values()]

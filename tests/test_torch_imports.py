@@ -2,8 +2,9 @@
 (the machine with the GPU has none), nor any module of the JAX package
 ``deepctr_tpu``: the port keeps its own copies of what it needs. The
 evidence and benchmark tools run there too: ``deepctr_torch.tools.reproduce``,
-``deepctr_torch.tools.bench_suite``, ``deepctr_torch.tools.scaling_report``
-and ``deepctr_torch.tools.substrate_lab`` load none of them,
+``deepctr_torch.tools.bench_suite``, ``deepctr_torch.tools.scaling_report``,
+``deepctr_torch.tools.substrate_lab`` and ``deepctr_torch.tools.step_breakdown``
+load none of them,
 ``tools/parity_report_torch.py`` and ``bench_torch.py`` (which run the NumPy
 oracle of ``deepctr_tpu.reference_impl``) no jax, optax or ml_dtypes."""
 
@@ -178,6 +179,18 @@ text = "\\n".join(scaling_report.inventory_section(small=False))
 assert "2,359,296" in text and "5,111,808" in text, text
 with contextlib.redirect_stdout(io.StringIO()):
     assert substrate_lab.main(["--exp", "rank8", "--device", "cpu"]) == {"rank8": {}}
+""", ("jax", "jaxlib", "optax", "ml_dtypes", "deepctr_tpu")),
+    # the speed-of-light audit reuses bench_torch.py's builder, and loads
+    # nothing of the JAX package
+    "step_breakdown": ("""
+import contextlib, io, sys
+import torch
+from deepctr_torch.tools import step_breakdown
+torch.set_num_threads(1)   # the suite's workers share the CPUs
+with contextlib.redirect_stdout(io.StringIO()):
+    res = step_breakdown.main(["--device", "cpu", "--small", "--parts", "components"])
+assert list(res["components"]) == ["f32", "bf16"], res
+assert "bench_torch" in sys.modules
 """, ("jax", "jaxlib", "optax", "ml_dtypes", "deepctr_tpu")),
     # the headline's baseline is the NumPy oracle of deepctr_tpu.reference_impl
     "bench_torch": ("""
