@@ -320,6 +320,7 @@ so it does without a CUDA device, or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import io
@@ -1961,15 +1962,22 @@ def _phase13_retrain(dev, root, tmp, schema, schema_path) -> dict:
             ["model.init_from=none", f"data.schema_path={schema_path}",
              f"train.profile_dir={prof_dir}"],
             RETRAIN_SHORT_STEPS, "retrain profiled")
-        traces = os.listdir(prof_dir)
+        written = sorted(os.listdir(prof_dir))
+        traces = [f for f in written if f.startswith("trace_")]
         with open(os.path.join(prof_dir, traces[0])) as f:
             names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
         kernels = sorted({m.group(1) for n in names
                           for m in [re.search(r"(tower_\w+?_kernel)", n)] if m})
-        print(f"retrain: train.profile_dir wrote {traces} ({len(names)} event names) "
+        print(f"retrain: train.profile_dir wrote {written} ({len(names)} event names) "
               f"over {result['state'].step} steps on the graph route, naming {kernels}")
         if len(traces) != 1 or not {"tower_fwd_kernel", "tower_bwd_rows_kernel"} <= set(kernels):
             raise AssertionError("retrain: the trace does not name the tower kernels")
+        with open(os.path.join(prof_dir, written[0])) as f:
+            graphs = json.load(f)["phases"]
+        print(f"retrain: {written[0]}: the graphs' device ms a step by phase {graphs}")
+        if len(written) != 2 or not graphs or set(graphs[0]["ms_a_step"]) != {
+                "lookup", "tower", "sparse", "dense"}:
+            raise AssertionError("retrain: the spans file holds no graph's phases")
         _, _, result, _, _ = _cli_train(
             dev, root, tmp, FNN_CONFIG,
             ["model.init_from=none", f"data.schema_path={schema_path}",
@@ -3578,6 +3586,207 @@ def _phase24_roofline(root, tmp, card) -> dict:
     return {"launches": {"fwd_dropout": total["fwd_dropout"], "bwd": total["bwd"]}}
 
 
+def _tracing_case(dev, schema, chunks, seed):
+    """FNN at ``bench.py``'s widths (bf16 table, dense-mode Adagrad) from
+    ``seed`` and its scan step; the graph is captured at the first chunk."""
+    from deepctr_torch.models import MlpSpec, make_fnn
+    from deepctr_torch.optim import SparseAdagrad, make_dense_optimizer
+    from deepctr_torch.train import init_state, make_scan_train_step
+
+    model = make_fnn(schema, k=K, mlp=MlpSpec(hidden=FNN_HIDDEN, activation="tanh",
+                                             dropout=DROPOUT), device=dev)
+    sopt, dopt = SparseAdagrad(0.05), make_dense_optimizer("adagrad", 0.02)
+    state = init_state(model, schema, sopt, dopt, seed=seed, table_dtype="bf16")
+    scan = make_scan_train_step(schema, sopt, dopt)
+    scan(state, *chunks[0])
+    return state, scan
+
+
+def _timed_replays(scan, state, chunks, n) -> list:
+    """CUDA-event ms of each of ``n`` chunks through ``scan``."""
+    import torch
+
+    pairs = []
+    for i in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        scan(state, *chunks[i % len(chunks)])
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in pairs]
+
+
+def _phase25_tracing(dev, rng=None) -> dict:
+    """The program's tracing (``deepctr_torch/utils/prof.py``) on the card,
+    FNN at ``bench.py``'s widths, full iPinYou, batch 8192, K = 8: (a) a
+    graph captured with tracing off launches no stamp; (b) one captured with
+    it on holds 33 stamps a replay, named ``start`` and ``lookup, tower,
+    sparse, dense`` 8 times, and over 20 replays its phases' device ms sum
+    to within 2% of the replays' CUDA-event time; the stamp kernel's ring
+    against ``phase_stamp_plain`` on a CPU buffer stamped in the capture's
+    slot order as often, with a clock that only rises (the same count of
+    replays, the same cells written, the stamps rising along every row);
+    the stamps' device ms a step by phase; ``%globaltimer``'s smallest nonzero step and the greatest
+    common step of the stamps; the spans of each replay, numbered as the
+    ring numbers its rows; (c) the stamps' cost, replays of the two graphs in
+    turns; (d) under ``torch.profiler`` a span starts within 100 µs of its
+    ``record_function``: both on the same host clock; (e) in a world of one
+    NCCL rank the sharded graph's 41 stamps a replay, named ``start`` and
+    ``lookup, tower, dense, grads, sparse`` 8 times."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepctr_torch import parallel as par
+    from deepctr_torch.data import ipinyou_full_schema, synthetic
+    from deepctr_torch.models import MlpSpec, make_fnn
+    from deepctr_torch.ops.kernels import stamp as stamp_k
+    from deepctr_torch.optim import SparseAdagrad, make_dense_optimizer
+    from deepctr_torch.train import init_state
+    from deepctr_torch.utils import prof
+
+    t_phase = time.perf_counter()
+    schema = ipinyou_full_schema()
+    ds = synthetic.generate(schema, num_examples=2 * SCAN_K * BATCH, k=K, seed=SEED + 25)
+    ids = torch.from_numpy(ds.ids).to(dev).long().view(2, SCAN_K, BATCH, -1)
+    labels = torch.from_numpy(ds.labels).to(dev).view(2, SCAN_K, BATCH)
+    chunks = [(ids[c], labels[c], torch.ones(SCAN_K, BATCH, device=dev)) for c in range(2)]
+    del ds
+    replays = 20
+    step_phases = ["lookup", "tower", "sparse", "dense"]
+
+    # (a) captured with tracing off
+    prof.enable(False)
+    stamp_k.LAUNCHES = 0
+    state_off, scan_off = _tracing_case(dev, schema, chunks, SEED + 25)
+    _timed_replays(scan_off, state_off, chunks, 3)
+    if stamp_k.LAUNCHES != 0 or scan_off.graph[0].ring is not None:
+        raise AssertionError(f"tracing: a graph captured with tracing off launched "
+                             f"{stamp_k.LAUNCHES} stamps")
+    print("tracing: a graph captured with tracing off: 4 replays, 0 stamps launched")
+
+    # (b) captured with tracing on
+    prof.enable(True)
+    prof.drain()
+    stamp_k.LAUNCHES = 0
+    state_on, scan_on = _tracing_case(dev, schema, chunks, SEED + 25)
+    graph = scan_on.graph[0]
+    event_ms = _timed_replays(scan_on, state_on, chunks, replays)
+    out = prof.drain()
+    (reading,) = [r for r in out["phases"] if r.graph == graph.ring.id]
+    want = [prof.START] + step_phases * SCAN_K
+    if reading.names != want or reading.lost or len(reading.stamps) != 1 + replays:
+        raise AssertionError(f"tracing: the ring holds {reading.names} over "
+                             f"{len(reading.stamps)} replays ({reading.lost} lost)")
+    if stamp_k.LAUNCHES != len(want) * (1 + replays):
+        raise AssertionError(f"tracing: {stamp_k.LAUNCHES} stamps launched, not "
+                             f"{len(want)} a replay")
+    # the kernel against its plain version on a CPU buffer of the same shape
+    ring = graph.ring
+    on_card = ring.buf.cpu()
+    plain = torch.zeros_like(on_card)
+    clock = 0
+    for _ in range(1 + replays):
+        for slot in range(len(want)):
+            clock += 1
+            stamp_k.phase_stamp_plain(plain, slot, clock)
+    written = on_card != 0
+    rows = on_card[:ring.replays][written[:ring.replays].any(dim=1)][:, :len(want)]
+    rising = bool((rows.diff(dim=1) > 0).all())
+    print(f"tracing: the stamp kernel against phase_stamp_plain: replays counted "
+          f"{int(on_card[ring.replays, 0])} and {int(plain[ring.replays, 0])}, "
+          f"{int(written.sum())} and {int((plain != 0).sum())} cells written "
+          f"({'the same' if torch.equal(written, plain != 0) else 'not the same'}), "
+          f"stamps rising along each of {len(rows)} rows: {rising}")
+    if (on_card[ring.replays, 0] != plain[ring.replays, 0]
+            or not torch.equal(written, plain != 0) or not rising):
+        raise AssertionError("tracing: the stamp kernel's ring is not its plain version's")
+    stamps = reading.stamps[1:]
+    phase_ms = [(row[-1] - row[0]) / 1e6 for row in stamps]
+    worst = max(abs(p - e) / e for p, e in zip(phase_ms, event_ms))
+    share = abs(sum(phase_ms) - sum(event_ms)) / sum(event_ms)
+    steps = replays * SCAN_K
+    by_phase = prof.reading_ms(reading._replace(stamps=stamps))
+    print(f"tracing: {len(want)} stamps a replay; over {replays} replays the phases "
+          f"sum to {sum(phase_ms):.4f} ms against {sum(event_ms):.4f} ms of CUDA events "
+          f"({100 * share:.2f}% apart, the worst replay {100 * worst:.2f}%); device ms a "
+          f"step by phase: " + ", ".join(f"{k} {v / steps:.4f}" for k, v in by_phase.items()))
+    if share > 0.02:
+        raise AssertionError("tracing: the phases do not sum to the replays' time")
+    diffs = np.diff(reading.stamps, axis=1).ravel()
+    quantum = int(np.gcd.reduce(np.concatenate([diffs, np.diff(reading.stamps[:, 0])])))
+    print(f"tracing: %globaltimer's smallest nonzero step between stamps "
+          f"{int(diffs[diffs > 0].min())} ns, every stamp a multiple of {quantum} ns "
+          f"apart; the shortest phase {int(diffs.min())} ns")
+    chunk_spans = [s for s in out["spans"] if s.name == "chunk"]
+    numbers = [s.attrs["replay"] for s in chunk_spans]
+    inside = collections.Counter(s.name for s in out["spans"]
+                                 if s.unit in {c.id for c in chunk_spans} and s.name != "chunk")
+    if numbers != list(range(1 + replays)):
+        raise AssertionError(f"tracing: chunk spans numbered {numbers}")
+    print(f"tracing: {len(chunk_spans)} chunk spans, numbered as the ring's rows; "
+          f"inside them {dict(inside)}; capture spans "
+          f"{[s.name for s in out['spans'] if s.name.startswith('graph.')]}")
+
+    # (c) the stamps' cost: replays of the two graphs in turns
+    turns = {"off": [], "on": []}
+    for which in ("off", "on", "on", "off"):
+        scan, state = (scan_off, state_off) if which == "off" else (scan_on, state_on)
+        turns[which] += _timed_replays(scan, state, chunks, replays)
+    prof.drain()
+    off_ms = float(np.median(turns["off"]))
+    on_ms = float(np.median(turns["on"]))
+    print(f"tracing: a replay of {SCAN_K} steps {off_ms:.4f} ms captured without stamps, "
+          f"{on_ms:.4f} ms with {len(want)} (median of {2 * replays} each, in turns): "
+          f"the stamps' share {100 * (on_ms - off_ms) / off_ms:.2f}%")
+
+    # (d) the host clock: a span against its record_function under the profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        scan_on(state_on, *chunks[0])
+        torch.cuda.synchronize()
+    spans = {s.name: s for s in prof.drain()["spans"]}
+    events = {e.name(): e for e in p.profiler.kineto_results.events()
+              if e.is_user_annotation()
+              and e.device_type() != torch.autograd.DeviceType.CUDA}   # the host's
+    gaps = {n: spans[n].start_ns - events[n].start_ns() for n in spans if n in events}
+    wall = time.time_ns() - events["chunk"].start_ns()
+    print(f"tracing: span start minus its record_function's kineto start (ns): {gaps}; "
+          f"time.time_ns() {wall / 1e6:.1f} ms after the chunk's kineto start")
+    if not gaps or max(abs(g) for g in gaps.values()) > 100_000:
+        raise AssertionError("tracing: the spans are not on the profiler's clock")
+    del scan_off, state_off, scan_on, state_on, graph
+
+    # (e) the sharded graph in a world of one NCCL rank
+    with par.process_group(dev) as group:
+        model = make_fnn(schema, k=K, mlp=MlpSpec(hidden=FNN_HIDDEN, activation="tanh",
+                                                 dropout=DROPOUT), device=dev)
+        sopt, dopt = SparseAdagrad(0.05), make_dense_optimizer("adagrad", 0.02)
+        sst = par.sharded_state_from_state(
+            init_state(model, schema, sopt, dopt, seed=SEED + 25, table_dtype="bf16"), group)
+        scan = par.make_sharded_scan_train_step(schema, sopt, dopt, group)
+        scan(sst, *chunks[0])
+        event_ms = _timed_replays(scan, sst, chunks, 5)
+        ring = scan.graph[0].ring
+        (reading,) = [r for r in prof.drain()["phases"] if r.graph == ring.id]
+        scan.graph.clear()
+        del scan, sst
+    prof.enable(False)
+    want = [prof.START] + ["lookup", "tower", "dense", "grads", "sparse"] * SCAN_K
+    phase_ms = [(row[-1] - row[0]) / 1e6 for row in reading.stamps[1:]]
+    by_phase = prof.reading_ms(reading._replace(stamps=reading.stamps[1:]))
+    print(f"tracing: sharded, a world of one: {len(reading.names)} stamps a replay; "
+          f"phases {sum(phase_ms):.4f} ms against {sum(event_ms):.4f} ms of CUDA events "
+          f"over 5 replays; device ms a step by phase: "
+          + ", ".join(f"{k} {v / (5 * SCAN_K):.4f}" for k, v in by_phase.items()))
+    if reading.names != want or not math.isclose(sum(phase_ms), sum(event_ms), rel_tol=0.02):
+        raise AssertionError(f"tracing: the sharded ring holds {reading.names}")
+    print(f"tracing: {time.perf_counter() - t_phase:.1f} s")
+    return {"stamp_share": (on_ms - off_ms) / off_ms, "sum_share": share}
+
+
 def _template_args(mangled) -> str:
     """``<64, true>`` for a mangled ``ILi64ELb1EE``; '' for none."""
     if not mangled:
@@ -3611,14 +3820,14 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port's paths on one GPU.")
     ap.add_argument("--phases", help="run phases 1-3 (device, build, the tower "
-                    "forward) and then only these kernel phases (a comma list of 3, 6, "
-                    "7), and print no report")
+                    "forward) and then only these phases (a comma list of 3, 6, 7, "
+                    "25), and print no report")
     args = ap.parse_args(argv)
     phases = None
     if args.phases:
         phases = {int(p) for p in args.phases.split(",")}
-        if not phases <= {3, 6, 7}:
-            ap.error(f"--phases {args.phases}: the kernel phases are 3, 6 and 7")
+        if not phases <= {3, 6, 7, 25}:
+            ap.error(f"--phases {args.phases}: the phases alone are 3, 6, 7 and 25")
 
     import torch
 
@@ -3698,7 +3907,8 @@ def main(argv=None) -> int:
     tower_times, main_err = _phase3_tower_fwd(dev, rng)
     if phases is not None:
         for phase in sorted(phases - {3}):
-            {6: _phase6_training_kernels, 7: _phase7_fm_kernel}[phase](dev, rng)
+            {6: _phase6_training_kernels, 7: _phase7_fm_kernel,
+             25: _phase25_tracing}[phase](dev, rng)
         print(f"chip_smoke: phases 1-3 and {sorted(phases - {3})} only (--phases): "
               f"no report")
         return 0
@@ -3834,6 +4044,7 @@ def main(argv=None) -> int:
     parity = _phase23_parity(dev)
     with tempfile.TemporaryDirectory() as tmp:
         roofline = _phase24_roofline(root, tmp, card)
+    _phase25_tracing(dev)
 
     work = _tower_work(BATCH, fnn_dims)
     criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))

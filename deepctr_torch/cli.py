@@ -56,8 +56,9 @@ its NCCL exchanges and all-reduces inside; on the CPU it is K eager steps;
 ``train.prefetch`` (default true) stages the training batches, or chunks, on
 a background thread, onto the card through pinned buffers and a side stream
 (``data.DevicePrefetcher``). ``train.profile_dir`` writes a
-``torch.profiler`` trace of the training phase there; ``train.debug_nans``
-turns on autograd's anomaly mode and raises at the first step whose loss is
+``torch.profiler`` trace of the training phase, or of ``--score``'s
+scoring, there, and the program's spans, counters and phase times beside it
+(``utils/prof.py::trace``); ``train.debug_nans`` turns on autograd's anomaly mode and raises at the first step whose loss is
 not finite, before that step's update: a graph cannot stop inside a replay,
 so under this key every chunk runs as K eager steps with the check. Keys of
 the shared config that are TPU mechanisms are read and have no effect
@@ -550,11 +551,13 @@ def score(cfg, yx_path: str, device: torch.device) -> int:
     The schema comes from the checkpoint manifest; config-derived schemas
     are only a fallback for pre-``schema_json`` checkpoints. With
     ``data.featindex_path`` set, the yx file's raw make-ipinyou-data indices
-    are remapped through the featindex exactly as at training time.
+    are remapped through the featindex exactly as at training time. With
+    ``train.profile_dir`` set the scoring runs under ``utils/prof.py::trace``.
     """
     from .serving import Scorer
     from .data import Schema, featindex
     from .utils.checkpoint import read_manifest
+    from .utils.prof import trace
 
     if not cfg.train.checkpoint_path:
         raise SystemExit("--score requires train.checkpoint_path")
@@ -581,14 +584,15 @@ def score(cfg, yx_path: str, device: torch.device) -> int:
     scorer = Scorer.from_checkpoint(
         cfg.train.checkpoint_path, model, schema, batch_size=cfg.train.batch_size
     )
-    if fi is not None:
-        _, ids = featindex.parse_yx_file(yx_path, fi)
-        for p in scorer.predict(ids):
-            print(f"{p:.6f}")
-        return 0
-    for chunk in scorer.score_yx_file(yx_path, cfg.data.use_native_parser):
-        for p in chunk:
-            print(f"{p:.6f}")
+    with trace(cfg.train.profile_dir):
+        if fi is not None:
+            _, ids = featindex.parse_yx_file(yx_path, fi)
+            for p in scorer.predict(ids):
+                print(f"{p:.6f}")
+            return 0
+        for chunk in scorer.score_yx_file(yx_path, cfg.data.use_native_parser):
+            for p in chunk:
+                print(f"{p:.6f}")
     return 0
 
 

@@ -69,6 +69,7 @@ from ..train.step import (
     dense_params,
     init_state,
 )
+from ..utils import prof
 from .comm import exchange_capacity
 from .group import Group
 
@@ -385,7 +386,12 @@ def _sharded_step_body(schema: Schema, sparse_opt, dense_opt, group: Group,
     drawing it and ``state.step`` are the caller's. The per-step route and
     the graph of K steps run this same body. Every collective is issued in
     one order on every rank, and nothing here waits on the device but
-    ``check_finite``'s read of the loss."""
+    ``check_finite``'s read of the loss. It marks the end of each of its
+    phases for the tracing (:func:`..utils.prof.phase`): ``lookup`` (the
+    weight all-reduce, the owner buckets and ``exchange_lookup``), ``tower``
+    (forward, the loss's all-reduce, backward), ``dense`` (the dense
+    all-reduce and update), ``grads`` (``exchange_scatter_grads``) and
+    ``sparse`` (the update and the dropped count's all-reduce)."""
     n = group.world
     pad_id = schema.pad_id
     sentinel = shard_rows(schema.padded_vocab_size, n)
@@ -402,6 +408,7 @@ def _sharded_step_body(schema: Schema, sparse_opt, dense_opt, group: Group,
         occ_rows, recv = exchange_lookup(model.table.detach(), buckets, cap, wire)
         rows = occ_rows.float().reshape(b_loc, slots, -1).requires_grad_(True)
         params = dense_params(model)
+        prof.phase("lookup")
 
         logits = model.apply_rows(rows, mask, train=True, seed=seed)
         loss = weighted_bce_with_logits(logits, labels, weights, weight_sum)
@@ -411,13 +418,18 @@ def _sharded_step_body(schema: Schema, sparse_opt, dense_opt, group: Group,
             raise FloatingPointError(f"train step {state.step + 1}: loss "
                                      f"{float(total)} is not finite")
         g_rows, *g_dense = torch.autograd.grad(loss, [rows] + params)
+        prof.phase("tower")
 
         dense_opt.update(params, all_reduce_dense(g_dense), state.dense_state,
                          lr_scale=lr_scale)
+        prof.phase("dense")
         g_recv = exchange_scatter_grads(g_rows.reshape(m, -1), buckets, wire)
+        prof.phase("grads")
         sparse_opt.update(model.table.data, state.sparse_state, recv, g_recv,
                           lr_scale=lr_scale)
-        return total, all_reduce_sum(buckets.dropped)
+        dropped = all_reduce_sum(buckets.dropped)
+        prof.phase("sparse")
+        return total, dropped
 
     return body
 

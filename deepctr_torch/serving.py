@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .data import Schema, minibatches, stream_yx_batches
+from .utils import prof
 from .utils.checkpoint import (
     dense_structure,
     load_scoring_params,
@@ -130,31 +131,62 @@ class Scorer:
         return Scorer(model, schema, batch_size=batch_size, quantize=quantize)
 
     # ---- scoring ----------------------------------------------------------
+    # Tracing (:mod:`.utils.prof`): a request to ``logits`` or ``predict`` is
+    # the span ``score.request``; in it each batch's ``score.pad`` (cut and
+    # padded on the host), ``score.h2d``, ``score.forward`` (gather, mask and
+    # tower, enqueued) and ``score.fetch`` (the copy back, which waits for
+    # the device), then ``score.sigmoid``. The counters ``score.rows`` and
+    # ``score.padded_rows`` count the rows asked and the rows computed.
 
     def _batch_logits(self, ids: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
-            ids_t = torch.from_numpy(ids).to(self.device).long()
-            rows = self.rows(ids_t)
-            mask = (ids_t != self.schema.pad_id).to(rows.dtype)
-            return self.model.apply_rows(rows, mask).cpu().numpy()
+            with prof.span("score.h2d"):
+                ids_t = torch.from_numpy(ids).to(self.device).long()
+            with prof.span("score.forward"):
+                rows = self.rows(ids_t)
+                mask = (ids_t != self.schema.pad_id).to(rows.dtype)
+                logits = self.model.apply_rows(rows, mask)
+            with prof.span("score.fetch"):
+                return logits.cpu().numpy()
 
-    def logits(self, ids: np.ndarray) -> np.ndarray:
-        """Score packed ``int32[N, S]`` ids -> logit per row."""
+    def _logits(self, ids: np.ndarray) -> np.ndarray:
         out = []
-        for b in minibatches(
+        batches = minibatches(
             ids, np.zeros(len(ids), np.float32), self.batch_size,
             schema=self.schema, shuffle=False, drop_remainder=False,
-        ):
+        )
+        prof.count("score.rows", len(ids))
+        for _ in range(-(-len(ids) // self.batch_size)):
+            with prof.span("score.pad"):
+                b = next(batches)
+            prof.count("score.padded_rows", len(b.ids))
             out.append(self._batch_logits(b.ids)[b.weights > 0])
         return np.concatenate(out) if out else np.empty(0, np.float32)
 
+    def logits(self, ids: np.ndarray) -> np.ndarray:
+        """Score packed ``int32[N, S]`` ids -> logit per row."""
+        with prof.span("score.request", rows=len(ids)):
+            return self._logits(ids)
+
     def predict(self, ids: np.ndarray) -> np.ndarray:
         """Click probabilities in [0, 1]."""
-        return _sigmoid(self.logits(ids))
+        with prof.span("score.request", rows=len(ids)):
+            logits = self._logits(ids)
+            with prof.span("score.sigmoid"):
+                return _sigmoid(logits)
 
     def score_yx_file(self, path: str, use_native: bool = True) -> Iterator[np.ndarray]:
-        """Stream a yx text file -> chunks of probabilities."""
+        """Stream a yx text file -> chunks of probabilities. Each batch of the
+        file is a ``score.request`` of the tracing."""
         for b in stream_yx_batches(
             [path], self.schema, self.batch_size, use_native=use_native
         ):
-            yield _sigmoid(self._batch_logits(b.ids)[b.weights > 0])
+            real = b.weights > 0
+            rows = int(real.sum())
+            with prof.span("score.request", rows=rows):
+                prof.count("score.rows", rows)
+                prof.count("score.padded_rows", len(b.ids))
+                logits = self._batch_logits(b.ids)[real]
+                with prof.span("score.sigmoid"):
+                    probs = _sigmoid(logits)
+            yield probs

@@ -53,8 +53,10 @@ from torch import nn
 
 from ..models.base import lazy_l2, weighted_bce_with_logits
 from ..ops.kernels import add_launch_counts, launch_counts
+from ..ops.kernels import stamp as stamp_k
 from ..ops.kernels.mlp import SEED_LIMIT
 from ..data import Schema
+from ..utils import prof
 
 # CUDA graphs of K steps captured since the last reset; each capture ran
 # one eager warm-up step on its state (then restored, :func:`_warm_up`),
@@ -172,7 +174,10 @@ def _step_body(schema: Schema, sparse_opt, dense_opt, l2: float,
     (ids int64), updating the model and the optimizers' states in place.
     ``state.step`` and the generator are the caller's. ``seed`` is an int or
     a 0-d int32 device tensor (:mod:`..ops.kernels.mlp`). The per-step route
-    and the graph of K steps run this same body."""
+    and the graph of K steps run this same body. It marks the end of each of
+    its phases for the tracing (:func:`..utils.prof.phase`): ``lookup`` (the
+    gather), ``tower`` (forward, loss and backward), ``sparse`` and
+    ``dense`` (the two updates)."""
     pad_id = schema.pad_id
 
     def body(state: TrainState, ids, labels, weights, lr_scale, seed):
@@ -180,6 +185,7 @@ def _step_body(schema: Schema, sparse_opt, dense_opt, l2: float,
         mask = (ids != pad_id).float()
         rows = model.table.detach()[ids].float().requires_grad_(True)
         params = dense_params(model)
+        prof.phase("lookup")
 
         logits = model.apply_rows(rows, mask, train=True, seed=seed)
         loss = weighted_bce_with_logits(logits, labels, weights)
@@ -188,11 +194,14 @@ def _step_body(schema: Schema, sparse_opt, dense_opt, l2: float,
             raise FloatingPointError(f"train step {state.step + 1}: loss "
                                      f"{float(loss.detach())} is not finite")
         g_rows, *g_dense = torch.autograd.grad(loss, [rows] + params)
+        prof.phase("tower")
 
         sparse_opt.update(model.table.data, state.sparse_state,
                           ids.reshape(-1), g_rows.reshape(-1, g_rows.shape[-1]),
                           lr_scale=lr_scale)
+        prof.phase("sparse")
         dense_opt.update(params, g_dense, state.dense_state, lr_scale=lr_scale)
+        prof.phase("dense")
         return loss.detach(), logits.detach()
 
     return body
@@ -215,7 +224,8 @@ def _per_step(body, seed_map=None, metrics=StepMetrics):
     """``make_train_step``'s step around ``body``: the seed drawn (or
     given) and mapped by ``seed_map`` (the sharded step mixes in its rank),
     the batch moved to the device, ``state.step`` counted; the body's two
-    outputs come back as ``metrics``."""
+    outputs come back as ``metrics``. On the CPU the step opens a unit of
+    the tracing's host phase marks (:func:`..utils.prof.marking`)."""
 
     def step(state: TrainState, ids, labels, weights, lr_scale: float = 1.0,
              seed: int | None = None):
@@ -224,9 +234,11 @@ def _per_step(body, seed_map=None, metrics=StepMetrics):
         seed = drawn if seed is None else _checked_seed(seed)
         if seed_map is not None:
             seed = seed_map(seed)
-        out = body(state, _to_device(ids, device, torch.long),
-                   _to_device(labels, device, torch.float32),
-                   _to_device(weights, device, torch.float32), lr_scale, seed)
+        with prof.marking(device):
+            prof.phase(prof.START)
+            out = body(state, _to_device(ids, device, torch.long),
+                       _to_device(labels, device, torch.float32),
+                       _to_device(weights, device, torch.float32), lr_scale, seed)
         state.step += 1
         return state, metrics(*out)
 
@@ -419,6 +431,15 @@ class _ChunkGraph:
     (the process group's watchdog) free to query the device meanwhile. Its
     launch counts are taken back and added again at every replay
     (:mod:`..ops.kernels`).
+
+    Tracing (:mod:`..utils.prof`): a graph captured while it is on owns a
+    :class:`~..utils.prof.PhaseRing` and holds a device stamp at the start
+    of each replay and at each phase mark of each step (33 stamps in a
+    replay of 8 single-device steps, 41 sharded); one captured while it is
+    off holds none. The capture is the span ``graph.capture`` (``graph.
+    warm_up``, ``graph.record``); a replay is ``chunk`` (``chunk.load``,
+    ``chunk.seeds``, ``chunk.seed_wait``, ``chunk.replay``), numbered from 0
+    as the ring numbers its rows.
     """
 
     def __init__(self, body, state: TrainState, ids, labels, weights,
@@ -441,30 +462,39 @@ class _ChunkGraph:
         self._copied: list[torch.cuda.Event | None] = [None, None]
         self._slot = 0
         self._load(ids, labels, weights)
+        self.replays = 0
+        self.ring = prof.PhaseRing(k, device, self) if prof.enabled() else None
 
         t0 = time.perf_counter()
-        stream = _capture_stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            # the bytes of the state the warm-up held meanwhile
-            self.snapshot_bytes = _warm_up(
-                body, state, self.ids[0], self.labels[0], self.weights[0], lr_scale,
-                self.seeds[0], touched(self.ids[0]))
-        torch.cuda.current_stream(device).wait_stream(stream)
+        with prof.span("graph.capture", steps=k):
+            stream = _capture_stream(device)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with prof.span("graph.warm_up"), torch.cuda.stream(stream):
+                # the bytes of the state the warm-up held meanwhile
+                self.snapshot_bytes = _warm_up(
+                    body, state, self.ids[0], self.labels[0], self.weights[0], lr_scale,
+                    self.seeds[0], touched(self.ids[0]))
+            torch.cuda.current_stream(device).wait_stream(stream)
 
-        self.graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        with torch.cuda.graph(self.graph, stream=stream,
-                              capture_error_mode="thread_local"):
-            for i in range(k):
-                loss, second = body(state, self.ids[i], self.labels[i],
-                                    self.weights[i], lr_scale, self.seeds[i])
-                self.losses[i].copy_(loss)
-                if self.dropped is not None:
-                    self.dropped[i].copy_(second)
-        captured = launch_counts()
-        self.launches = tuple(a - b for a, b in zip(captured, before))
-        add_launch_counts(tuple(-n for n in self.launches))
+            self.graph = torch.cuda.CUDAGraph()
+            before = launch_counts()
+            with prof.span("graph.record"), torch.cuda.graph(
+                    self.graph, stream=stream, capture_error_mode="thread_local"), \
+                    prof.stamping(self.ring):
+                prof.phase(prof.START)
+                for i in range(k):
+                    loss, second = body(state, self.ids[i], self.labels[i],
+                                        self.weights[i], lr_scale, self.seeds[i])
+                    self.losses[i].copy_(loss)
+                    if self.dropped is not None:
+                        self.dropped[i].copy_(second)
+            captured = launch_counts()
+            self.launches = tuple(a - b for a, b in zip(captured, before))
+            add_launch_counts(tuple(-n for n in self.launches))
+            # the stamps' launches, the same way (kept apart from the kernels'
+            # counters, whose four entries the tools read)
+            self.stamps = len(self.ring.names) if self.ring is not None else 0
+            stamp_k.LAUNCHES -= self.stamps
         self.capture_s = time.perf_counter() - t0
         global CAPTURES
         CAPTURES += 1
@@ -482,25 +512,32 @@ class _ChunkGraph:
     def run(self, state: TrainState, ids, labels, weights, seeds=None):
         """One replay: ``(state, losses [K], dropped [K] or None)``."""
         k = self.seeds.shape[0]
-        self._load(ids, labels, weights)
-        drawn = [draw_seed(state.generator) for _ in range(k)]
-        values = drawn if seeds is None else [_checked_seed(s) for s in seeds]
-        if self.seed_map is not None:
-            values = [self.seed_map(v) for v in values]
-        staging, copied = self._staging[self._slot], self._copied[self._slot]
-        if copied is not None:
-            copied.synchronize()   # this buffer's last copy has ended
-        staging.copy_(torch.tensor(values, dtype=torch.int32))
-        self.seeds.copy_(staging, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        self._copied[self._slot] = event
-        self._slot ^= 1
-        self.graph.replay()
-        add_launch_counts(self.launches)
-        state.step += k
-        return (state, self.losses.clone(),
-                None if self.dropped is None else self.dropped.clone())
+        with prof.span("chunk", replay=self.replays):
+            with prof.span("chunk.load"):
+                self._load(ids, labels, weights)
+            with prof.span("chunk.seeds"):
+                drawn = [draw_seed(state.generator) for _ in range(k)]
+                values = drawn if seeds is None else [_checked_seed(s) for s in seeds]
+                if self.seed_map is not None:
+                    values = [self.seed_map(v) for v in values]
+            staging, copied = self._staging[self._slot], self._copied[self._slot]
+            if copied is not None:
+                with prof.span("chunk.seed_wait"):
+                    copied.synchronize()   # this buffer's last copy has ended
+            with prof.span("chunk.replay"):
+                staging.copy_(torch.tensor(values, dtype=torch.int32))
+                self.seeds.copy_(staging, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                self._copied[self._slot] = event
+                self._slot ^= 1
+                self.graph.replay()
+            self.replays += 1
+            add_launch_counts(self.launches)
+            stamp_k.LAUNCHES += self.stamps
+            state.step += k
+            return (state, self.losses.clone(),
+                    None if self.dropped is None else self.dropped.clone())
 
 
 def make_eval_step(schema: Schema):

@@ -147,15 +147,48 @@ def test_cli_debug_nans_changes_nothing_on_a_healthy_run(argv, capsys):
 
 
 def test_cli_profile_dir_writes_a_trace(argv, tmp_path, capsys):
-    """The training phase under ``torch.profiler``: one Chrome trace in the
-    directory, holding the step's ops."""
+    """The training phase under ``torch.profiler``: a Chrome trace in the
+    directory, holding the step's ops, and beside it the program's spans
+    and phases (on the CPU the eager steps' host marks, a phase a step)."""
     out = tmp_path / "prof"
     _run(argv + [f"train.profile_dir={out}"])
     capsys.readouterr()
-    files = os.listdir(out)
-    assert len(files) == 1 and files[0].endswith(".json")
-    names = {e.get("name") for e in json.loads((out / files[0]).read_text())["traceEvents"]}
+    traces = [f for f in os.listdir(out) if f.startswith("trace_")]
+    spans = [f for f in os.listdir(out) if f.startswith("spans_")]
+    assert len(traces) == len(spans) == 1 and len(os.listdir(out)) == 2
+    names = {e.get("name") for e in json.loads((out / traces[0]).read_text())["traceEvents"]}
     assert any(str(n).startswith("aten::") for n in names)
+    host = json.loads((out / spans[0]).read_text())["host_phases"]
+    assert host["steps"] > 0
+    assert set(host["ms_a_step"]) == {"lookup", "tower", "sparse", "dense"}
+
+
+def test_cli_score_under_profile_dir_writes_the_scorers_spans(argv, schema, tmp_path,
+                                                             capsys):
+    """``--score`` with ``train.profile_dir``: the same probabilities, and
+    beside the trace the scorer's spans, a ``score.request`` a batch of the
+    file holding its ``h2d``, ``forward``, ``fetch`` and ``sigmoid``, and its
+    counters, the rows asked and the rows computed."""
+    ckpt = str(tmp_path / "fnn.ckpt")
+    _run(argv + [f"train.checkpoint_path={ckpt}"])
+    yx = str(tmp_path / "requests.yx")
+    synthetic.write_yx_file(synthetic.generate(schema, num_examples=150, k=K, seed=6), yx)
+    score = ["--device", "cpu", "--score", yx] + argv + [f"train.checkpoint_path={ckpt}"]
+    capsys.readouterr()
+    assert t_cli.main(score) == 0
+    plain = capsys.readouterr().out.split()
+    out = tmp_path / "prof"
+    assert t_cli.main(score + [f"train.profile_dir={out}"]) == 0
+    assert capsys.readouterr().out.split() == plain and len(plain) == 150
+    (spans,) = [f for f in os.listdir(out) if f.startswith("spans_")]
+    assert len(os.listdir(out)) == 2
+    got = json.loads((out / spans).read_text())
+    assert got["counters"] == {"score.rows": 150, "score.padded_rows": 3 * BATCH}
+    requests = [s for s in got["spans"] if s[3] == "score.request"]
+    assert [s[6]["rows"] for s in requests] == [BATCH, BATCH, 150 - 2 * BATCH]
+    for request in requests:
+        inside = [s[3] for s in got["spans"] if s[2] == request[0] and s is not request]
+        assert inside == ["score.h2d", "score.forward", "score.fetch", "score.sigmoid"]
 
 
 def test_prefetcher_passes_batches_through_on_the_cpu(schema):

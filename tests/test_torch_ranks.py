@@ -267,10 +267,30 @@ def run_warmup(name, cfg, arrays, group, out):
     out[f"{name}/nbytes"] = np.array([c.nbytes for c in records])
 
 
+def run_phases(name, cfg, arrays, group, out):
+    """The sharded scan step's chunk with tracing on: the names of the host
+    phase marks its eager steps make, in order."""
+    from deepctr_torch.utils import prof
+
+    schema, sopt, dopt, state = build_state(cfg, arrays, f"{name}/init/")
+    sst = par.sharded_state_from_state(state, group)
+    scan = par.make_sharded_scan_train_step(schema, sopt, dopt, group,
+                                            capacity_factor=cfg["capacity_factor"])
+    ids, labels, weights = (arrays[f"{name}/{k}"] for k in ("ids", "labels", "weights"))
+    _, chunk = par.local_chunk((ids.shape[1], (ids[0], labels[0], weights[0])), group,
+                               global_rows=ids.shape[2])
+    prof.enable(True)
+    try:
+        scan(sst, *chunk)
+    finally:
+        prof.enable(False)
+    out[f"{name}/marks"] = np.array([m for m, _ in prof.drain()["marks"]], dtype=str)
+
+
 CASES = {"trajectory": run_trajectory, "dryrun": run_dryrun, "scan": run_scan,
          "eval": run_eval,
          "roundtrip": run_roundtrip, "repeat": run_repeat, "cli": run_cli,
-         "warmup": run_warmup}
+         "warmup": run_warmup, "phases": run_phases}
 
 
 def main(argv) -> int:

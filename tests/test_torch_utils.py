@@ -10,7 +10,6 @@ when it was written) and holds every other count equal.
 
 import json
 import os
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +17,8 @@ import pytest
 import torch
 
 from deepctr_torch.utils import metrics as t_metrics
-from deepctr_torch.utils.prof import ThroughputMeter, scope, trace
+from deepctr_torch.utils import prof
+from deepctr_torch.utils.prof import span, trace
 from deepctr_tpu.utils import metrics as j_metrics
 
 
@@ -77,32 +77,40 @@ def test_histograms_match_jax(num_bins):
     got, want = t_metrics.auc_state_finalize(t_st), j_metrics.auc_state_finalize(j_st)
     assert abs(got - want) <= 2.0 * moved / (t_st.pos.sum() * t_st.neg.sum()) + 1e-12
 
-
-def test_throughput_meter():
-    m = ThroughputMeter(warmup_steps=2)
-    assert np.isnan(m.examples_per_s)
-    for _ in range(2):
-        m.step(100)
-    time.sleep(0.05)
-    m.step(100)
-    assert 0 < m.examples_per_s < 100 / 0.05
-
-
 def test_trace_noop_and_scope():
+    """``trace(None)`` is a no-op and leaves tracing off: a span inside
+    records nothing."""
     with trace(None):
-        with scope("lookup"):
+        with span("lookup"):
             pass  # no profiler session needed
+    assert not prof.enabled() and prof.drain()["spans"] == []
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
-    """``trace(dir)`` writes one Chrome trace that holds the scopes and ops
-    run inside it (on the CPU here; on a card the kernels as well)."""
+    """``trace(dir)`` turns tracing on for its block and writes the Chrome
+    trace, which holds the program's spans and the ops run inside it (on
+    the CPU here; on a card the kernels as well), and ``spans_<pid>.json``
+    beside it: the spans, the counters and the phases' ms a step (the host
+    marks' here; a graph's device stamps on a card)."""
     out = tmp_path / "prof"
     with trace(str(out)):
-        with scope("tower"):
+        with span("tower", rows=64):
             torch.ones(64, 64) @ torch.ones(64, 64)
-    files = os.listdir(out)
-    assert files == [f"trace_{os.getpid()}.json"]
-    events = json.loads((out / files[0]).read_text())["traceEvents"]
+            prof.count("rows", 64)
+            with prof.marking("cpu"):
+                prof.phase(prof.START)
+                prof.phase("lookup")
+    assert not prof.enabled()
+    pid = os.getpid()
+    assert sorted(os.listdir(out)) == [f"spans_{pid}.json", f"trace_{pid}.json"]
+    events = json.loads((out / f"trace_{pid}.json").read_text())["traceEvents"]
     names = {e.get("name") for e in events}
     assert "tower" in names and any("mm" in str(n) for n in names)
+    spans = json.loads((out / f"spans_{pid}.json").read_text())
+    (tower,) = spans["spans"]
+    assert tower[3] == "tower" and tower[6] == {"rows": 64} and tower[4] <= tower[5]
+    assert spans["counters"] == {"rows": 64} and spans["dropped"] == 0
+    assert spans["phases"] == []
+    assert spans["host_phases"]["steps"] == 1
+    assert set(spans["host_phases"]["ms_a_step"]) == {"lookup"}
+    assert prof.drain()["spans"] == []
