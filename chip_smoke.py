@@ -305,7 +305,16 @@ Phases, each printing its own lines:
     after 1 and 3 updates, the workspace clean after them, untouched rows
     kept, a second run and a CUDA graph's replays bit for bit, its launches
     and rows written as predicted, and its ms beside its byte bound and the
-    plain version's (``_phase26_sparse_adagrad``).
+    plain version's (``_phase26_sparse_adagrad``);
+27. DLRM-DCNv2 at MLPerf's widths (``_phase27_dlrm``): the dense-mode
+    sparse Adagrad kernel at the benchmark cell's scale (a 26,500,128 x 128
+    f32 table, 1,753,088 occurrences a batch) bit for bit against the plain
+    version on the touched rows, untouched rows kept; the CLI's loop
+    (``configs/dlrm_dcnv2_criteo.json``) for 3 chunks of 8 x 8192, losses
+    finite; one 8-step graph replay against 8 eager steps bit for bit, and
+    the step's device ms by phase; in each part the dense-mode kernel's
+    launches as predicted, one a step and one a capture's warm-up step
+    (``launches_dlrm`` in the report).
 Phases 8-13 train through the CLI, so on the scan route: their launch
 counts add each replay's captured launches (the wrappers run but launch
 nothing during a capture), and each capture's warm-up step on the state
@@ -4004,6 +4013,208 @@ def _phase26_sparse_adagrad(dev, rng=None) -> dict:
     return out
 
 
+DLRM_ROWS_CAP = 100_000     # phase 27 (c): the graph check's tables, capped
+DLRM_CLI_CAP = 1_000_000    # phase 27 (b): the CLI run's tables, capped (the config's)
+
+
+def _dlrm_slice_ids(schema, batch, gen, dev):
+    """``[batch, S]`` ids of ``schema``, every slot filled, log-uniform over
+    each field's rows."""
+    import torch
+
+    cols = []
+    for f, off in zip(schema.fields, schema.offsets):
+        u = torch.rand((batch, f.max_len), generator=gen, device=dev, dtype=torch.float64)
+        rank = torch.floor((f.vocab_size + 1.0) ** u).long() - 1
+        cols.append(rank.clamp_(max=f.vocab_size - 1) + int(off))
+    return torch.cat(cols, 1)
+
+
+def _phase27_dlrm(dev, root, rng=None) -> dict:
+    """DLRM-DCNv2 (``models/dlrm.py``) at MLPerf's widths. (a) The dense-mode
+    sparse Adagrad kernel at the benchmark cell's scale: the table of one
+    GPU's share (26,500,128 x 128 f32, 13.6 GB, and its accumulator), three
+    batches of 8192 x 214 ids (M = 1,753,088 occurrences, 224 M gradient
+    elements), table and accumulator bit for bit against
+    ``adagrad_dense_plain`` (run on the touched rows alone, which gives the
+    same bits: a row's update reads its own sums and the scale, which
+    depends on M, D and the largest gradient), every untouched row kept,
+    the workspace clean and the rows written as predicted. (b) The CLI's
+    loop (``configs/dlrm_dcnv2_criteo.json``: tables capped at 1,000,000
+    rows, batch 8192, chunks of 8 on the graph route) for 3 chunks: losses
+    finite. (c) One replay of the 8-step graph, the dense features staged
+    with the ids, against 8 eager steps from one state, bit for bit (tables
+    capped at 100,000 rows), and the step's device ms by phase from the
+    graph's stamps. Each part counts the dense-mode kernel's launches from 0
+    (``sparse.LAUNCHES``) and requires the predicted count: one an update,
+    a step or a capture's warm-up step, graph replays included; their sum
+    is ``launches`` in the result."""
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch.config import RunConfig
+    from deepctr_torch.data import FieldSpec, Schema, synthetic_dlrm
+    from deepctr_torch.ops.kernels import sparse as sparse_k
+    from deepctr_torch.train import init_state, make_scan_train_step, make_train_step
+    from deepctr_torch.train.step import _state_tensors
+    from deepctr_torch.utils import prof
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) the update at the cell's scale
+    rows_cap = [(r + 7) // 8 if r > 1_000_000 else r for r in synthetic_dlrm.MLPERF_ROWS]
+    schema = Schema(tuple(
+        FieldSpec(f"C{i + 1}", r, h)
+        for i, (r, h) in enumerate(zip(rows_cap, synthetic_dlrm.MLPERF_HOTNESS))))
+    v, d, lr, eps = schema.padded_vocab_size, 128, 0.004, 1e-8
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    block = 1 << 22
+
+    def initial(start):   # rows [start, start + block) of the initial table
+        gen_b = torch.Generator(device=dev).manual_seed(SEED + 27 + start)
+        rows = torch.randn(min(block, v - start), d, generator=gen_b, device=dev) * 1e-3
+        if start <= schema.pad_id < start + block:
+            rows[schema.pad_id - start] = 0.0
+        return rows
+
+    table = torch.empty(v, d, device=dev)
+    for start in range(0, v, block):
+        table[start:start + block] = initial(start)
+    acc = torch.zeros(v, d, device=dev)
+    batches = []
+    for _ in range(3):
+        ids = _dlrm_slice_ids(schema, BATCH, gen, dev).reshape(-1)
+        batches.append((ids, torch.randn(ids.shape[0], d, generator=gen, device=dev) * 1e-5))
+    m = batches[0][0].numel()
+    every = torch.unique(torch.cat([b[0] for b in batches]))
+    p_table, p_acc = table[every].clone(), torch.zeros(every.numel(), d, device=dev)
+    written = sparse_k.rows_written(dev)
+    sparse_k.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for ids, rows in batches:
+        sparse_k.adagrad_dense_update(table, acc, ids, rows, lr, eps)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    launches = {"a": sparse_k.LAUNCHES}
+    for ids, rows in batches:
+        sparse_k.adagrad_dense_plain(p_table, p_acc, torch.searchsorted(every, ids), rows,
+                                     lr, eps)
+    equal = _same_bits(table[every], p_table) and _same_bits(acc[every], p_acc)
+    untouched = torch.ones(v, dtype=torch.bool, device=dev)
+    untouched[every] = False
+    kept = True
+    for start in range(0, v, block):
+        here = untouched[start:start + block]
+        kept &= _same_bits(table[start:start + block][here], initial(start)[here])
+        kept &= not bool(acc[start:start + block][here].any())
+    ws = sparse_k._WORKSPACES[id(acc)]
+    clean = (bool((ws.owner == 2**31 - 1).all()) and not bool(ws.sums.any())
+             and not bool(ws.scratch[1:3].any()))
+    counted = sparse_k.rows_written(dev) - written
+    want = sum(int(torch.unique(b[0]).numel()) for b in batches)
+    print(f"dlrm sparse adagrad: table {v:,} x {d} f32 ({table.numel() * 4 / 1e9:.2f} GB, "
+          f"{table.numel():,} elements), {m:,} occurrences a batch ({m * d:,} gradient "
+          f"elements), distinct ids {[int(torch.unique(b[0]).numel()) for b in batches]}: "
+          f"kernel vs plain on the touched rows bit for bit after 3 updates {equal}; "
+          f"untouched rows and their accumulator kept {kept}; workspace clean {clean} "
+          f"(sums {tuple(ws.sums.shape)} int64, {ws.sums.numel() * 8 / 1e9:.2f} GB); rows "
+          f"written {counted} (predicted {want}); launches {launches['a']} (predicted 3); "
+          f"3 updates {kernel_s * 1e3:.1f} ms eager")
+    if not (equal and kept and clean and counted == want and launches["a"] == 3):
+        raise AssertionError("dlrm sparse adagrad: the kernel at the cell's scale")
+    out.update(occurrences=m, rows_touched=want, equal=equal)
+    del table, acc, p_table, p_acc, batches, every, untouched, ws
+    sparse_k._WORKSPACES.clear()
+    torch.cuda.empty_cache()
+
+    # (b) the CLI's loop at full widths
+    cfg = RunConfig.load(os.path.join(root, "configs", "dlrm_dcnv2_criteo.json"))
+    cfg = cfg.apply_overrides([f"data.criteo_cat_buckets={DLRM_CLI_CAP}",
+                               f"data.synthetic_examples={3 * SCAN_K * BATCH * 100 // 85 + 1}",
+                               "train.epochs=1"])
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sparse_k.LAUNCHES = 0
+    res = cli.run(cfg, dev)
+    launches["b"] = sparse_k.LAUNCHES
+    rec = res["history"][0]
+    print(f"dlrm cli: {res['state'].step} steps of {BATCH} at MLPerf's widths, tables "
+          f"capped at {DLRM_CLI_CAP:,} rows ({res['state'].model.table.shape[0]:,} rows): "
+          f"train loss {rec['train_loss']:.5f}, held-out AUC {rec['auc']:.4f}, "
+          f"{rec['examples_per_s']:,.0f} examples/s (the first chunk captures), "
+          f"{time.perf_counter() - t0:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; dense-mode updates "
+          f"launched {launches['b']} (predicted {res['state'].step + 1}: the capture's "
+          f"warm-up step and each step)")
+    if not all(np.isfinite(r["train_loss"]) for r in res["history"]):
+        raise AssertionError(f"dlrm cli: a loss is not finite: {res['history']}")
+    if launches["b"] != res["state"].step + 1:
+        raise AssertionError(f"dlrm cli: {launches['b']} dense-mode updates launched")
+    out["cli_examples_per_s"] = rec["examples_per_s"]
+    del res
+    torch.cuda.empty_cache()
+
+    # (c) a replay against eager steps, and the phases
+    small = synthetic_dlrm.mlperf_dlrm_schema(DLRM_ROWS_CAP)
+    cfg = RunConfig.load(os.path.join(root, "configs", "dlrm_dcnv2_criteo.json"))
+    sopt, dopt = cli.build_optimizers(cfg)
+
+    def fresh():
+        return init_state(cli.build_model(cfg, small, dev), small, sopt, dopt, seed=SEED)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 270)
+    chunk = (_dlrm_slice_ids(small, SCAN_K * BATCH, gen, dev).view(SCAN_K, BATCH, -1),
+             (torch.rand(SCAN_K, BATCH, generator=gen, device=dev) < 0.03).float(),
+             torch.ones(SCAN_K, BATCH, device=dev))
+    dense = torch.floor(torch.exp(torch.randn(SCAN_K, BATCH, 13, generator=gen, device=dev)
+                                  * 1.5 + 1.0))
+    g, e = fresh(), fresh()
+    sparse_k.LAUNCHES = 0
+    prof.enable(True)
+    try:
+        scan = make_scan_train_step(small, sopt, dopt)
+        g, g_losses = scan(g, *chunk, dense=dense)
+        prof.drain()
+        for _ in range(5):
+            scan(g, *chunk, dense=dense)
+        torch.cuda.synchronize()
+        reading = [r for r in prof.drain()["phases"] if len(r.stamps)]
+        ms = {k: v / (5 * SCAN_K) for k, v in prof.reading_ms(reading[0]).items()}
+    finally:
+        prof.enable(False)
+        prof.drain()
+    step = make_train_step(small, sopt, dopt)
+    e_losses = torch.stack([step(e, *(t[i] for t in chunk), dense=dense[i])[1].loss
+                            for i in range(SCAN_K)])
+    g2 = fresh()
+    scan2 = make_scan_train_step(small, sopt, dopt)
+    g2, g2_losses = scan2(g2, *chunk, dense=dense)
+    launches["c"] = sparse_k.LAUNCHES
+    same = (torch.equal(g2_losses, e_losses) and g2.step == e.step
+            and all(torch.equal(a, b) for a, b in zip(_state_tensors(g2), _state_tensors(e))))
+    print(f"dlrm scan: one replay of an {SCAN_K}-step graph (dense features staged) vs "
+          f"{SCAN_K} eager steps from one state at MLPerf's widths, tables capped at "
+          f"{DLRM_ROWS_CAP:,}: losses and every state tensor bit-identical: {same}; "
+          f"losses {[round(float(x), 5) for x in e_losses]}; dense-mode updates launched "
+          f"{launches['c']} (predicted {2 + 8 * SCAN_K}: two graphs' warm-up steps, "
+          f"{6 * SCAN_K} steps in 6 replays of the first, {SCAN_K} of the second and "
+          f"{SCAN_K} eager)")
+    print(f"dlrm scan: device ms a step by phase over 5 replays of {SCAN_K} steps "
+          f"(stamps): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; total {sum(ms.values()):.3f}")
+    if not same:
+        raise AssertionError("dlrm scan: the graph replay differs from eager steps")
+    if launches["c"] != 2 + 8 * SCAN_K:
+        raise AssertionError(f"dlrm scan: {launches['c']} dense-mode updates launched")
+    if list(ms) != ["lookup", "pool", "bottom", "cross", "top", "backward", "sparse",
+                    "dense"]:
+        raise AssertionError(f"dlrm scan: phases {list(ms)}")
+    out["phase_ms"] = ms
+    out["launches"] = sum(launches.values())
+    print(f"dlrm: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def _template_args(mangled) -> str:
     """``<64, true>`` for a mangled ``ILi64ELb1EE``; '' for none."""
     if not mangled:
@@ -4038,13 +4249,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port's paths on one GPU.")
     ap.add_argument("--phases", help="run phases 1-3 (device, build, the tower "
                     "forward) and then only these phases (a comma list of 3, 6, 7, "
-                    "25, 26), and print no report")
+                    "25, 26, 27), and print no report")
     args = ap.parse_args(argv)
     phases = None
     if args.phases:
         phases = {int(p) for p in args.phases.split(",")}
-        if not phases <= {3, 6, 7, 25, 26}:
-            ap.error(f"--phases {args.phases}: the phases alone are 3, 6, 7, 25 and 26")
+        if not phases <= {3, 6, 7, 25, 26, 27}:
+            ap.error(f"--phases {args.phases}: the phases alone are 3, 6, 7, 25, 26 "
+                     f"and 27")
 
     import torch
 
@@ -4125,7 +4337,8 @@ def main(argv=None) -> int:
     if phases is not None:
         for phase in sorted(phases - {3}):
             {6: _phase6_training_kernels, 7: _phase7_fm_kernel,
-             25: _phase25_tracing, 26: _phase26_sparse_adagrad}[phase](dev, rng)
+             25: _phase25_tracing, 26: _phase26_sparse_adagrad,
+             27: lambda dev, rng: _phase27_dlrm(dev, root)}[phase](dev, rng)
         print(f"chip_smoke: phases 1-3 and {sorted(phases - {3})} only (--phases): "
               f"no report")
         return 0
@@ -4263,6 +4476,7 @@ def main(argv=None) -> int:
         roofline = _phase24_roofline(root, tmp, card)
     _phase25_tracing(dev)
     sparse = _phase26_sparse_adagrad(dev)
+    dlrm = _phase27_dlrm(dev, root)
 
     work = _tower_work(BATCH, fnn_dims)
     criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))
@@ -4372,6 +4586,7 @@ def main(argv=None) -> int:
         "launches_parity": parity["launches"]["adagrad_dense"],
         "launches_scan": sparse["launches_scan"],
         "rows_written_scan": sparse["rows_written_scan"],
+        "launches_dlrm": dlrm["launches"],
         "ms_f32": sparse["ms_f32"],
         "plain_ms_f32": sparse["plain_ms_f32"],
         "bound_ms_f32": sparse["bound_ms_f32"],

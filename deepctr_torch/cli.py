@@ -1,7 +1,8 @@
 """CLI entry point: ``python -m deepctr_torch.cli --config configs/fnn.json``.
 
 Port of ``deepctr_tpu/cli.py`` for LR, FM, FNN, SNN, DeepFM and PNN
-(IPNN/OPNN): it reads the same ``configs/*.json`` and dotted overrides
+(IPNN/OPNN), and the port's own DLRM-DCNv2 (``model.name=dlrm_dcnv2``,
+below): it reads the same ``configs/*.json`` and dotted overrides
 (``deepctr_torch.config.RunConfig``, the port's copy of the reference's),
 trains (``run``: data in RAM or streamed from shard files
 (``data.stream``), model, optimizers, a resumed train state
@@ -53,6 +54,19 @@ chunk is one replay of a CUDA graph of the K steps, in a sharded run with
 its NCCL exchanges and all-reduces inside; on the CPU it is K eager steps;
 0 or 1 is the per-step route.
 
+``model.name=dlrm_dcnv2`` (``configs/dlrm_dcnv2_criteo.json``), which the
+reference lacks, trains on data generated from ``data.synthetic_seed``
+with dense features beside multi-hot ids (``data/synthetic_dlrm.py``:
+``data.synthetic_examples`` examples over the schema of
+``data.schema_path``, or MLPerf's 26 Criteo fields with each table capped
+at ``data.criteo_cat_buckets`` rows, the last ``data.test_fraction`` held
+out), through the same ``fit`` and scan route, the dense features staged
+and replayed with the ids; ``k`` is its table's width and ``model.hidden``
+its top MLP's hidden widths, and its bottom MLP (512-256-128 over 13 dense
+inputs) and cross network (3 layers of rank 512) are MLPerf's, fixed. Its
+``.yx`` files, checkpoints, scoring, sharding and pretraining are not
+supported, and asking for them raises.
+
 ``train.prefetch`` (default true) stages the training batches, or chunks, on
 a background thread, onto the card through pinned buffers and a side stream
 (``data.DevicePrefetcher``). ``train.profile_dir`` writes a
@@ -84,6 +98,7 @@ def build_model(cfg, schema, device: torch.device | str):
     from .models import (
         MlpSpec,
         make_deepfm,
+        make_dlrm_dcnv2,
         make_fm,
         make_fnn,
         make_lr,
@@ -111,8 +126,14 @@ def build_model(cfg, schema, device: torch.device | str):
     if m.name == "snn":
         return make_snn(schema, hidden1=m.hidden1, mlp=mlp,
                         init_sigma=m.init_sigma, device=device)
+    if m.name == "dlrm_dcnv2":
+        if m.activation != "relu" or m.dropout != 0.0:
+            raise ValueError("dlrm_dcnv2 has ReLU layers and no dropout: set "
+                             "model.activation=relu and model.dropout=0")
+        return make_dlrm_dcnv2(schema, embed_dim=m.k, top=tuple(m.hidden),
+                               init_sigma=m.init_sigma, device=device)
     raise ValueError(
-        f"unknown model {m.name!r} (lr|fm|fnn|snn|deepfm|ipnn|opnn)"
+        f"unknown model {m.name!r} (lr|fm|fnn|snn|deepfm|ipnn|opnn|dlrm_dcnv2)"
     )
 
 
@@ -229,6 +250,8 @@ def run(cfg, device: torch.device) -> dict:
     """Train the configured model on ``device``; returns the best AUC, its
     epoch, the per-epoch history and the final ``TrainState`` (with
     ``train.sharded``, this rank's ``parallel.ShardedTrainState``)."""
+    if cfg.model.name == "dlrm_dcnv2":
+        _refuse_for_dense_inputs(cfg)
     with torch.autograd.set_detect_anomaly(cfg.train.debug_nans):
         if not cfg.train.sharded:
             return _run(cfg, device)
@@ -236,6 +259,39 @@ def run(cfg, device: torch.device) -> dict:
 
         with process_group(device, cfg.train.num_devices) as group:
             return _run(cfg, group.device, group)
+
+
+def _refuse_for_dense_inputs(cfg) -> None:
+    """DLRM-DCNv2 trains on generated data in RAM on one device: raise for
+    the options it does not take (the module's docstring)."""
+    t, d = cfg.train, cfg.data
+    unsupported = {"train.sharded": t.sharded, "train.checkpoint_path": t.checkpoint_path,
+                   "train.resume": t.resume, "train.pretrain": t.pretrain,
+                   "data.train_path": d.train_path, "data.stream": d.stream,
+                   "model.init_from": cfg.model.init_from}
+    asked = [k for k, v in unsupported.items() if v]
+    if asked:
+        raise ValueError(f"dlrm_dcnv2 trains on generated data in RAM on one device; "
+                         f"it does not take {', '.join(asked)}")
+
+
+def dense_input_data(cfg):
+    """DLRM-DCNv2's data, generated from ``data.synthetic_seed`` (the
+    module's docstring): ``(schema, (train ids, labels, dense), (test ids,
+    labels, dense))``, the last ``data.test_fraction`` of the examples held
+    out."""
+    from .data import Schema, synthetic_dlrm
+
+    d = cfg.data
+    if d.schema_path:
+        with open(d.schema_path) as f:
+            schema = Schema.from_json(f.read())
+    else:
+        schema = synthetic_dlrm.mlperf_dlrm_schema(d.criteo_cat_buckets)
+    data = synthetic_dlrm.generate(schema, d.synthetic_examples, seed=d.synthetic_seed)
+    cut = int(len(data) * (1 - d.test_fraction))
+    return schema, *((p.ids, p.labels, p.dense)
+                     for p in (data.slice(slice(0, cut)), data.slice(slice(cut, None))))
 
 
 def _run(cfg, device: torch.device, group=None) -> dict:
@@ -269,8 +325,13 @@ def _run(cfg, device: torch.device, group=None) -> dict:
     if cfg.train.distributed and group is None:
         logger.log({"event": "distributed_ignored", "reason":
                     "train.distributed has no effect without train.sharded"})
-    with rank_zero_first(group):   # rank 0 writes the data cache the others read
-        schema, tr_ids, tr_labels, te_ids, te_labels = load_data(cfg, group)
+    tr_dense = te_dense = None
+    if cfg.model.name == "dlrm_dcnv2":
+        schema, (tr_ids, tr_labels, tr_dense), (te_ids, te_labels, te_dense) = \
+            dense_input_data(cfg)
+    else:
+        with rank_zero_first(group):   # rank 0 writes the data cache the others read
+            schema, tr_ids, tr_labels, te_ids, te_labels = load_data(cfg, group)
     train_source = tr_ids if isinstance(tr_ids, StreamSource) else None
     if train_source is not None:
         tr_ids = tr_labels = None
@@ -390,6 +451,8 @@ def _run(cfg, device: torch.device, group=None) -> dict:
             train_source=train_source,
             debug_nans=cfg.train.debug_nans,
             scan_steps=cfg.train.scan_steps,
+            train_dense=tr_dense,
+            test_dense=te_dense,
             **sharded,
         )
         if ckpt_path:
@@ -516,7 +579,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="deepctr_torch",
         description="CTR training and scoring on PyTorch/CUDA (LR, FM, FNN, "
-        "SNN, DeepFM, IPNN/OPNN)",
+        "SNN, DeepFM, IPNN/OPNN; training DLRM-DCNv2)",
     )
     ap.add_argument("--config", help="JSON config path (defaults applied)")
     ap.add_argument(

@@ -35,6 +35,7 @@ class Batch:
     ids: np.ndarray      # int32[B, S]
     labels: np.ndarray   # float32[B]
     weights: np.ndarray  # float32[B]
+    dense: np.ndarray | None = None  # float32[B, n], a model with dense inputs
 
 
 def minibatches(
@@ -46,8 +47,11 @@ def minibatches(
     shuffle: bool = True,
     seed: int = 0,
     drop_remainder: bool = False,
+    dense: np.ndarray | None = None,
 ) -> Iterator[Batch]:
-    """Yield fixed-shape minibatches over an in-memory packed dataset."""
+    """Yield fixed-shape minibatches over an in-memory packed dataset.
+    ``dense`` (``[n, d]``, the port's: the reference has no dense inputs)
+    goes with the ids into each batch's ``dense``, its pad rows 0."""
     n = ids.shape[0]
     order = np.arange(n)
     if shuffle:
@@ -67,12 +71,15 @@ def minibatches(
                 weights=np.concatenate(
                     [np.ones(b, np.float32), np.zeros(pad, np.float32)]
                 ),
+                dense=None if dense is None else np.concatenate(
+                    [dense[sel], np.zeros((pad, dense.shape[1]), np.float32)]),
             )
         else:
             yield Batch(
                 ids=ids[sel],
                 labels=labels[sel],
                 weights=np.ones(b, np.float32),
+                dense=None if dense is None else dense[sel],
             )
 
 
@@ -110,7 +117,7 @@ class DevicePrefetcher:
     with the device's work: while step N runs, batches N+1 .. N+depth are
     being staged. Iterating it yields what the wrapped iterator yields,
     in order. Items are ``Batch``es, or the scan route's chunks
-    ``(nb, (ids, labels, weights))``, staged alike.
+    ``(nb, (ids, labels, weights[, dense]))``, staged alike.
 
     On a CUDA device each item's arrays are copied into pinned host
     buffers from a small ring, then to the card with ``non_blocking`` copies
@@ -172,7 +179,8 @@ class DevicePrefetcher:
 
         slot = n % len(self._ring)
         chunk = not isinstance(item, Batch)
-        host = item[1] if chunk else (item.ids, item.labels, item.weights)
+        host = item[1] if chunk else tuple(
+            a for a in (item.ids, item.labels, item.weights, item.dense) if a is not None)
         arrays = [torch.from_numpy(np.ascontiguousarray(a)) for a in host]
         pinned, event = self._ring[slot] or (None, None)
         if event is not None:

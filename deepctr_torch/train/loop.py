@@ -52,13 +52,21 @@ class FitResult:
     best_epoch: int
 
 
+def _with_dense(dense) -> dict:
+    """The ``dense=`` keyword of a step or eval step, where a batch has dense
+    features."""
+    return {} if dense is None else {"dense": dense}
+
+
 def evaluate(eval_step: Callable, model: nn.Module, ids: np.ndarray,
-             labels: np.ndarray, schema: Schema, batch_size: int = 8192) -> dict:
-    """Full-dataset eval -> ``{auc, logloss, rmse}``."""
+             labels: np.ndarray, schema: Schema, batch_size: int = 8192,
+             dense: np.ndarray | None = None) -> dict:
+    """Full-dataset eval -> ``{auc, logloss, rmse}``; ``dense`` ``[n, d]``
+    for a model with dense inputs."""
     logits_all = []
     for b in minibatches(ids, labels, batch_size, schema=schema, shuffle=False,
-                         drop_remainder=False):
-        logits = eval_step(model, b.ids).cpu().numpy()
+                         drop_remainder=False, dense=dense):
+        logits = eval_step(model, b.ids, **_with_dense(b.dense)).cpu().numpy()
         logits_all.append(logits[b.weights > 0])
     logits_np = np.concatenate(logits_all)
     probs = 1.0 / (1.0 + np.exp(-logits_np))
@@ -70,12 +78,15 @@ def evaluate(eval_step: Callable, model: nn.Module, ids: np.ndarray,
 
 
 def ram_chunks(ids: np.ndarray, labels: np.ndarray, batch_size: int,
-               scan_steps: int, *, schema: Schema, seed: int):
+               scan_steps: int, *, schema: Schema, seed: int,
+               dense: np.ndarray | None = None):
     """An in-RAM epoch in chunks, as the reference's scan route cuts it:
     ``(nb, (ids [K, B, S], labels [K, B], weights [K, B]))``. The order is
     ``np.arange(n)`` shuffled by ``default_rng(seed)`` (``minibatches``'),
     a chunk holds K·B rows and only whole batches, and a short last chunk
-    is padded to K steps of pad ids, label 0 and weight 0."""
+    is padded to K steps of pad ids, label 0 and weight 0. ``dense``
+    (``[n, d]``, the port's) adds ``dense [K, B, d]`` to each chunk, its
+    pad steps 0."""
     n, s = ids.shape
     order = np.arange(n)
     np.random.default_rng(seed).shuffle(order)
@@ -87,13 +98,16 @@ def ram_chunks(ids: np.ndarray, labels: np.ndarray, batch_size: int,
         ids_t = ids[sel].reshape(nb, batch_size, s)
         y_t = labels[sel].reshape(nb, batch_size)
         w_t = np.ones((nb, batch_size), np.float32)
+        d_t = () if dense is None else (dense[sel].reshape(nb, batch_size, -1),)
         if nb < scan_steps:
             pad = scan_steps - nb
             ids_t = np.concatenate(
                 [ids_t, np.full((pad, batch_size, s), schema.pad_id, np.int32)])
             y_t = np.concatenate([y_t, np.zeros((pad, batch_size), np.float32)])
             w_t = np.concatenate([w_t, np.zeros((pad, batch_size), np.float32)])
-        yield nb, (ids_t, y_t, w_t)
+            d_t = tuple(np.concatenate([d, np.zeros((pad,) + d.shape[1:], np.float32)])
+                        for d in d_t)
+        yield nb, (ids_t, y_t, w_t, *d_t)
 
 
 def fit(
@@ -125,6 +139,8 @@ def fit(
     batch_transform: Callable | None = None,
     scan_steps: int = 0,
     scan_step: Callable | None = None,
+    train_dense: np.ndarray | None = None,
+    test_dense: np.ndarray | None = None,
 ) -> FitResult:
     """Train ``model`` (in place) with per-epoch eval and early stop on
     held-out AUC. Without ``state``, the model is initialised from
@@ -138,6 +154,11 @@ def fit(
 
     ``scan_steps > 1`` trains in chunks of that many steps (the module's
     docstring). The epoch's loss is the mean over its real steps.
+
+    ``train_dense`` and ``test_dense`` (``[n, d]`` float32 beside the ids
+    in RAM) are the dense features of a model with dense inputs
+    (DLRM-DCNv2): they go with the ids into every batch, chunk and eval
+    batch, and to each step as its ``dense=``.
 
     A sharded run (``cli._sharded_parts``) replaces four parts: ``step``
     (``(state, ids, labels, weights, lr_scale) -> (state, metrics)``; a
@@ -164,7 +185,8 @@ def fit(
         eval_step = make_eval_step(schema)
 
         def evaluate_state(st):
-            return evaluate(eval_step, st.model, test_ids, test_labels, schema)
+            return evaluate(eval_step, st.model, test_ids, test_labels, schema,
+                            dense=test_dense)
     if state is None:
         state = init_state(model, schema, sparse_opt, dense_opt, seed=seed,
                            table_dtype=table_dtype)
@@ -182,27 +204,29 @@ def fit(
             it = (train_source.scan_chunks(epoch, scan_steps)
                   if train_source is not None
                   else ram_chunks(train_ids, train_labels, batch_size, scan_steps,
-                                  schema=schema, seed=seed + epoch))
+                                  schema=schema, seed=seed + epoch, dense=train_dense))
         else:
             it = (train_source.batches(epoch) if train_source is not None
                   else minibatches(train_ids, train_labels, batch_size,
                                    schema=schema, shuffle=True, seed=seed + epoch,
-                                   drop_remainder=True))
+                                   drop_remainder=True, dense=train_dense))
         if batch_transform is not None:
             it = map(batch_transform, it)
         if prefetch:
             it = DevicePrefetcher(it, model.table.device)
         try:
             if scan_step is not None:
-                for nb, chunk in it:
-                    state, out = scan_step(state, *chunk, lr_scale)
+                for nb, (ids, labels, weights, *dense) in it:
+                    state, out = scan_step(state, ids, labels, weights, lr_scale,
+                                           **_with_dense(dense[0] if dense else None))
                     losses.append(getattr(out, "losses", out)[:nb].sum())
                     if hasattr(out, "dropped"):
                         drops.append(out.dropped.sum())
                     n_batches += nb
             else:
                 for b in it:
-                    state, m = step(state, b.ids, b.labels, b.weights, lr_scale)
+                    state, m = step(state, b.ids, b.labels, b.weights, lr_scale,
+                                    **_with_dense(b.dense))
                     losses.append(m.loss)
                     if hasattr(m, "dropped"):
                         drops.append(m.dropped)

@@ -22,6 +22,12 @@ What differs from the reference, and why:
   device: each capture's warm-up step runs on the real state and then puts
   back what it wrote, the dense leaves and the table's and the sparse
   state's rows of the batch's ids (:func:`_warm_up`).
+- A model with dense (continuous) inputs, DLRM-DCNv2 (``models/dlrm.py``),
+  which the reference does not have, takes them as ``dense=`` beside the
+  ids: ``[B, n]`` a step, ``[K, B, n]`` a chunk, staged into the graph's
+  buffers and replayed like the ids. Without them (``dense=None``, every
+  other model) the step calls the model as before and a graph holds no
+  dense buffer.
 - The reference's split plan (``ops/split_embed.py``) is not ported: its
   one-hot matmuls are a TPU gather mechanism. One gather of all slots and
   one scatter of the occurrence gradients give the same per-row sums, up to
@@ -55,6 +61,7 @@ from torch import nn
 from ..models.base import lazy_l2, weighted_bce_with_logits
 from ..ops.kernels import add_launch_counts, count_difference, launch_counts
 from ..ops.kernels.mlp import SEED_LIMIT
+from ..ops.pool import count_occurrences
 from ..data import Schema
 from ..utils import prof
 
@@ -169,32 +176,37 @@ def _checked_seed(seed) -> int:
 
 def _step_body(schema: Schema, sparse_opt, dense_opt, l2: float,
                check_finite: bool):
-    """``body(state, ids, labels, weights, lr_scale, seed) -> (loss,
-    logits)``: one train step on batches already on the model's device
-    (ids int64), updating the model and the optimizers' states in place.
-    ``state.step`` and the generator are the caller's. ``seed`` is an int or
-    a 0-d int32 device tensor (:mod:`..ops.kernels.mlp`). The per-step route
-    and the graph of K steps run this same body. It marks the end of each of
-    its phases for the tracing (:func:`..utils.prof.phase`): ``lookup`` (the
-    gather), ``tower`` (forward, loss and backward), ``sparse`` and
-    ``dense`` (the two updates)."""
+    """``body(state, ids, labels, weights, lr_scale, seed, dense=None) ->
+    (loss, logits)``: one train step on batches already on the model's
+    device (ids int64, dense f32 ``[B, n]`` for a model that takes them),
+    updating the model and the optimizers' states in place. ``state.step``
+    and the generator are the caller's. ``seed`` is an int or a 0-d int32
+    device tensor (:mod:`..ops.kernels.mlp`). The per-step route and the
+    graph of K steps run this same body. It counts the ids it gathers
+    (``ops/pool.py``) and marks the end of each of its phases for the
+    tracing (:func:`..utils.prof.phase`): ``lookup`` (the gather), the
+    model's own forward phases (DLRM's), then ``tower`` (forward, loss and
+    backward; a model's ``backward_phase`` where it marks its forward),
+    ``sparse`` and ``dense`` (the two updates)."""
     pad_id = schema.pad_id
 
-    def body(state: TrainState, ids, labels, weights, lr_scale, seed):
+    def body(state: TrainState, ids, labels, weights, lr_scale, seed, dense=None):
         model = state.model
         mask = (ids != pad_id).float()
         rows = model.table.detach()[ids].float().requires_grad_(True)
         params = dense_params(model)
+        count_occurrences(ids.numel())
         prof.phase("lookup")
 
-        logits = model.apply_rows(rows, mask, train=True, seed=seed)
+        extra = {} if dense is None else {"dense": dense}
+        logits = model.apply_rows(rows, mask, train=True, seed=seed, **extra)
         loss = weighted_bce_with_logits(logits, labels, weights)
         loss = loss + lazy_l2(rows, mask, l2)
         if check_finite and not bool(torch.isfinite(loss)):
             raise FloatingPointError(f"train step {state.step + 1}: loss "
                                      f"{float(loss.detach())} is not finite")
         g_rows, *g_dense = torch.autograd.grad(loss, [rows] + params)
-        prof.phase("tower")
+        prof.phase(getattr(model, "backward_phase", "tower"))
 
         sparse_opt.update(model.table.data, state.sparse_state,
                           ids.reshape(-1), g_rows.reshape(-1, g_rows.shape[-1]),
@@ -209,9 +221,10 @@ def _step_body(schema: Schema, sparse_opt, dense_opt, l2: float,
 
 def make_train_step(schema: Schema, sparse_opt, dense_opt, l2: float = 0.0,
                     check_finite: bool = False):
-    """Build ``step(state, ids, labels, weights, lr_scale=1.0, seed=None)
-    -> (state, StepMetrics)``. Batches are numpy arrays or tensors; they
-    go to the model's device.
+    """Build ``step(state, ids, labels, weights, lr_scale=1.0, seed=None,
+    dense=None) -> (state, StepMetrics)``. Batches are numpy arrays or
+    tensors; they go to the model's device. ``dense`` is the batch's dense
+    features, for a model that takes them (DLRM).
 
     ``check_finite`` (the CLI's ``train.debug_nans``) reads the loss on the
     host before the backward pass, a sync every step, and raises
@@ -225,20 +238,23 @@ def _per_step(body, seed_map=None, metrics=StepMetrics):
     given) and mapped by ``seed_map`` (the sharded step mixes in its rank),
     the batch moved to the device, ``state.step`` counted; the body's two
     outputs come back as ``metrics``. On the CPU the step opens a unit of
-    the tracing's host phase marks (:func:`..utils.prof.marking`)."""
+    the tracing's host phase marks (:func:`..utils.prof.marking`). The
+    body takes ``dense`` only where it is given."""
 
     def step(state: TrainState, ids, labels, weights, lr_scale: float = 1.0,
-             seed: int | None = None):
+             seed: int | None = None, dense=None):
         device = state.model.table.device
         drawn = draw_seed(state.generator)
         seed = drawn if seed is None else _checked_seed(seed)
         if seed_map is not None:
             seed = seed_map(seed)
+        extra = {} if dense is None else {"dense": _to_device(dense, device, torch.float32)}
         with prof.marking(device):
             prof.phase(prof.START)
             out = body(state, _to_device(ids, device, torch.long),
                        _to_device(labels, device, torch.float32),
-                       _to_device(weights, device, torch.float32), lr_scale, seed)
+                       _to_device(weights, device, torch.float32), lr_scale, seed,
+                       **extra)
         state.step += 1
         return state, metrics(*out)
 
@@ -248,10 +264,12 @@ def _per_step(body, seed_map=None, metrics=StepMetrics):
 def make_scan_train_step(schema: Schema, sparse_opt, dense_opt, l2: float = 0.0,
                          check_finite: bool = False):
     """Build ``scan_step(state, ids [K, B, S], labels [K, B], weights [K, B],
-    lr_scale=1.0, seeds=None) -> (state, losses [K])``: K train steps, the
-    reference's ``make_scan_train_step``. ``seeds`` (K ints) replaces the
-    drawn dropout seeds, as ``make_train_step``'s ``seed=`` does; the K draws
-    are taken all the same, so the generator ends where it would.
+    lr_scale=1.0, seeds=None, dense=None) -> (state, losses [K])``: K train
+    steps, the reference's ``make_scan_train_step``. ``seeds`` (K ints)
+    replaces the drawn dropout seeds, as ``make_train_step``'s ``seed=``
+    does; the K draws are taken all the same, so the generator ends where it
+    would. ``dense`` ``[K, B, n]`` is the chunk's dense features, for a
+    model that takes them.
 
     On the CPU, and under ``check_finite`` (which must stop before the
     update of the step that went bad), the K steps run eagerly, one
@@ -266,8 +284,8 @@ def make_scan_train_step(schema: Schema, sparse_opt, dense_opt, l2: float = 0.0,
                       eager=check_finite, touched=lambda ids: touched_rows(ids, pad_id))
 
     def scan_step(state: TrainState, ids, labels, weights, lr_scale: float = 1.0,
-                  seeds=None):
-        state, losses, _ = run(state, ids, labels, weights, lr_scale, seeds)
+                  seeds=None, dense=None):
+        state, losses, _ = run(state, ids, labels, weights, lr_scale, seeds, dense)
         return state, losses
 
     scan_step.graph = run.graph
@@ -276,8 +294,10 @@ def make_scan_train_step(schema: Schema, sparse_opt, dense_opt, l2: float = 0.0,
 
 def chunk_route(body, eager: bool, touched, seed_map=None, dropped: bool = False):
     """``run(state, ids [K, B, S], labels [K, B], weights [K, B], lr_scale,
-    seeds) -> (state, losses [K], dropped [K] or None)``: a chunk of K steps,
-    the scan route of the single-device and the sharded step alike.
+    seeds, dense=None) -> (state, losses [K], dropped [K] or None)``: a chunk
+    of K steps, the scan route of the single-device and the sharded step
+    alike; ``dense`` ``[K, B, n]``, where given, goes to the body beside
+    the ids.
 
     ``body`` is a step on batches already on the device (``_step_body``'s
     signature), returning ``(loss, second)``. On the CPU, and with
@@ -299,37 +319,41 @@ def chunk_route(body, eager: bool, touched, seed_map=None, dropped: bool = False
     graph: list[_ChunkGraph] = []   # the last one captured
 
     def run(state: TrainState, ids, labels, weights, lr_scale: float = 1.0,
-            seeds=None):
+            seeds=None, dense=None):
         k = ids.shape[0]
         if labels.shape[0] != k or weights.shape[0] != k or (
-                seeds is not None and len(seeds) != k):
-            raise ValueError(f"a chunk of {k} steps needs {k} labels, weights "
-                             f"and seeds")
+                seeds is not None and len(seeds) != k) or (
+                dense is not None and dense.shape[0] != k):
+            raise ValueError(f"a chunk of {k} steps needs {k} labels, weights, "
+                             f"seeds and dense features")
         if state.model.table.device.type != "cuda" or eager:
             outs = []
             for i in range(k):
                 state, m = step(state, ids[i], labels[i], weights[i], lr_scale,
-                                seed=None if seeds is None else seeds[i])
+                                seed=None if seeds is None else seeds[i],
+                                dense=None if dense is None else dense[i])
                 outs.append(m)
             return (state, torch.stack([m[0] for m in outs]),
                     torch.stack([m[1] for m in outs]) if dropped else None)
-        key = _graph_key(state, ids.shape, lr_scale)
+        key = _graph_key(state, ids.shape, lr_scale,
+                         None if dense is None else dense.shape)
         if not graph or not graph[0].fits(state, key):
             graph.clear()   # its pool goes before the next capture
             graph.append(_ChunkGraph(body, state, ids, labels, weights, lr_scale, key,
-                                     touched, seed_map, dropped))
-        return graph[0].run(state, ids, labels, weights, seeds)
+                                     touched, seed_map, dropped, dense))
+        return graph[0].run(state, ids, labels, weights, seeds, dense)
 
     run.graph = graph
     return run
 
 
-def _graph_key(state: TrainState, shape, lr_scale: float) -> tuple:
-    """What a captured graph is good for: one chunk shape, one
-    ``lr_scale`` and the addresses of one state's tensors (and the state
-    object itself: :meth:`_ChunkGraph.fits`)."""
+def _graph_key(state: TrainState, shape, lr_scale: float, dense_shape=None) -> tuple:
+    """What a captured graph is good for: one chunk shape (and its dense
+    features' shape, or None), one ``lr_scale`` and the addresses of one
+    state's tensors (and the state object itself: :meth:`_ChunkGraph.fits`)."""
     return (tuple(shape), float(lr_scale), state.model.table.dtype,
-            tuple(t.data_ptr() for t in _state_tensors(state)))
+            tuple(t.data_ptr() for t in _state_tensors(state)),
+            None if dense_shape is None else tuple(dense_shape))
 
 
 def _state_tensors(state: TrainState) -> list[torch.Tensor]:
@@ -355,7 +379,7 @@ def touched_rows(ids: torch.Tensor, pad_id: int) -> torch.Tensor:
 
 
 def _warm_up(body, state: TrainState, ids, labels, weights, lr_scale: float, seed,
-             touched: torch.Tensor) -> int:
+             touched: torch.Tensor, dense=None) -> int:
     """One eager call of ``body`` on ``state`` itself, then every bit it
     wrote put back in place: what a capture's first call must set up is set
     up, the state ends as it began, and no second copy of it is made.
@@ -369,7 +393,8 @@ def _warm_up(body, state: TrainState, ids, labels, weights, lr_scale: float, see
     parameters, the model's buffers, the dense optimizer's state with
     Adam's count), ``state.step`` and the generator's state. After the step,
     or a failure in it, these go back with ``index_copy_`` and ``copy_``
-    into the same tensors, so the addresses a graph key holds stay valid."""
+    into the same tensors, so the addresses a graph key holds stay valid.
+    ``dense`` goes to the body where it is given."""
     table = state.model.table
     rowwise = [table, *(t for t in state.sparse_state if t.shape == table.shape)]
     held = {id(t) for t in rowwise}
@@ -380,7 +405,8 @@ def _warm_up(body, state: TrainState, ids, labels, weights, lr_scale: float, see
     kept_bytes = sum(t.numel() * t.element_size() for t in rows + copies)
     step, generator = state.step, state.generator.get_state()
     try:
-        body(state, ids, labels, weights, lr_scale, seed)
+        body(state, ids, labels, weights, lr_scale, seed,
+             **({} if dense is None else {"dense": dense}))
     finally:
         with torch.no_grad():
             for t, kept in zip(rowwise, rows):
@@ -410,7 +436,10 @@ class _ChunkGraph:
     event says when) and copied to a ``[K]`` device buffer that the tower
     kernels read (the ``seed_ptr`` of ``csrc/dropout_hash.cuh``); the K
     losses land in a static ``[K]`` buffer, and with ``dropped`` the body's
-    second outputs in a ``[K]`` int64 one.
+    second outputs in a ``[K]`` int64 one. A chunk with dense features
+    (``dense``, ``[K, B, n]``) is staged into a static buffer of that shape
+    too, and each step's slice goes to the body; a graph without them holds
+    no such buffer and calls the body as before.
 
     Before the capture one eager step runs on the state itself, on the
     device's one capture stream (:func:`_capture_stream`), so that what a
@@ -444,7 +473,7 @@ class _ChunkGraph:
 
     def __init__(self, body, state: TrainState, ids, labels, weights,
                  lr_scale: float, key: tuple, touched, seed_map=None,
-                 dropped: bool = False):
+                 dropped: bool = False, dense=None):
         device = state.model.table.device
         k, b = ids.shape[:2]
         self.key = key
@@ -457,11 +486,13 @@ class _ChunkGraph:
         self.losses = torch.empty(k, dtype=torch.float32, device=device)
         self.dropped = (torch.zeros(k, dtype=torch.long, device=device) if dropped
                         else None)
+        self.dense = (None if dense is None else
+                      torch.empty(dense.shape, dtype=torch.float32, device=device))
         self._staging = [torch.empty(k, dtype=torch.int32, pin_memory=True)
                          for _ in range(2)]
         self._copied: list[torch.cuda.Event | None] = [None, None]
         self._slot = 0
-        self._load(ids, labels, weights)
+        self._load(ids, labels, weights, dense)
         self.replays = 0
         self.ring = prof.PhaseRing(k, device, self) if prof.enabled() else None
 
@@ -473,7 +504,8 @@ class _ChunkGraph:
                 # the bytes of the state the warm-up held meanwhile
                 self.snapshot_bytes = _warm_up(
                     body, state, self.ids[0], self.labels[0], self.weights[0], lr_scale,
-                    self.seeds[0], touched(self.ids[0]))
+                    self.seeds[0], touched(self.ids[0]),
+                    None if self.dense is None else self.dense[0])
             torch.cuda.current_stream(device).wait_stream(stream)
 
             self.graph = torch.cuda.CUDAGraph()
@@ -483,8 +515,9 @@ class _ChunkGraph:
                     prof.stamping(self.ring):
                 prof.phase(prof.START)
                 for i in range(k):
+                    extra = {} if self.dense is None else {"dense": self.dense[i]}
                     loss, second = body(state, self.ids[i], self.labels[i],
-                                        self.weights[i], lr_scale, self.seeds[i])
+                                        self.weights[i], lr_scale, self.seeds[i], **extra)
                     self.losses[i].copy_(loss)
                     if self.dropped is not None:
                         self.dropped[i].copy_(second)
@@ -498,18 +531,23 @@ class _ChunkGraph:
         """This graph replays ``state``'s step at ``key``."""
         return self.key == key and self.state() is state
 
-    def _load(self, ids, labels, weights) -> None:
+    def _load(self, ids, labels, weights, dense) -> None:
         device = self.ids.device
         self.ids.copy_(_to_device(ids, device, torch.long))
         self.labels.copy_(_to_device(labels, device, torch.float32))
         self.weights.copy_(_to_device(weights, device, torch.float32))
+        if (dense is None) != (self.dense is None):
+            raise ValueError("a chunk with dense features replays a graph captured "
+                             "with them, one without them a graph without")
+        if dense is not None:
+            self.dense.copy_(_to_device(dense, device, torch.float32))
 
-    def run(self, state: TrainState, ids, labels, weights, seeds=None):
+    def run(self, state: TrainState, ids, labels, weights, seeds=None, dense=None):
         """One replay: ``(state, losses [K], dropped [K] or None)``."""
         k = self.seeds.shape[0]
         with prof.span("chunk", replay=self.replays):
             with prof.span("chunk.load"):
-                self._load(ids, labels, weights)
+                self._load(ids, labels, weights, dense)
             with prof.span("chunk.seeds"):
                 drawn = [draw_seed(state.generator) for _ in range(k)]
                 values = drawn if seeds is None else [_checked_seed(s) for s in seeds]
@@ -535,14 +573,17 @@ class _ChunkGraph:
 
 
 def make_eval_step(schema: Schema):
-    """Build ``eval_step(model, ids) -> logits`` (no dropout)."""
+    """Build ``eval_step(model, ids, dense=None) -> logits`` (no dropout);
+    ``dense`` for a model that takes dense features."""
     pad_id = schema.pad_id
 
     @torch.no_grad()
-    def eval_step(model: nn.Module, ids) -> torch.Tensor:
-        ids = _to_device(ids, model.table.device, torch.long)
+    def eval_step(model: nn.Module, ids, dense=None) -> torch.Tensor:
+        device = model.table.device
+        ids = _to_device(ids, device, torch.long)
         rows = model.table[ids].float()
-        return model.apply_rows(rows, (ids != pad_id).float(), train=False)
+        extra = {} if dense is None else {"dense": _to_device(dense, device, torch.float32)}
+        return model.apply_rows(rows, (ids != pad_id).float(), train=False, **extra)
 
     return eval_step
 

@@ -5,7 +5,8 @@ Marked ``card``: each test skips without a CUDA device, decided inside the
 test. This file imports no JAX, so it runs on the machine with the card
 (``python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_sparse_kernel.py``); ``chip_smoke.py`` phase 26 holds the
-kernel to the same at iPinYou's full shape.
+kernel to the same at iPinYou's full shape, and phase 27 at DLRM's (D =
+128, 1,753,088 occurrences, 26.5 M rows).
 """
 
 import numpy as np
@@ -40,7 +41,8 @@ def _bits(t):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("shape", [(1000, 1, 300), (5000, 11, 4096), (300, 17, 9000)])
+@pytest.mark.parametrize("shape", [(1000, 1, 300), (5000, 11, 4096), (300, 17, 9000),
+                                   (40000, 128, 60000)])
 @pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
 def test_kernel_equals_plain(table_dtype, shape):
     """Three updates, eager and then in a CUDA graph replayed on the second
