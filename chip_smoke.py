@@ -314,7 +314,14 @@ Phases, each printing its own lines:
     finite; one 8-step graph replay against 8 eager steps bit for bit, and
     the step's device ms by phase; in each part the dense-mode kernel's
     launches as predicted, one a step and one a capture's warm-up step
-    (``launches_dlrm`` in the report).
+    (``launches_dlrm`` in the report);
+28. the dense layers' backward kernel (``csrc/dense_bwd.cu``) at each of
+    the 14 shapes of DLRM's 24 kernel products a step (batch 8192): its
+    error against a float64 product beside cuBLAS f32's, the same bits on a
+    second call, its ms beside its 3xTF32 bound and cuBLAS f32's ms; then
+    two fresh DLRM states through one replay each of an 8-step graph, bit
+    for bit, with 192 kernel products and 24 cuBLAS products a replay
+    (``_phase28_dense_bwd``).
 Phases 8-13 train through the CLI, so on the scan route: their launch
 counts add each replay's captured launches (the wrappers run but launch
 nothing during a capture), and each capture's warm-up step on the state
@@ -4215,6 +4222,125 @@ def _phase27_dlrm(dev, root, rng=None) -> dict:
     return out
 
 
+# phase 28: the products of a DLRM step the dense kernel takes, (form, m, n,
+# k): count a step ("gx" g [B, out] . w [in, out]^T, "gw" x [B, in]^T . g
+# [B, out]); the kernel's error over cuBLAS f32's against float64 at most
+DENSE_PRODUCTS = {
+    ("gx", BATCH, 512, 256): 2, ("gx", BATCH, 256, 128): 1, ("gx", BATCH, 3456, 512): 3,
+    ("gx", BATCH, 512, 3456): 3, ("gx", BATCH, 3456, 1024): 1, ("gx", BATCH, 1024, 1024): 1,
+    ("gx", BATCH, 1024, 512): 1,
+    ("gw", 512, 256, BATCH): 2, ("gw", 256, 128, BATCH): 1, ("gw", 3456, 512, BATCH): 3,
+    ("gw", 512, 3456, BATCH): 3, ("gw", 3456, 1024, BATCH): 1, ("gw", 1024, 1024, BATCH): 1,
+    ("gw", 1024, 512, BATCH): 1,
+}
+DENSE_F32_MULTIPLE = 2.0
+
+
+def _phase28_dense_bwd(dev, rng=None) -> dict:
+    """The dense layers' backward kernel at the shapes of DLRM's step, then
+    the graph route's repeatability and counts (docstring, phase 28)."""
+    import math
+
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch.config import RunConfig
+    from deepctr_torch.data import synthetic_dlrm
+    from deepctr_torch.ops.kernels import dense as dense_k
+    from deepctr_torch.train import init_state, make_scan_train_step
+    from deepctr_torch.train.step import _state_tensors
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    rows, worst, total = [], 0.0, {"kernel": 0.0, "cublas": 0.0, "bound": 0.0}
+    for (form, m, n, k), count in DENSE_PRODUCTS.items():
+        if form == "gx":   # g [B, out], w [in, out]
+            a = torch.randn(m, k, generator=gen, device=dev) * 1e-4
+            b = torch.randn(n, k, generator=gen, device=dev) * math.sqrt(2.0 / (n + k))
+            fn, library = dense_k.input_grad, dense_k.input_grad_plain
+            want = a.double() @ b.double().t()
+        else:              # x [B, in] (ReLU'd), g [B, out]
+            a = torch.relu(torch.randn(k, m, generator=gen, device=dev))
+            b = torch.randn(k, n, generator=gen, device=dev) * 1e-4
+            fn, library = dense_k.weight_grad, dense_k.weight_grad_plain
+            want = a.double().t() @ b.double()
+        got, again, lib = fn(a, b), fn(a, b), library(a, b)
+        norm = want.norm()
+        err = float((got.double() - want).norm() / norm)
+        lib_err = float((lib.double() - want).norm() / norm)
+        same = torch.equal(got, again)
+        ms, lib_ms = _time_ms(lambda: fn(a, b)), _time_ms(lambda: library(a, b))
+        flop = 2.0 * m * n * k
+        bound_ms = flop / (TF32_FLOPS / 3) * 1e3
+        s = dense_k.slices(m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+        print(f"dense bwd {form} [{m}, {n}] over {k} (x{count} a step, {s} slices): kernel "
+              f"{ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the "
+              f"3xTF32 bound {bound_ms:.4f}), cuBLAS f32 {lib_ms:.4f} ms; error against "
+              f"float64 {err:.3e} (cuBLAS f32 {lib_err:.3e}); the same bits twice {same}")
+        rows.append({"form": form, "m": m, "n": n, "k": k, "count": count, "slices": s,
+                     "ms": ms, "cublas_ms": lib_ms, "bound_ms": bound_ms, "err": err,
+                     "cublas_err": lib_err})
+        total["kernel"] += count * ms
+        total["cublas"] += count * lib_ms
+        total["bound"] += count * bound_ms
+        worst = max(worst, err / lib_err)
+        if not same or err > DENSE_F32_MULTIPLE * lib_err:
+            raise AssertionError(f"dense bwd {form} [{m}, {n}] over {k}: error {err:.3e} "
+                                 f"against cuBLAS f32's {lib_err:.3e}, same bits {same}")
+        del a, b, want, got, again, lib
+    # the three products the shape rule leaves to cuBLAS: the bottom's first
+    # weight gradient and both of the top's last layer
+    lib_ms = {}
+    for what, (x_shape, g_shape, fn) in {
+            "gw [13, 512] over 8192": ((BATCH, 13), (BATCH, 512), dense_k.weight_grad_plain),
+            "gx [8192, 256] over 1": ((BATCH, 1), (256, 1), dense_k.input_grad_plain),
+            "gw [256, 1] over 8192": ((BATCH, 256), (BATCH, 1), dense_k.weight_grad_plain)}.items():
+        a = torch.randn(*x_shape, generator=gen, device=dev)
+        b = torch.randn(*g_shape, generator=gen, device=dev)
+        lib_ms[what] = _time_ms(lambda: fn(a, b))
+    print("dense bwd: cuBLAS f32 on the shapes the kernel does not take: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in lib_ms.items()))
+    print(f"dense bwd: the 24 products of a step {total['kernel']:.3f} ms on the kernel "
+          f"against {total['cublas']:.3f} ms on cuBLAS f32 and a 3xTF32 bound of "
+          f"{total['bound']:.3f} ms ({100 * total['bound'] / total['kernel']:.1f}% of it); "
+          f"the worst error over cuBLAS f32's {worst:.2f} (at most {DENSE_F32_MULTIPLE})")
+
+    # two fresh states through one replay each, and a second replay's counts
+    small = synthetic_dlrm.mlperf_dlrm_schema(DLRM_ROWS_CAP)
+    cfg = RunConfig.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                      "dlrm_dcnv2_criteo.json"))
+    sopt, dopt = cli.build_optimizers(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 280)
+    chunk = (_dlrm_slice_ids(small, SCAN_K * BATCH, gen, dev).view(SCAN_K, BATCH, -1),
+             (torch.rand(SCAN_K, BATCH, generator=gen, device=dev) < 0.03).float(),
+             torch.ones(SCAN_K, BATCH, device=dev))
+    dense = torch.floor(torch.exp(torch.randn(SCAN_K, BATCH, 13, generator=gen, device=dev)
+                                  * 1.5 + 1.0))
+    states = []
+    for _ in range(2):
+        st = init_state(cli.build_model(cfg, small, dev), small, sopt, dopt, seed=SEED)
+        scan = make_scan_train_step(small, sopt, dopt)
+        st, _ = scan(st, *chunk, dense=dense)
+        launches, library = dense_k.BWD_LAUNCHES, dense_k.BWD_LIBRARY
+        st, losses = scan(st, *chunk, dense=dense)
+        torch.cuda.synchronize()
+        replay = (dense_k.BWD_LAUNCHES - launches, dense_k.BWD_LIBRARY - library)
+        states.append(([t.clone() for t in _state_tensors(st)], losses.clone()))
+        del st, scan
+    same = (torch.equal(states[0][1], states[1][1])
+            and all(torch.equal(a, b) for a, b in zip(states[0][0], states[1][0])))
+    print(f"dense bwd: two fresh DLRM states (tables capped at {DLRM_ROWS_CAP:,}) through two "
+          f"replays each of an {SCAN_K}-step graph: every state tensor and loss bit-identical "
+          f"{same}; a replay's kernel products {replay[0]} and cuBLAS products {replay[1]} "
+          f"(predicted {24 * SCAN_K} and {3 * SCAN_K})")
+    if not same or replay != (24 * SCAN_K, 3 * SCAN_K):
+        raise AssertionError("dense bwd: the graph route's repeatability or counts")
+    print(f"dense bwd: {time.perf_counter() - t_phase:.1f} s")
+    return {"products": rows, "ms_step": total["kernel"], "cublas_ms_step": total["cublas"],
+            "bound_ms_step": total["bound"], "worst_err_ratio": worst, "library_ms": lib_ms,
+            "launches_replay": replay[0], "library_replay": replay[1]}
+
+
 def _template_args(mangled) -> str:
     """``<64, true>`` for a mangled ``ILi64ELb1EE``; '' for none."""
     if not mangled:
@@ -4233,7 +4359,7 @@ def _sass_hmma(lib_path) -> dict:
                           text=True, timeout=300).stdout
     out = {}
     for part in sass.split("Function : ")[1:]:
-        entry = re.search(r"\d+((?:tower|fm)_\w+?_kernel)(I(?:L[ib]\d+E)+E)?",
+        entry = re.search(r"\d+((?:tower|fm|dense)_\w+?_kernel)(I(?:L[ib]\d+E)+E)?",
                           part.split()[0])
         if not entry:
             continue
@@ -4249,14 +4375,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port's paths on one GPU.")
     ap.add_argument("--phases", help="run phases 1-3 (device, build, the tower "
                     "forward) and then only these phases (a comma list of 3, 6, 7, "
-                    "25, 26, 27), and print no report")
+                    "25, 26, 27, 28), and print no report")
     args = ap.parse_args(argv)
     phases = None
     if args.phases:
         phases = {int(p) for p in args.phases.split(",")}
-        if not phases <= {3, 6, 7, 25, 26, 27}:
-            ap.error(f"--phases {args.phases}: the phases alone are 3, 6, 7, 25, 26 "
-                     f"and 27")
+        if not phases <= {3, 6, 7, 25, 26, 27, 28}:
+            ap.error(f"--phases {args.phases}: the phases alone are 3, 6, 7, 25, 26, "
+                     f"27 and 28")
 
     import torch
 
@@ -4297,7 +4423,7 @@ def main(argv=None) -> int:
         for line in f:
             if line.startswith("== "):   # the next source's log
                 name = line[3:].strip()
-            entry = re.search(r"entry function '.*?\d+((?:tower|fm)_\w+?_kernel)"
+            entry = re.search(r"entry function '.*?\d+((?:tower|fm|dense)_\w+?_kernel)"
                               r"(I(?:L[ib]\d+E)+E)?", line)
             if entry:
                 name = entry.group(1) + _template_args(entry.group(2))
@@ -4324,7 +4450,8 @@ def main(argv=None) -> int:
     for kernel, (count, example) in sorted(hmma.items()):
         print(f"  cuobjdump -sass, {kernel}: {count} tensor-core instructions"
               + (f" (e.g. {example})" if example else ""))
-    for kernel in ("tower_fwd_kernel", "tower_bwd_rows_kernel", "tower_wgrad_kernel"):
+    for kernel in ("tower_fwd_kernel", "tower_bwd_rows_kernel", "tower_wgrad_kernel",
+                   "dense_bwd_kernel"):
         if not any(k.startswith(kernel) and c for k, (c, _) in hmma.items()):
             raise AssertionError(f"{kernel}: no tensor-core instructions in its SASS")
     # the FM scorer stays in full f32 on the CUDA cores
@@ -4338,7 +4465,8 @@ def main(argv=None) -> int:
         for phase in sorted(phases - {3}):
             {6: _phase6_training_kernels, 7: _phase7_fm_kernel,
              25: _phase25_tracing, 26: _phase26_sparse_adagrad,
-             27: lambda dev, rng: _phase27_dlrm(dev, root)}[phase](dev, rng)
+             27: lambda dev, rng: _phase27_dlrm(dev, root),
+             28: _phase28_dense_bwd}[phase](dev, rng)
         print(f"chip_smoke: phases 1-3 and {sorted(phases - {3})} only (--phases): "
               f"no report")
         return 0
@@ -4477,6 +4605,7 @@ def main(argv=None) -> int:
     _phase25_tracing(dev)
     sparse = _phase26_sparse_adagrad(dev)
     dlrm = _phase27_dlrm(dev, root)
+    dense_bwd = _phase28_dense_bwd(dev)
 
     work = _tower_work(BATCH, fnn_dims)
     criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))
@@ -4591,6 +4720,18 @@ def main(argv=None) -> int:
         "plain_ms_f32": sparse["plain_ms_f32"],
         "bound_ms_f32": sparse["bound_ms_f32"],
         "rows_touched": sparse["touched"][0],
+    }, {
+        "name": "dense_bwd_product",
+        "route": "cuda",
+        "source": "deepctr_torch/csrc/dense_bwd.cu",
+        "replaces": None,
+        "launches_replay": dense_bwd["launches_replay"],
+        "library_replay": dense_bwd["library_replay"],
+        "worst_err_ratio": dense_bwd["worst_err_ratio"],
+        "ms_step": dense_bwd["ms_step"],
+        "bound_3xtf32_ms_step": dense_bwd["bound_ms_step"],
+        "library_ms_step": dense_bwd["cublas_ms_step"],
+        "products": dense_bwd["products"],
     }]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

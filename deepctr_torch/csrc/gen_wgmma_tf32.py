@@ -1,4 +1,4 @@
-"""Writes wgmma_tf32.cuh: one wrapper per width N = 8, 16, ..., 64 of
+"""Writes wgmma_tf32.cuh: one wrapper per width N = 8, 16, ..., 128 of
 
     wgmma.mma_async.sync.aligned.m64nNk8.f32.tf32.tf32
 
@@ -11,7 +11,7 @@ registers of a thread, so each width is its own asm statement.
 
 import os
 
-MAX_NT = 8  # n8 tiles: N up to 64
+MAX_NT = 16  # n8 tiles: N up to 128 (the towers use up to 64, dense_bwd.cu 128)
 
 HEAD = """\
 // Generated by gen_wgmma_tf32.py; do not edit.

@@ -10,6 +10,11 @@ Function that turns TF32 off for its forward and its backward
 compute in the precision the model states. On the CPU the same code runs on
 PyTorch's CPU kernels.
 
+The backward's two products on the card go to ``kernels/dense.py``: a
+hand-written 3xTF32 kernel for the shapes it takes (M and N multiples of
+128, K of 32; at DLRM's widths 24 of a step's 27 products), cuBLAS in
+float32 for the rest. The forward stays on cuBLAS in float32.
+
 - :func:`linear`: ``x @ w + b``, with ``w`` ``[in, out]`` as the port's
   layers keep it, and an optional fused ReLU.
 - :func:`mlp`: a stack of them, ReLU on every layer or on all but the last.
@@ -23,6 +28,8 @@ import contextlib
 from typing import Sequence
 
 import torch
+
+from .kernels import dense
 
 
 @contextlib.contextmanager
@@ -56,8 +63,8 @@ class _Linear(torch.autograd.Function):
         if ctx.relu:
             g = g * (y > 0).to(g.dtype)
         with f32_products():
-            gx = g @ w.t() if ctx.needs_input_grad[0] else None
-            gw = x.t() @ g if ctx.needs_input_grad[1] else None
+            gx = dense.input_grad(g, w) if ctx.needs_input_grad[0] else None
+            gw = dense.weight_grad(x, g) if ctx.needs_input_grad[1] else None
         gb = g.sum(0) if ctx.has_bias and ctx.needs_input_grad[2] else None
         return gx, gw, gb, None
 
