@@ -223,13 +223,7 @@ Phases, each printing its own lines:
     capture stream, so the suite's captures add no workspace); the
     seconds, launches, captures, both readings and the workspace bytes the
     clearing frees printed.
-20. the benchmark entry points: ``python3 bench_torch.py`` (the
-    counterpart of ``bench.py``: FNN at full iPinYou width, batch 8192,
-    bf16 table, the scan route's graph, 5 repeats of 5 replays, against
-    the NumPy oracle measured in the run) in a subprocess: its last line's
-    keys, its ``device`` equal to phase 1's card line, ``vs_baseline``
-    above 1, and the tower launches of one repeat (8 forward with dropout
-    and 8 backward a replay); then ``python -m
+20. the benchmark suite: ``python -m
     deepctr_torch.tools.bench_suite --sections parser,models,lookup,serving``
     in a subprocess, in a temporary directory (the checkout's
     ``BENCH_TORCH.*`` stay as they are): its ``BENCH_TORCH.json``, each
@@ -3284,7 +3278,6 @@ def _phase19_reproduce(dev, tmp) -> dict:
     return {"launches": launches, "seconds": seconds, "fnn": fnn}
 
 
-BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "protocol", "sigma", "device"}
 BENCH_SECTIONS = "parser,models,lookup,serving"
 # the suite's launches a replay of SCAN_K steps, by model: the tower's forward
 # with dropout and its backward once a step where there is a tower (dropout
@@ -3314,34 +3307,9 @@ def _run_tool(argv, cwd, root, tag) -> list:
     return lines
 
 
-def _phase20_bench(root, tmp, card) -> dict:
-    """``bench_torch.py`` and ``deepctr_torch.tools.bench_suite`` on the card,
-    each in a subprocess (``bench_torch.py`` imports the NumPy oracle of
-    ``deepctr_tpu.reference_impl``, which this script must not): the
-    headline's last line, its card and baseline, its launches; the suite's
-    rates, launches and peak memory by section."""
-    lines = _run_tool([os.path.join(root, "bench_torch.py")], root, root, "bench_torch")
-    line = json.loads(lines[-1])
-    if set(line) != BENCH_KEYS or line["metric"] != "fnn_train_examples_per_s_per_gpu":
-        raise AssertionError(f"bench_torch: last line {line}")
-    if line["device"] != card:
-        raise AssertionError(f"bench_torch: device {line['device']!r}, phase 1 read {card!r}")
-    if not (np.isfinite(line["value"]) and line["value"] > 0 and line["vs_baseline"] > 1):
-        raise AssertionError(f"bench_torch: value {line['value']}, vs_baseline "
-                             f"{line['vs_baseline']} (must be above 1)")
-    got = [re.search(r"launches over one repeat of (\d+) replays: forward (\d+), with "
-                     r"dropout (\d+), backward (\d+)", x) for x in lines]
-    got = [m for m in got if m]
-    if len(got) != 1:
-        raise AssertionError("bench_torch: no launch line")
-    replays, fwd, drop, bwd = (int(v) for v in got[0].groups())
-    if (fwd, drop, bwd) != (SCAN_K * replays,) * 3:
-        raise AssertionError(f"bench_torch: launches {fwd}, {drop}, {bwd} over {replays} "
-                             f"replays; predicted {SCAN_K} each a replay")
-    print(f"bench_torch: {line['value']} examples/s, sigma {line['sigma']}, vs_baseline "
-          f"{line['vs_baseline']} on {line['device']}; launches over one repeat of "
-          f"{replays} replays {fwd} / {drop} / {bwd}, as predicted")
-
+def _phase20_bench(root, tmp, card) -> None:
+    """``deepctr_torch.tools.bench_suite`` on the card, in a subprocess: the
+    suite's rates, launches and peak memory by section."""
     suite_dir = os.path.join(tmp, "bench_suite")
     os.makedirs(suite_dir)
     _run_tool(["-m", "deepctr_torch.tools.bench_suite", "--sections", BENCH_SECTIONS],
@@ -3372,7 +3340,6 @@ def _phase20_bench(root, tmp, card) -> dict:
     print("bench_suite: examples/s " + ", ".join(
         f"{m} {results[f'train_examples_per_s/{m}']:,.0f}" for m in BENCH_MODEL_LAUNCHES)
         + "; launches a replay as predicted; one tower forward a scored batch")
-    return {"launches": {"fwd_dropout": drop, "bwd": bwd}, "line": line}
 
 
 # phase 21 (a): the executed-bytes cases in a world of one NCCL rank, as
@@ -4392,7 +4359,6 @@ def main(argv=None) -> int:
     if not os.path.isdir(os.path.join(root, "deepctr_torch", "csrc")):
         _fail("deepctr_torch/csrc not found beside chip_smoke.py: run it "
               "from the root of a checkout of the repository")
-    sys.path.insert(0, root)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain version in full f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -4596,7 +4562,7 @@ def main(argv=None) -> int:
         _phase17_scan(dev, root, tmp, schema, schema_path)
         sharded_scan = _phase18_sharded_scan(dev, root, tmp, schema_path)
         reproduced = _phase19_reproduce(dev, tmp)
-        bench = _phase20_bench(root, tmp, card)
+        _phase20_bench(root, tmp, card)
         substrate = _phase21_scaling_and_substrate(dev)
     capacity = _phase22_capacity(dev)
     parity = _phase23_parity(dev)
@@ -4645,7 +4611,6 @@ def main(argv=None) -> int:
         "launches_criteo": sharded["criteo_launches"]["fwd_dropout"],
         "launches_distributed": distributed["launches"]["fwd_dropout"],
         "launches_sharded_scan": sharded_scan["criteo_launches"]["fwd_dropout"],
-        "launches_bench": bench["launches"]["fwd_dropout"],
         "launches_substrate": substrate["launches"]["fwd_dropout"],
         "launches_capacity": capacity["launches"]["fwd_dropout"],
         "launches_parity": parity["launches"]["fwd_dropout"],
@@ -4669,7 +4634,6 @@ def main(argv=None) -> int:
         "launches_distributed": distributed["launches"]["bwd"],
         "launches_sharded_scan": sharded_scan["criteo_launches"]["bwd"],
         "launches_reproduce": reproduced["launches"]["bwd"],
-        "launches_bench": bench["launches"]["bwd"],
         "launches_substrate": substrate["launches"]["bwd"],
         "launches_capacity": capacity["launches"]["bwd"],
         "launches_parity": parity["launches"]["bwd"],

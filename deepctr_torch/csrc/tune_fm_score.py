@@ -4,7 +4,7 @@ GPU.
 
 Run from the root of a checkout, on a machine with a card and ``nvcc``::
 
-    python3 deepctr_torch/csrc/tune_fm_score.py \\
+    PYTHONPATH=. python3 deepctr_torch/csrc/tune_fm_score.py \\
         --variant base: --variant s2:FM_STAGES=2 \\
         --variant wide:FM_STAGE_KB=32,FM_BLOCKS_PER_SM=1 \\
         [--source name=path/to/another/fm_score.cu] [--out results.json]
@@ -37,7 +37,6 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, ROOT)
 
 CHECK_SHAPES = [(8192, 18, 11), (65536, 18, 11), (1000, 18, 11), (77, 5, 4),
                 (8192, 39, 17), (16, 18, 11), (8197, 18, 11), (300, 100, 65),

@@ -8,6 +8,10 @@ is the JAX package's, in PyTorch form: a model holds the embedding
     rows   = model.table[ids]                  # [B, S, D]
     logits = model.apply_rows(rows, mask)      # [B]
 
+DLRM-DCNv2 takes dense (continuous) features, ``apply_rows(rows, mask,
+dense=[B, n])``, and raises without them; every other model raises when
+given them (:func:`refuse_dense`), so a step passes ``dense`` on as it comes.
+
 Parameters keep the JAX layout (``w`` is ``[in, out]``), and a module's
 ``state_dict`` keys mirror the JAX parameter pytree (``mlp.layers.0.w`` is
 ``dense["mlp"]["layers"][0]["w"]``), so ``utils/checkpoint.py`` converts one
@@ -125,6 +129,12 @@ def init_mlp(tower: MlpTower, generator: torch.Generator) -> None:
                           device=generator.device, dtype=torch.float32)
         layer.w.copy_(draw * (2 * limit) - limit)
         layer.b.zero_()
+
+
+def refuse_dense(model: nn.Module, dense: torch.Tensor | None) -> None:
+    """Raise unless ``dense`` is None: ``model`` takes ids alone."""
+    if dense is not None:
+        raise ValueError(f"{type(model).__name__} takes no dense features")
 
 
 def apply_model(model: nn.Module, ids: torch.Tensor, pad_id: int) -> torch.Tensor:

@@ -20,7 +20,8 @@ from torch import nn
 
 from ..ops.kernels.interaction import fm_score
 from ..data import Schema
-from .base import MlpSpec, MlpTower, init_mlp, init_table, pool_fields, slot_onehot
+from .base import (MlpSpec, MlpTower, init_mlp, init_table, pool_fields, refuse_dense,
+                   slot_onehot)
 
 _DEFAULT_MLP = MlpSpec(hidden=(200, 200), activation="relu", dropout=0.5)
 
@@ -52,8 +53,10 @@ class DeepFMModel(nn.Module):
         self.bias.zero_()
 
     def apply_rows(self, rows: torch.Tensor, mask: torch.Tensor, *,
-                   train: bool = False, seed: int | None = None) -> torch.Tensor:
+                   dense: torch.Tensor | None = None, train: bool = False,
+                   seed: int | None = None) -> torch.Tensor:
         """rows ``[B, S, 1+k]``, mask ``[B, S]`` -> logits ``[B]``."""
+        refuse_dense(self, dense)
         pooled = pool_fields(rows, mask, self.slot_onehot)
         flat = pooled.reshape(pooled.shape[0], -1).contiguous()
         deep = self.mlp(flat, train=train, seed=seed)

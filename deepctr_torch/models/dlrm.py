@@ -113,10 +113,12 @@ class DLRMModel(nn.Module):
             layer.b.zero_()
 
     def apply_rows(self, rows: torch.Tensor, mask: torch.Tensor, *,
-                   dense: torch.Tensor, train: bool = False,
+                   dense: torch.Tensor | None = None, train: bool = False,
                    seed: int | torch.Tensor | None = None) -> torch.Tensor:
         """rows ``[B, S, D]``, mask ``[B, S]``, dense ``[B, num_dense]``
-        (counts, >= 0) -> logits ``[B]``."""
+        (counts, >= 0) -> logits ``[B]``; raises without ``dense``."""
+        if dense is None:
+            raise ValueError("DLRMModel takes dense features: dense=[B, num_dense]")
         del train, seed   # no dropout
         pooled = pool_slots(rows, mask, self.slot_onehot)
         prof.phase("pool")

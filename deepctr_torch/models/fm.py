@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from ..ops.kernels.interaction import fm_score
-from .base import init_table
+from .base import init_table, refuse_dense
 
 
 class FMModel(nn.Module):
@@ -37,8 +37,10 @@ class FMModel(nn.Module):
         self.bias.zero_()
 
     def apply_rows(self, rows: torch.Tensor, mask: torch.Tensor, *,
-                   train: bool = False, seed: int | None = None) -> torch.Tensor:
+                   dense: torch.Tensor | None = None, train: bool = False,
+                   seed: int | None = None) -> torch.Tensor:
         """rows ``[B, S, 1+k]``, mask ``[B, S]`` -> logits ``[B]``."""
+        refuse_dense(self, dense)
         del train, seed
         return fm_score(rows, mask) + self.bias
 

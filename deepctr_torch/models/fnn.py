@@ -19,7 +19,8 @@ import torch
 from torch import nn
 
 from ..data import Schema
-from .base import MlpSpec, MlpTower, init_mlp, init_table, pool_fields, slot_onehot
+from .base import (MlpSpec, MlpTower, init_mlp, init_table, pool_fields, refuse_dense,
+                   slot_onehot)
 
 _DEFAULT_MLP = MlpSpec(hidden=(200, 300, 100), activation="tanh", dropout=0.5)
 
@@ -53,10 +54,12 @@ class FNNModel(nn.Module):
         init_mlp(self.mlp, generator)
 
     def apply_rows(self, rows: torch.Tensor, mask: torch.Tensor, *,
-                   train: bool = False, seed: int | None = None) -> torch.Tensor:
+                   dense: torch.Tensor | None = None, train: bool = False,
+                   seed: int | None = None) -> torch.Tensor:
         """rows ``[B, S, 1+k]``, mask ``[B, S]`` -> logits ``[B]``; the tower
         drops with the counter-hash mask of ``seed`` in train mode
         (:meth:`MlpTower.forward`)."""
+        refuse_dense(self, dense)
         return self.mlp(self.tower_input(rows, mask), train=train, seed=seed)
 
     forward = apply_rows

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .base import refuse_dense
+
 
 class LRModel(nn.Module):
     name = "lr"
@@ -28,8 +30,10 @@ class LRModel(nn.Module):
         self.bias.zero_()
 
     def apply_rows(self, rows: torch.Tensor, mask: torch.Tensor, *,
-                   train: bool = False, seed: int | None = None) -> torch.Tensor:
+                   dense: torch.Tensor | None = None, train: bool = False,
+                   seed: int | None = None) -> torch.Tensor:
         """rows ``[B, S, 1]``, mask ``[B, S]`` -> logits ``[B]``."""
+        refuse_dense(self, dense)
         del train, seed
         return (rows[..., 0] * mask).sum(dim=1) + self.bias
 

@@ -22,7 +22,8 @@ import torch
 from torch import nn
 
 from ..data import Schema
-from .base import MlpSpec, MlpTower, init_mlp, init_table, pool_fields, slot_onehot
+from .base import (MlpSpec, MlpTower, init_mlp, init_table, pool_fields, refuse_dense,
+                   slot_onehot)
 
 _DEFAULT_MLP = MlpSpec(hidden=(200, 200), activation="relu", dropout=0.5)
 PRODUCTS = ("inner", "outer")
@@ -70,8 +71,10 @@ class PNNModel(nn.Module):
         return torch.cat([flat, prods], dim=1)
 
     def apply_rows(self, rows: torch.Tensor, mask: torch.Tensor, *,
-                   train: bool = False, seed: int | None = None) -> torch.Tensor:
+                   dense: torch.Tensor | None = None, train: bool = False,
+                   seed: int | None = None) -> torch.Tensor:
         """rows ``[B, S, D]``, mask ``[B, S]`` -> logits ``[B]``."""
+        refuse_dense(self, dense)
         return self.mlp(self.tower_input(rows, mask), train=train, seed=seed)
 
     forward = apply_rows

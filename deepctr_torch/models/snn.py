@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from ..data import Schema
-from .base import MlpSpec, MlpTower, init_mlp, init_table
+from .base import MlpSpec, MlpTower, init_mlp, init_table, refuse_dense
 
 _DEFAULT_MLP = MlpSpec(hidden=(300, 100), activation="tanh", dropout=0.5)
 
@@ -65,10 +65,12 @@ class SNNModel(nn.Module):
         return torch.sigmoid((rows * mask[..., None]).sum(dim=1) + self.b1)
 
     def apply_rows(self, rows: torch.Tensor, mask: torch.Tensor, *,
-                   train: bool = False, seed: int | None = None) -> torch.Tensor:
+                   dense: torch.Tensor | None = None, train: bool = False,
+                   seed: int | None = None) -> torch.Tensor:
         """rows ``[B, S, h1]``, mask ``[B, S]`` -> logits ``[B]``; the tower
         drops with the counter-hash mask of ``seed`` in train mode
         (:meth:`MlpTower.forward`)."""
+        refuse_dense(self, dense)
         return self.mlp(self.bottom(rows, mask), train=train, seed=seed)
 
     forward = apply_rows

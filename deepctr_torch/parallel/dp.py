@@ -33,16 +33,19 @@ def _all_gather(x: torch.Tensor, world: int) -> torch.Tensor:
 
 def make_dp_train_step(schema: Schema, sparse_opt, dense_opt, group: Group,
                        l2: float = 0.0):
-    """Build ``step(state, ids, labels, weights, lr_scale=1.0, seed=None)
-    -> (state, (loss, dropped))`` on a rank's local batch, with the state
-    replicated (:func:`replicate_state`). ``dropped`` is always 0: nothing
-    is bucketed. The dropout seed is drawn and mixed with the rank as in
-    the sharded step."""
+    """Build ``step(state, ids, labels, weights, lr_scale=1.0, seed=None,
+    dense=None) -> (state, (loss, dropped))`` on a rank's local batch, with
+    the state replicated (:func:`replicate_state`). ``dropped`` is always 0:
+    nothing is bucketed. The dropout seed is drawn and mixed with the rank
+    as in the sharded step. ``dense`` other than None raises: the step
+    takes no dense features."""
     pad_id = schema.pad_id
     n = group.world
 
     def step(state: TrainState, ids, labels, weights, lr_scale: float = 1.0,
-             seed: int | None = None):
+             seed: int | None = None, dense=None):
+        if dense is not None:
+            raise ValueError("the data-parallel step takes no dense features")
         model = state.model
         device = model.table.device
         drawn = int(torch.randint(0, SEED_LIMIT, (), generator=state.generator))

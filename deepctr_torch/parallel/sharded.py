@@ -377,10 +377,10 @@ class ShardedScanMetrics(NamedTuple):
 def _sharded_step_body(schema: Schema, sparse_opt, dense_opt, group: Group,
                        l2: float, capacity_factor: float, exchange_dtype: str,
                        check_finite: bool):
-    """``body(state, ids, labels, weights, lr_scale, seed) -> (loss_total,
-    dropped)``: one sharded train step on a rank's local batch already on
-    the device (ids int64), updating this rank's shard, the replicated
-    dense parameters and both optimizers' states in place; the sharded
+    """``body(state, ids, labels, weights, lr_scale, seed, dense=None) ->
+    (loss_total, dropped)``: one sharded train step on a rank's local batch
+    already on the device (ids int64), updating this rank's shard, the
+    replicated dense parameters and both optimizers' states in place; the sharded
     counterpart of ``train/step.py::_step_body``. ``seed`` is an int or a
     0-d int32 device tensor, the rank already mixed in (:func:`rank_seed`);
     drawing it and ``state.step`` are the caller's. The per-step route and
@@ -391,13 +391,17 @@ def _sharded_step_body(schema: Schema, sparse_opt, dense_opt, group: Group,
     weight all-reduce, the owner buckets and ``exchange_lookup``), ``tower``
     (forward, the loss's all-reduce, backward), ``dense`` (the dense
     all-reduce and update), ``grads`` (``exchange_scatter_grads``) and
-    ``sparse`` (the update and the dropped count's all-reduce)."""
+    ``sparse`` (the update and the dropped count's all-reduce). It takes no
+    dense features: ``dense`` other than None raises before any
+    collective."""
     n = group.world
     pad_id = schema.pad_id
     sentinel = shard_rows(schema.padded_vocab_size, n)
     wire = _wire(exchange_dtype)
 
-    def body(state: ShardedTrainState, ids, labels, weights, lr_scale, seed):
+    def body(state: ShardedTrainState, ids, labels, weights, lr_scale, seed, dense=None):
+        if dense is not None:
+            raise ValueError("the sharded step takes no dense features")
         model = state.model
         b_loc, slots = ids.shape
         m = b_loc * slots
@@ -438,9 +442,9 @@ def make_sharded_train_step(schema: Schema, sparse_opt, dense_opt, group: Group,
                             l2: float = 0.0, capacity_factor: float = 2.0,
                             exchange_dtype: str = "f32",
                             check_finite: bool = False):
-    """Build ``step(state, ids, labels, weights, lr_scale=1.0, seed=None)
-    -> (state, ShardedStepMetrics(loss, dropped))`` on a rank's local
-    batch ``[b, S]``.
+    """Build ``step(state, ids, labels, weights, lr_scale=1.0, seed=None,
+    dense=None) -> (state, ShardedStepMetrics(loss, dropped))`` on a rank's
+    local batch ``[b, S]``; ``dense`` other than None raises.
 
     The reference's arithmetic: the BCE divides by the global weight sum
     and the lazy L2 by the global batch ``b·N``; the dense gradients are
@@ -462,10 +466,11 @@ def make_sharded_scan_train_step(schema: Schema, sparse_opt, dense_opt, group: G
                                  exchange_dtype: str = "f32",
                                  check_finite: bool = False):
     """Build ``scan_step(state, ids [K, b, S], labels [K, b], weights [K, b],
-    lr_scale=1.0, seeds=None) -> (state, ShardedScanMetrics(losses [K],
-    dropped [K]))``: K sharded train steps on a rank's local chunk, the
-    reference's ``make_sharded_scan_train_step``. ``seeds`` (K ints)
-    replaces the drawn dropout seeds before the rank is mixed in; the K
+    lr_scale=1.0, seeds=None, dense=None) -> (state, ShardedScanMetrics(losses
+    [K], dropped [K]))``: K sharded train steps on a rank's local chunk, the
+    reference's ``make_sharded_scan_train_step``; ``dense`` other than None
+    raises. ``seeds`` (K ints) replaces the drawn dropout seeds before the
+    rank is mixed in; the K
     draws are taken all the same, so the generator advances by K on every
     rank.
 
@@ -496,8 +501,8 @@ def make_sharded_scan_train_step(schema: Schema, sparse_opt, dense_opt, group: G
                       seed_map=lambda seed: rank_seed(seed, group.rank), dropped=True)
 
     def scan_step(state: ShardedTrainState, ids, labels, weights,
-                  lr_scale: float = 1.0, seeds=None):
-        state, losses, dropped = run(state, ids, labels, weights, lr_scale, seeds)
+                  lr_scale: float = 1.0, seeds=None, dense=None):
+        state, losses, dropped = run(state, ids, labels, weights, lr_scale, seeds, dense)
         return state, ShardedScanMetrics(losses, dropped)
 
     scan_step.graph = run.graph

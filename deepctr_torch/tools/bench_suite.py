@@ -4,10 +4,10 @@ The counterpart of ``tools/bench_suite.py`` (which writes ``BENCH.md`` for the
 JAX package), with its section names, its ``--sections`` default and its
 result keys wherever they mean the same thing. Every number comes from the
 port's modules on ``--device`` (the card unless ``--device cpu``; ``cuda``
-without a card raises), and the headline configuration from ``bench_torch.py``
-at the root of the checkout (:func:`bench_torch.build`), which the
-``full*``, ``headline``, ``dispatch``, ``streamtrain`` and ``servingquality``
-sections reuse.
+without a card raises). The headline configuration is ``bench.py``'s, built
+here (:func:`build`, staged by :func:`stage`, timed by :func:`measure`); the
+``full*``, ``batch*``, ``streamtrain`` and ``servingquality`` sections and
+``step_breakdown.py`` reuse it.
 
 Sections (``--sections``, a comma list; results accumulate in
 ``BENCH_TORCH.json`` of the working directory across invocations):
@@ -19,18 +19,16 @@ Sections (``--sections``, a comma list; results accumulate in
   criteostream  the same over 8 Criteo TSV shards of 100,000 rows (host)
   models        LR, FM, FNN and DeepFM on ``ipinyou_like_schema()``, batch 8192,
                 the scan route's graph of 8 steps
-  full, batch, fullbf16, batchbf16, batchbf16med
-                the headline FNN on ``ipinyou_full_schema()`` at batch 8192,
-                16384 and 32768, f32 and bf16 tables (``batchbf16med``: the
-                median of 5 at 32768, bf16)
+  full, batch, batchbf16, batchbf16med
+                the headline FNN on ``ipinyou_full_schema()`` at batch 8192
+                (f32 table), 16384 and 32768 (f32 and bf16 tables;
+                ``batchbf16med``: the median of 5 at 32768, bf16)
   lookup        the step's row gather, chained, and ``scatter_add_dedup``
   serving       ``Scorer`` with f32, bf16 and int8 tables, batch 8192
   servingquality  the three scorers' AUC after 2 epochs of the headline FNN
   streamtrain   ``train/loop.py::fit`` on the npz shards' ``scan_chunks`` with
                 the device prefetcher, headline configuration
   h2d           ``DevicePrefetcher``'s copies of ``[8, 8192, 18]`` chunks
-  dispatch      8 replays of the headline graph on pre-staged inputs
-  headline      5 interleaved repeats of the headline, f32 and bf16 tables
 
 Timing protocol: device times from CUDA events around many calls after a
 warm-up, with a sleep kernel holding the stream while the host enqueues
@@ -49,10 +47,15 @@ Not ported, and why:
 - ``models``' pairs of a jnp path and a Pallas path (``fm``/``fm_pallas``,
   ``fnn``/``fnn_pallas``): the port's device picks its path, so the card has
   one, the hand-written kernels, under the keys ``fm`` and ``fnn``;
-- the ``_bf16scratch`` variants of ``fullbf16``, ``batchbf16`` and
-  ``headline`` (``SparseAdagrad.scratch_dtype``): declared not to port, its
-  measured win was noise (``BENCH.md``, round 4). ``batchbf16`` runs the bf16
-  table alone; ``headline``'s verdict compares the f32 and bf16 tables;
+- ``fullbf16`` and ``dispatch``, the headline at batch 8192 with its bf16
+  table and 8 replays of its graph on pre-staged chunks: the benchmark's
+  cell ``fnn_ipinyou.train`` measures that configuration and that traffic,
+  with a bound and a correctness check;
+- ``headline``, the f32 and bf16 tables in turns with a verdict:
+  ``step_breakdown.full_in_turns`` makes that comparison;
+- the ``_bf16scratch`` variants (``SparseAdagrad.scratch_dtype``): declared
+  not to port, its measured win was noise (``BENCH.md``, round 4);
+  ``batchbf16`` runs the bf16 table alone;
 - the split plan of ``ops/split_embed.py``, a TPU gather mechanism: the
   port gathers every slot, so ``lookup`` times one gather of all rows;
 - the hand-written roofline section that ``BENCH.md`` keeps across runs.
@@ -72,16 +75,15 @@ import dataclasses
 import gc
 import json
 import os
-import sys
 import tempfile
 import threading
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from ..utils.artifacts import REPO_ROOT, protocol_stamp
+from ..utils.artifacts import protocol_stamp
 
 TOOL = "deepctr_torch/tools/bench_suite.py"
 DEFAULT_SECTIONS = "parser,models,full,lookup,serving,stream"
@@ -90,16 +92,100 @@ SCAN_K = 8          # the configs' train.scan_steps
 REPEATS = 5         # the reference's median protocol
 CALLS, WARMUP = 50, 5   # timed calls of a device section, after the warm-up
 EPOCHS = 5          # timed stream epochs, after one that warms the page cache
+# the headline configuration, bench.py's
+BATCH = 8192
+K = 10
+HIDDEN = (200, 300, 100)
+DROPOUT = 0.5
+MEASURE_STEPS = 40
+SPARSE_LR, DENSE_LR = 0.05, 0.02
+TABLE_DTYPE = "bf16"
+DATA_SEED, INIT_SEED = 3, 0
 
 
-def _bench_torch():
-    """``bench_torch.py`` at the root of the checkout: the headline's
-    builder and timing."""
-    if REPO_ROOT not in sys.path:
-        sys.path.insert(0, REPO_ROOT)
-    import bench_torch
+class Headline(NamedTuple):
+    """The headline configuration, built: its state and its scan step."""
 
-    return bench_torch
+    state: object            # train.step.TrainState
+    scan_step: Callable      # make_scan_train_step: a CUDA graph of K steps
+    sparse_opt: object
+    dense_opt: object
+
+
+def build(schema, device, *, table_dtype: str = TABLE_DTYPE, k: int = K,
+          hidden: tuple = HIDDEN, dropout: float = DROPOUT,
+          seed: int = INIT_SEED) -> Headline:
+    """``bench.py``'s model, optimizers and state on ``device``: FNN with a
+    tanh tower and dropout, ``SparseAdagrad(0.05)`` on the table, Adagrad
+    0.02 on the tower, initialised from ``seed``."""
+    from ..models import MlpSpec, make_fnn
+    from ..optim import SparseAdagrad, make_dense_optimizer
+    from ..train import init_state, make_scan_train_step
+
+    model = make_fnn(schema, k=k, mlp=MlpSpec(hidden=hidden, activation="tanh",
+                                              dropout=dropout), device=device)
+    sopt = SparseAdagrad(SPARSE_LR)
+    dopt = make_dense_optimizer("adagrad", DENSE_LR)
+    state = init_state(model, schema, sopt, dopt, seed=seed, table_dtype=table_dtype)
+    return Headline(state, make_scan_train_step(schema, sopt, dopt), sopt, dopt)
+
+
+def stage(ids: np.ndarray, labels: np.ndarray, batch: int, steps: int, device,
+          scan_k: int = SCAN_K) -> list:
+    """The first ``steps`` batches on ``device`` as chunks ``(ids [K, B, S]
+    int64, labels [K, B], weights [K, B])`` of ``scan_k`` steps."""
+    chunks, n = steps // scan_k, steps * batch
+    ids_t = torch.from_numpy(ids[:n]).to(device).long().reshape(chunks, scan_k, batch, -1)
+    y_t = torch.from_numpy(labels[:n]).to(device).reshape(chunks, scan_k, batch)
+    w_t = torch.ones(chunks, scan_k, batch, device=device)
+    return [(ids_t[c], y_t[c], w_t[c]) for c in range(chunks)]
+
+
+def time_pass(run: Callable, chunks: list, device) -> tuple[float, float | None]:
+    """``(wall s, device ms)`` of ``run(chunk)`` over ``chunks``: the host
+    clock around the calls and a ``synchronize()``, and CUDA events around
+    the same calls (None on the CPU)."""
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    for chunk in chunks:
+        run(chunk)
+    if cuda:
+        end.record()
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    return wall, start.elapsed_time(end) if cuda else None
+
+
+def measure(run: Callable, chunks: list, device, batch: int,
+            repeats: int = REPEATS) -> dict:
+    """``repeats`` timed passes of ``run`` over ``chunks`` after one untimed
+    pass over the first chunk (a graph's capture and first replay):
+    examples/s of each pass on the host clock, their median and standard
+    deviation, wall and device ms a step (medians), and the kernels'
+    launches over the last pass."""
+    from ..ops.kernels import count_difference, launch_counts, tower_launches
+
+    run(chunks[0])
+    steps = sum(c[0].shape[0] for c in chunks)
+    walls, devices = [], []
+    for _ in range(repeats):
+        before = launch_counts()
+        wall, device_ms = time_pass(run, chunks, device)
+        walls.append(wall)
+        devices.append(device_ms)
+    launches = tower_launches(count_difference(launch_counts(), before))
+    rates = [steps * batch / w for w in walls]
+    return {"rates": rates, "median": float(np.median(rates)),
+            "sigma": float(np.std(rates)),
+            "wall_ms": float(np.median(walls)) * 1e3 / steps,
+            "device_ms": (float(np.median(devices)) / steps
+                          if devices[0] is not None else None),
+            "launches": launches}
 
 
 @dataclasses.dataclass
@@ -308,11 +394,10 @@ def bench_models(b: Bench) -> None:
     from ..optim import SparseAdagrad, make_dense_optimizer
     from ..train import init_state, make_scan_train_step
 
-    bt = _bench_torch()
     schema = ipinyou_like_schema()
     batch = b.size(8192, 256)
     ds = synthetic.generate(schema, num_examples=2 * SCAN_K * batch, k=4, seed=3)
-    chunks = bt.stage(ds.ids, ds.labels, batch, 2 * SCAN_K, b.device)
+    chunks = stage(ds.ids, ds.labels, batch, 2 * SCAN_K, b.device)
     makers = {
         "lr": lambda: make_lr(schema, device=b.device),
         "fm": lambda: make_fm(schema, k=10, device=b.device),
@@ -324,7 +409,7 @@ def bench_models(b: Bench) -> None:
         sopt, dopt = SparseAdagrad(0.05), make_dense_optimizer("adagrad", 0.02)
         state = init_state(make(), schema, sopt, dopt, seed=0)
         scan = make_scan_train_step(schema, sopt, dopt)
-        out = bt.measure(lambda c: scan(state, *c), chunks, b.device, batch)
+        out = measure(lambda c: scan(state, *c), chunks, b.device, batch)
         launches = {n: c / len(chunks) for n, c in out["launches"].items()}
         b.results[f"train_examples_per_s/{name}"] = out["median"]
         b.results[f"device_ms_per_step/{name}"] = out["device_ms"]
@@ -345,13 +430,12 @@ def _fnn_full(b: Bench, key: str, batch: int, table_dtype: str, repeats: int) ->
     ``repeats`` timed passes of 2 replays (16 steps) after the capture."""
     from ..data import ipinyou_full_schema, synthetic
 
-    bt = _bench_torch()
     schema = ipinyou_full_schema()
     batch = b.size(batch, batch // 32)
     ds = synthetic.generate(schema, num_examples=2 * SCAN_K * batch, k=2, seed=5)
-    h = bt.build(schema, b.device, table_dtype=table_dtype)
-    chunks = bt.stage(ds.ids, ds.labels, batch, 2 * SCAN_K, b.device)
-    out = bt.measure(lambda c: h.scan_step(h.state, *c), chunks, b.device, batch,
+    h = build(schema, b.device, table_dtype=table_dtype)
+    chunks = stage(ds.ids, ds.labels, batch, 2 * SCAN_K, b.device)
+    out = measure(lambda c: h.scan_step(h.state, *c), chunks, b.device, batch,
                      repeats=repeats)
     table = h.state.table
     elem = table.element_size()
@@ -378,10 +462,6 @@ def bench_full(b: Bench) -> None:
 def bench_batch(b: Bench) -> None:
     for batch in (16384, 32768):
         _fnn_full(b, f"train_examples_per_s/fnn_full_vocab_b{batch}", batch, "f32", 1)
-
-
-def bench_full_bf16(b: Bench) -> None:
-    _fnn_full(b, "train_examples_per_s/fnn_full_vocab_bf16table", 8192, "bf16", 1)
 
 
 def bench_batch_bf16(b: Bench) -> None:
@@ -486,12 +566,11 @@ def bench_serving_quality(b: Bench) -> None:
     from ..train import fit
     from ..utils.metrics import exact_auc
 
-    bt = _bench_torch()
     schema = ipinyou_full_schema()
     n, n_test = b.size(600_000, 20_000), b.size(100_000, 4_000)
     ds = synthetic.generate(schema, num_examples=n, k=4, seed=21)
     tr, te = slice(0, n - n_test), slice(n - n_test, n)
-    h = bt.build(schema, b.device, table_dtype="f32")
+    h = build(schema, b.device, table_dtype="f32")
     res = fit(h.state.model, schema, ds.ids[tr], ds.labels[tr], ds.ids[te],
               ds.labels[te], sparse_opt=h.sparse_opt, dense_opt=h.dense_opt,
               batch_size=b.size(8192, 256), epochs=2, seed=0, early_stop_patience=99,
@@ -509,7 +588,7 @@ def bench_serving_quality(b: Bench) -> None:
         print(f"  delta {mode} = {delta:+.4f} (band 0.002)")
 
 
-# ---- the headline's sections ------------------------------------------------
+# ---- the input path's sections ---------------------------------------------
 
 
 def bench_stream_train(b: Bench) -> None:
@@ -517,7 +596,6 @@ def bench_stream_train(b: Bench) -> None:
     from ..data.cache import write_cache
     from ..train import fit
 
-    bt = _bench_torch()
     schema = ipinyou_full_schema()
     batch, per = b.size(8192, 256), b.size(131_072, 2_048)
     paths = []
@@ -526,7 +604,7 @@ def bench_stream_train(b: Bench) -> None:
         paths.append(os.path.join(b.tmp, f"streamtrain_{i}.npz"))
         write_cache(paths[-1], ds.ids, ds.labels, schema)
     test = synthetic.generate(schema, num_examples=b.size(16_384, 512), k=2, seed=99)
-    h = bt.build(schema, b.device)
+    h = build(schema, b.device)
     src = StreamSource(paths=paths, schema=schema, batch_size=batch, buffer_rows=1 << 18,
                        seed=0)
     res = fit(h.state.model, schema, None, None, test.ids, test.labels,
@@ -570,60 +648,10 @@ def bench_h2d(b: Bench) -> None:
           f"{b.results['h2d_examples_per_s_ceiling']:,.0f} examples/s")
 
 
-def bench_dispatch(b: Bench) -> None:
-    from ..data import ipinyou_full_schema, synthetic
-
-    bt = _bench_torch()
-    schema = ipinyou_full_schema()
-    batch, n = b.size(8192, 256), 8
-    ds = synthetic.generate(schema, num_examples=SCAN_K * batch, k=2, seed=5)
-    h = bt.build(schema, b.device)
-    chunk = bt.stage(ds.ids, ds.labels, batch, SCAN_K, b.device)[0]
-    h.scan_step(h.state, *chunk)   # the capture and its first replay
-    wall, _ = bt.time_pass(lambda c: h.scan_step(h.state, *c), [chunk] * n, b.device)
-    b.results["dispatch_wall_ms_per_scan8"] = wall / n * 1e3
-    b.results["train_inram_wall_examples_per_s"] = n * SCAN_K * batch / wall
-    print(f"pre-staged wall: {n} replays of {SCAN_K} steps in {wall * 1e3:.2f} ms -> "
-          f"{wall / n * 1e3:.3f} ms a replay, "
-          f"{b.results['train_inram_wall_examples_per_s']:,.0f} examples/s")
-
-
-def bench_headline(b: Bench) -> None:
-    from ..data import ipinyou_full_schema, synthetic
-
-    bt = _bench_torch()
-    schema = ipinyou_full_schema()
-    batch, steps = b.size(bt.BATCH, 256), b.size(bt.MEASURE_STEPS, 2 * SCAN_K)
-    ds = synthetic.generate(schema, num_examples=steps * batch, k=4, seed=bt.DATA_SEED)
-    chunks = bt.stage(ds.ids, ds.labels, batch, steps, b.device)
-    setups = {"f32": bt.build(schema, b.device, table_dtype="f32"),
-              "bf16table": bt.build(schema, b.device, table_dtype="bf16")}
-    runs = {name: (lambda c, h=h: h.scan_step(h.state, *c)) for name, h in setups.items()}
-    for run in runs.values():
-        run(chunks[0])   # the capture and its first replay
-    samples = {name: [] for name in setups}
-    for _ in range(REPEATS):   # interleaved in one process
-        for name, run in runs.items():
-            samples[name].append(steps * batch / bt.time_pass(run, chunks, b.device)[0])
-    for name, vals in samples.items():
-        med, sig = _median(vals)
-        b.results[f"headline_median/{name}"] = med
-        b.results[f"headline_sigma/{name}"] = sig
-        print(f"headline {name}: median {med:,.0f} examples/s, sigma {sig:,.0f} "
-              f"({', '.join(f'{v / 1e6:.3f}M' for v in sorted(vals))})")
-    f32, bf16 = b.results["headline_median/f32"], b.results["headline_median/bf16table"]
-    sig = max(b.results["headline_sigma/f32"], b.results["headline_sigma/bf16table"])
-    verdict = "f32" if f32 - bf16 > sig else "bf16table"
-    b.results["headline_production_config"] = verdict
-    print(f"table verdict: f32 - bf16 = {f32 - bf16:,.0f} against sigma {sig:,.0f} -> "
-          f"{verdict}")
-
-
 SECTIONS = {
     "parser": bench_parser,
     "models": bench_models,
     "full": bench_full,
-    "fullbf16": bench_full_bf16,
     "batch": bench_batch,
     "batchbf16": bench_batch_bf16,
     "batchbf16med": bench_batch_bf16_median,
@@ -635,8 +663,6 @@ SECTIONS = {
     "servingquality": bench_serving_quality,
     "streamtrain": bench_stream_train,
     "h2d": bench_h2d,
-    "dispatch": bench_dispatch,
-    "headline": bench_headline,
 }
 
 
@@ -659,7 +685,7 @@ def write_markdown(path: str, results: dict, where: str) -> None:
             "timed. Training runs the scan route, one CUDA graph of 8 steps a "
             "replay, through the hand-written tower and FM scorer kernels. "
             "`device_ms_per_step/*` is device time; `train_examples_per_s/*`, "
-            "`headline_*`, `peak_*` and `train_*_wall_*` are the host clock's; "
+            "`peak_*` and `train_stream_*` are the host clock's; "
             "`device_peak_mib/*` is `torch.cuda.max_memory_allocated` over a "
             "section. Host sections (`parser*`, `stream*`, `criteo_stream*`) time "
             "the host alone. Byte counts: the port's ids are int64 on the card, "

@@ -20,8 +20,7 @@ One tool where the reference has four; the counterpart of ``BENCH.md``'s
   :112-121) -> every part runs with both; ``--quality`` (:82-103) -> the
   AUC of each table dtype after 3 epochs and their difference.
 
-Configuration: ``bench_torch.py``'s (``bench.py``'s), built by its
-``build``: FNN k=10, a 200-300-100 tanh tower with dropout 0.5 on
+Configuration: ``bench.py``'s, built by ``bench_suite.build``: FNN k=10, a 200-300-100 tanh tower with dropout 0.5 on
 ``ipinyou_full_schema()`` (927,658 rows, 18 slots, tower input 176), batch
 8192, ``SparseAdagrad(0.05)`` in dense mode, Adagrad 0.02 on the tower, on
 ``synthetic.generate(k=2, seed=5)``, ``roofline_lab.py``'s data.
@@ -29,7 +28,7 @@ Configuration: ``bench_torch.py``'s (``bench.py``'s), built by its
 Protocol. Each variant is a body with ``train/step.py::_step_body``'s
 signature run through ``chunk_route``: on the card one CUDA graph of K = 8
 steps a replay, where the reference jits one ``lax.scan`` a variant. Wall
-and device ms a step are ``bench_torch.py::measure``'s medians of 5
+and device ms a step are ``bench_suite.measure``'s medians of 5
 repeats over 2 chunks after an untimed replay (the capture is never
 timed); ``full`` with each table dtype is also timed in turns, 5 passes
 each (:func:`full_in_turns`). Components run as the step runs them, each
@@ -81,6 +80,7 @@ import numpy as np
 import torch
 
 from ..utils.artifacts import protocol_stamp
+from . import bench_suite
 
 TOOL = "deepctr_torch/tools/step_breakdown.py"
 PARTS = ("variants", "components", "ops", "batch")
@@ -120,11 +120,12 @@ class GateError(AssertionError):
 
 
 def variant_body(name: str, schema, sparse_opt, dense_opt):
-    """``body(state, ids, labels, weights, lr_scale, seed) -> (loss, logits)``
-    of one variant, ``_step_body``'s signature, for FNN: ``full`` is
+    """``body(state, ids, labels, weights, lr_scale, seed, dense=None) ->
+    (loss, logits)`` of one variant, ``_step_body``'s signature, for FNN
+    (which refuses ``dense``): ``full`` is
     ``_step_body`` itself; the others repeat its gather, forward and loss
     and then take fewer of its stages."""
-    from ..models.base import lazy_l2, weighted_bce_with_logits
+    from ..models.base import lazy_l2, refuse_dense, weighted_bce_with_logits
     from ..ops.kernels.mlp import mlp_tower_plain
     from ..train.step import _step_body, dense_params
 
@@ -134,8 +135,9 @@ def variant_body(name: str, schema, sparse_opt, dense_opt):
         raise ValueError(f"unknown variant {name!r} ({', '.join(VARIANTS)})")
     pad_id = schema.pad_id
 
-    def body(state, ids, labels, weights, lr_scale, seed):
+    def body(state, ids, labels, weights, lr_scale, seed, dense=None):
         model = state.model
+        refuse_dense(model, dense)
         mask = (ids != pad_id).float()
         rows = model.table.detach()[ids].float()
         if name == "fwd_only":
@@ -235,9 +237,6 @@ def run_variants(h, schema, chunks, device) -> dict:
     passes; the state is put back before each. ``full``'s gate chunk is
     also held against ``h.scan_step`` (``make_scan_train_step``) from the
     same state. Returns ``{variant: record}``."""
-    from .bench_suite import _bench_torch
-
-    bt = _bench_torch()
     cuda = device.type == "cuda"
     batch = chunks[0][0].shape[1]
     state, seeds = h.state, gate_seeds()
@@ -254,8 +253,8 @@ def run_variants(h, schema, chunks, device) -> dict:
         if name == "full":
             rec["equals_scan_step"] = (_same_bits(losses, want_losses)
                                        and all(kept_parts(state, want).values()))
-        measured = bt.measure(lambda c, route=route: route(state, *c), chunks, device,
-                              batch)
+        measured = bench_suite.measure(lambda c, route=route: route(state, *c), chunks,
+                                       device, batch)
         replays = len(chunks)
         last = measured["launches"]
         rec["launches"] = {"fwd_dropout": last["fwd_dropout"] // replays,
@@ -493,11 +492,10 @@ def run_components(h, ids: torch.Tensor, seed: int) -> tuple[dict, dict]:
     """Each component's time, bytes, FLOP, bound and share at the step's
     shapes; and, on the card, the names of the device ops each launches
     (for the op table's attribution)."""
-    from .bench_suite import Bench
 
     device = h.state.table.device
     cuda = device.type == "cuda"
-    bench = Bench(device, small=False, tmp="", results={})
+    bench = bench_suite.Bench(device, small=False, tmp="", results={})
     calls = component_calls(h, ids, seed)
     spec = h.state.model.mlp.spec
     dims = (h.state.model.mlp.layers[0].w.shape[0], *spec.hidden, 1)
@@ -609,17 +607,14 @@ def batch_scaling(h, schema, ds, batches, components, device) -> list:
     """``full`` (the state's table dtype) at each batch, against the
     component model: the per-row terms (``PER_ROW``) scale with the batch,
     the rest of the first batch's step is fixed."""
-    from .bench_suite import _bench_torch
-
-    bt = _bench_torch()
     cuda = device.type == "cuda"
     rows = []
     init = h.state.clone()
     for batch in batches:
-        chunks = bt.stage(ds.ids, ds.labels, batch, CHUNKS * SCAN_K, device)
+        chunks = bench_suite.stage(ds.ids, ds.labels, batch, CHUNKS * SCAN_K, device)
         route = variant_route("full", schema, h.sparse_opt, h.dense_opt)
-        measured = bt.measure(lambda c, route=route: route(h.state, *c), chunks, device,
-                              batch)
+        measured = bench_suite.measure(lambda c, route=route: route(h.state, *c), chunks,
+                                       device, batch)
         restore(h.state, init)
         route.graph.clear()
         rows.append({"batch": batch, "device_ms": measured["device_ms"],
@@ -642,9 +637,6 @@ def full_in_turns(heads: dict, schema, chunks, device) -> dict | None:
     is the comparison that can tell a difference from drift."""
     if device.type != "cuda":
         return None
-    from .bench_suite import REPEATS, _bench_torch
-
-    bt = _bench_torch()
     steps = sum(c[0].shape[0] for c in chunks)
     inits = {d: h.state.clone() for d, h in heads.items()}
     routes = {d: variant_route("full", schema, h.sparse_opt, h.dense_opt)
@@ -654,10 +646,10 @@ def full_in_turns(heads: dict, schema, chunks, device) -> dict | None:
         for d, h in heads.items():
             routes[d](h.state, *chunks[0])   # the capture and a replay
         order = list(heads)
-        for r in range(REPEATS):
+        for r in range(bench_suite.REPEATS):
             for d in order if r % 2 == 0 else order[::-1]:
-                _, ms = bt.time_pass(lambda c, d=d: routes[d](heads[d].state, *c),
-                                     chunks, device)
+                _, ms = bench_suite.time_pass(
+                    lambda c, d=d: routes[d](heads[d].state, *c), chunks, device)
                 samples[d].append(ms / steps)
     finally:
         for d, h in heads.items():
@@ -714,7 +706,7 @@ def report_lines(res: dict) -> list[str]:
              f"Configuration: {res['config']}.", "",
              "Protocol: each variant is one CUDA graph of 8 steps a replay "
              "(`train/step.py::chunk_route`); wall and device ms a step are "
-             "`bench_torch.py::measure`'s medians of 5 repeats of 2 replays after an "
+             "`bench_suite.measure`'s medians of 5 repeats of 2 replays after an "
              "untimed one (the capture is never timed), device ms from CUDA events; "
              "`full` of each table dtype also in turns, 5 passes each. Components: "
              "each call a CUDA graph replay, as in the step, CUDA events around 50 "
@@ -932,7 +924,6 @@ def main(argv=None) -> dict:
     from ..cli import resolve_device
     from ..data import ipinyou_full_schema, ipinyou_like_schema, synthetic
     from ..ops.kernels import count_difference, launch_counts, tower_launches
-    from .bench_suite import _bench_torch
     from .reproduce import card_line
 
     args = parse_args(argv)
@@ -951,12 +942,11 @@ def main(argv=None) -> dict:
              f"{torch.__version__}, CUDA {torch.version.cuda}" if cuda
              else f"cpu (the kernels' plain versions); torch {torch.__version__}")
     print(where)
-    bt = _bench_torch()
     if args.small:
         schema, hidden = ipinyou_like_schema(), (16, 8)
         batches = tuple(b // SMALL_DIV for b in BATCHES)
     else:
-        schema, hidden = ipinyou_full_schema(), bt.HIDDEN
+        schema, hidden = ipinyou_full_schema(), bench_suite.HIDDEN
         batches = BATCHES
     batch = batches[0]
     top = batches[-1] if "batch" in parts else batch
@@ -965,10 +955,12 @@ def main(argv=None) -> dict:
                             seed=DATA_SEED)
     print(f"data: {len(ds.labels):,} rows made in {time.perf_counter() - t0:.1f} s")
     res = {"cuda": cuda, "where": where, "card": card, "dtypes": list(TABLE_DTYPES),
-           "config": (f"FNN k={bt.K}, {'-'.join(map(str, hidden))} tanh, dropout "
-                      f"{bt.DROPOUT}; {schema.padded_vocab_size:,} table rows x "
-                      f"{bt.K + 1}, {schema.num_slots} slots; batch {batch}; "
-                      f"SparseAdagrad({bt.SPARSE_LR}) dense mode, Adagrad({bt.DENSE_LR}) "
+           "config": (f"FNN k={bench_suite.K}, {'-'.join(map(str, hidden))} tanh, "
+                      f"dropout "
+                      f"{bench_suite.DROPOUT}; {schema.padded_vocab_size:,} table rows x "
+                      f"{bench_suite.K + 1}, {schema.num_slots} slots; batch {batch}; "
+                      f"SparseAdagrad({bench_suite.SPARSE_LR}) dense mode, "
+                      f"Adagrad({bench_suite.DENSE_LR}) "
                       f"on the tower; synthetic.generate(k={DATA_K}, seed={DATA_SEED})"),
            "occurrences": batch * schema.num_slots, "ptxas": ptxas_lines(cuda),
            "variants": {}, "gates": {}, "components": {}, "roofline": {}, "ops": {},
@@ -985,8 +977,9 @@ def main(argv=None) -> dict:
             launches[name] += n
         return out
 
-    heads = {d: bt.build(schema, device, table_dtype=d, hidden=hidden) for d in TABLE_DTYPES}
-    chunks = bt.stage(ds.ids, ds.labels, batch, CHUNKS * SCAN_K, device)
+    heads = {d: bench_suite.build(schema, device, table_dtype=d, hidden=hidden)
+             for d in TABLE_DTYPES}
+    chunks = bench_suite.stage(ds.ids, ds.labels, batch, CHUNKS * SCAN_K, device)
     try:
         for dtype, h in heads.items():
             launched_by = {}

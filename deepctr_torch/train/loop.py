@@ -52,12 +52,6 @@ class FitResult:
     best_epoch: int
 
 
-def _with_dense(dense) -> dict:
-    """The ``dense=`` keyword of a step or eval step, where a batch has dense
-    features."""
-    return {} if dense is None else {"dense": dense}
-
-
 def evaluate(eval_step: Callable, model: nn.Module, ids: np.ndarray,
              labels: np.ndarray, schema: Schema, batch_size: int = 8192,
              dense: np.ndarray | None = None) -> dict:
@@ -66,7 +60,7 @@ def evaluate(eval_step: Callable, model: nn.Module, ids: np.ndarray,
     logits_all = []
     for b in minibatches(ids, labels, batch_size, schema=schema, shuffle=False,
                          drop_remainder=False, dense=dense):
-        logits = eval_step(model, b.ids, **_with_dense(b.dense)).cpu().numpy()
+        logits = eval_step(model, b.ids, dense=b.dense).cpu().numpy()
         logits_all.append(logits[b.weights > 0])
     logits_np = np.concatenate(logits_all)
     probs = 1.0 / (1.0 + np.exp(-logits_np))
@@ -161,13 +155,14 @@ def fit(
     batch, and to each step as its ``dense=``.
 
     A sharded run (``cli._sharded_parts``) replaces four parts: ``step``
-    (``(state, ids, labels, weights, lr_scale) -> (state, metrics)``; a
-    ``dropped`` field in its metrics puts the epoch's sum in the record as
-    ``dropped_ids``), ``scan_step`` (``parallel.make_sharded_scan_train_step``:
-    ``(state, ids, labels, weights, lr_scale) -> (state, metrics)`` on a
-    chunk, with ``losses`` and ``dropped`` fields; ``dropped_ids`` then
-    sums all K steps of every chunk, pad steps included, as the
-    reference's), ``evaluate_state`` (``state -> {auc, ...}``, in place of
+    (``(state, ids, labels, weights, lr_scale, dense=None) -> (state,
+    metrics)``; a ``dropped`` field in its metrics puts the epoch's sum in
+    the record as ``dropped_ids``), ``scan_step``
+    (``parallel.make_sharded_scan_train_step``: ``(state, ids, labels,
+    weights, lr_scale, dense=None) -> (state, metrics)`` on a chunk, with
+    ``losses`` and ``dropped`` fields; ``dropped_ids`` then sums all K
+    steps of every chunk, pad steps included, as the reference's),
+    ``evaluate_state`` (``state -> {auc, ...}``, in place of
     the full-dataset :func:`evaluate` of ``test_ids``) and
     ``batch_transform`` (applied to every training batch, or chunk, before
     the prefetcher stages it, which so stages only the rank's rows). A
@@ -218,7 +213,7 @@ def fit(
             if scan_step is not None:
                 for nb, (ids, labels, weights, *dense) in it:
                     state, out = scan_step(state, ids, labels, weights, lr_scale,
-                                           **_with_dense(dense[0] if dense else None))
+                                           dense=dense[0] if dense else None)
                     losses.append(getattr(out, "losses", out)[:nb].sum())
                     if hasattr(out, "dropped"):
                         drops.append(out.dropped.sum())
@@ -226,7 +221,7 @@ def fit(
             else:
                 for b in it:
                     state, m = step(state, b.ids, b.labels, b.weights, lr_scale,
-                                    **_with_dense(b.dense))
+                                    dense=b.dense)
                     losses.append(m.loss)
                     if hasattr(m, "dropped"):
                         drops.append(m.dropped)

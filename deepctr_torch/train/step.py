@@ -25,9 +25,9 @@ What differs from the reference, and why:
 - A model with dense (continuous) inputs, DLRM-DCNv2 (``models/dlrm.py``),
   which the reference does not have, takes them as ``dense=`` beside the
   ids: ``[B, n]`` a step, ``[K, B, n]`` a chunk, staged into the graph's
-  buffers and replayed like the ids. Without them (``dense=None``, every
-  other model) the step calls the model as before and a graph holds no
-  dense buffer.
+  buffers and replayed like the ids. Every step passes ``dense`` on as it
+  comes, None included, and the model decides (``models/base.py``): a
+  graph without them holds no dense buffer.
 - The reference's split plan (``ops/split_embed.py``) is not ported: its
   one-hot matmuls are a TPU gather mechanism. One gather of all slots and
   one scatter of the occurrence gradients give the same per-row sums, up to
@@ -198,8 +198,7 @@ def _step_body(schema: Schema, sparse_opt, dense_opt, l2: float,
         count_occurrences(ids.numel())
         prof.phase("lookup")
 
-        extra = {} if dense is None else {"dense": dense}
-        logits = model.apply_rows(rows, mask, train=True, seed=seed, **extra)
+        logits = model.apply_rows(rows, mask, dense=dense, train=True, seed=seed)
         loss = weighted_bce_with_logits(logits, labels, weights)
         loss = loss + lazy_l2(rows, mask, l2)
         if check_finite and not bool(torch.isfinite(loss)):
@@ -239,7 +238,7 @@ def _per_step(body, seed_map=None, metrics=StepMetrics):
     the batch moved to the device, ``state.step`` counted; the body's two
     outputs come back as ``metrics``. On the CPU the step opens a unit of
     the tracing's host phase marks (:func:`..utils.prof.marking`). The
-    body takes ``dense`` only where it is given."""
+    body takes ``dense`` as it comes: None, or the batch on the device."""
 
     def step(state: TrainState, ids, labels, weights, lr_scale: float = 1.0,
              seed: int | None = None, dense=None):
@@ -248,13 +247,13 @@ def _per_step(body, seed_map=None, metrics=StepMetrics):
         seed = drawn if seed is None else _checked_seed(seed)
         if seed_map is not None:
             seed = seed_map(seed)
-        extra = {} if dense is None else {"dense": _to_device(dense, device, torch.float32)}
+        if dense is not None:
+            dense = _to_device(dense, device, torch.float32)
         with prof.marking(device):
             prof.phase(prof.START)
             out = body(state, _to_device(ids, device, torch.long),
                        _to_device(labels, device, torch.float32),
-                       _to_device(weights, device, torch.float32), lr_scale, seed,
-                       **extra)
+                       _to_device(weights, device, torch.float32), lr_scale, seed, dense)
         state.step += 1
         return state, metrics(*out)
 
@@ -296,8 +295,8 @@ def chunk_route(body, eager: bool, touched, seed_map=None, dropped: bool = False
     """``run(state, ids [K, B, S], labels [K, B], weights [K, B], lr_scale,
     seeds, dense=None) -> (state, losses [K], dropped [K] or None)``: a chunk
     of K steps, the scan route of the single-device and the sharded step
-    alike; ``dense`` ``[K, B, n]``, where given, goes to the body beside
-    the ids.
+    alike; each step's slice of ``dense`` ``[K, B, n]``, or None, goes to
+    the body beside the ids.
 
     ``body`` is a step on batches already on the device (``_step_body``'s
     signature), returning ``(loss, second)``. On the CPU, and with
@@ -394,7 +393,7 @@ def _warm_up(body, state: TrainState, ids, labels, weights, lr_scale: float, see
     Adam's count), ``state.step`` and the generator's state. After the step,
     or a failure in it, these go back with ``index_copy_`` and ``copy_``
     into the same tensors, so the addresses a graph key holds stay valid.
-    ``dense`` goes to the body where it is given."""
+    ``dense`` goes to the body as it comes."""
     table = state.model.table
     rowwise = [table, *(t for t in state.sparse_state if t.shape == table.shape)]
     held = {id(t) for t in rowwise}
@@ -405,8 +404,7 @@ def _warm_up(body, state: TrainState, ids, labels, weights, lr_scale: float, see
     kept_bytes = sum(t.numel() * t.element_size() for t in rows + copies)
     step, generator = state.step, state.generator.get_state()
     try:
-        body(state, ids, labels, weights, lr_scale, seed,
-             **({} if dense is None else {"dense": dense}))
+        body(state, ids, labels, weights, lr_scale, seed, dense)
     finally:
         with torch.no_grad():
             for t, kept in zip(rowwise, rows):
@@ -439,7 +437,7 @@ class _ChunkGraph:
     second outputs in a ``[K]`` int64 one. A chunk with dense features
     (``dense``, ``[K, B, n]``) is staged into a static buffer of that shape
     too, and each step's slice goes to the body; a graph without them holds
-    no such buffer and calls the body as before.
+    no such buffer and gives the body None.
 
     Before the capture one eager step runs on the state itself, on the
     device's one capture stream (:func:`_capture_stream`), so that what a
@@ -515,9 +513,9 @@ class _ChunkGraph:
                     prof.stamping(self.ring):
                 prof.phase(prof.START)
                 for i in range(k):
-                    extra = {} if self.dense is None else {"dense": self.dense[i]}
                     loss, second = body(state, self.ids[i], self.labels[i],
-                                        self.weights[i], lr_scale, self.seeds[i], **extra)
+                                        self.weights[i], lr_scale, self.seeds[i],
+                                        None if self.dense is None else self.dense[i])
                     self.losses[i].copy_(loss)
                     if self.dropped is not None:
                         self.dropped[i].copy_(second)
@@ -582,8 +580,9 @@ def make_eval_step(schema: Schema):
         device = model.table.device
         ids = _to_device(ids, device, torch.long)
         rows = model.table[ids].float()
-        extra = {} if dense is None else {"dense": _to_device(dense, device, torch.float32)}
-        return model.apply_rows(rows, (ids != pad_id).float(), train=False, **extra)
+        if dense is not None:
+            dense = _to_device(dense, device, torch.float32)
+        return model.apply_rows(rows, (ids != pad_id).float(), dense=dense, train=False)
 
     return eval_step
 

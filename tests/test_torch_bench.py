@@ -1,20 +1,18 @@
-"""The port's benchmark entry points on the CPU: ``bench_torch.py`` (the
-counterpart of ``bench.py``) and ``deepctr_torch.tools.bench_suite`` (of
-``tools/bench_suite.py``).
+"""The port's benchmark suite on the CPU: ``deepctr_torch.tools.bench_suite``
+(the counterpart of ``tools/bench_suite.py``).
 
-- ``bench_torch.py --device cpu --small`` prints one last JSON line with
-  ``bench.py``'s keys and ``"device": "cpu"``, and writes no file;
-- its configuration is ``bench.py``'s (constants read from ``bench.py`` as
-  text), and its builder's two chunks of K = 2 steps equal the JAX package's
-  ``make_scan_train_step`` on ``bench.py``'s model and optimizers (FNN,
-  tanh tower, dropout 0.5, bf16 table, ``SparseAdagrad(0.05)``,
-  ``optax.adagrad(0.02)``) from the same initial parameters;
+- its headline configuration is ``bench.py``'s (constants read from
+  ``bench.py`` as text), and its builder's two chunks of K = 2 steps equal
+  the JAX package's ``make_scan_train_step`` on ``bench.py``'s model and
+  optimizers (FNN, tanh tower, dropout 0.5, bf16 table,
+  ``SparseAdagrad(0.05)``, ``optax.adagrad(0.02)``) from the same initial
+  parameters;
 - every section of ``tools/bench_suite.py`` (its ``--sections`` help and
   ``main()``, read as text) is run by the port's suite or listed in its
   docstring as not ported; the host sections give positive rates under the
   reference's keys at ``--small``, and the device sections run their plain
   versions there; a run with ``--device cpu`` writes no file;
-- without ``--device cpu`` and without a card, both tools raise;
+- without ``--device cpu`` and without a card, the suite raises;
 - ``BENCH_TORCH.json`` and ``BENCH_TORCH.md``, the suite's run of every
   section on the card, agree key for key, hold every section's keys and
   peak memory, name no TPU, and pass the reference's serving band
@@ -36,7 +34,6 @@ import optax
 import pytest
 import torch
 
-import bench_torch
 from deepctr_torch.data import make_schema as t_make_schema
 from deepctr_torch.tools import bench_suite
 from deepctr_torch.utils import checkpoint as t_ckpt
@@ -47,7 +44,6 @@ from deepctr_tpu.train import init_state as j_init_state
 from deepctr_tpu.train.step import make_scan_train_step as j_make_scan_train_step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "protocol", "sigma"}
 # f32 on both sides; sums are taken in other orders (tests/test_torch_scan.py)
 RTOL, ATOL = 1e-4, 1e-5
 FIELDS = [("a", 4), ("b", 8), ("c", 16), ("tags", 10, 3)]
@@ -58,20 +54,6 @@ CHUNKS = 2
 def _env():
     # one intra-op thread: the suite's workers share the CPUs
     return dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
-
-
-def test_bench_torch_small_prints_bench_py_line(tmp_path):
-    res = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py"),
-                          "--device", "cpu", "--small"], cwd=tmp_path, env=_env(),
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stderr[-2000:]
-    line = json.loads(res.stdout.strip().splitlines()[-1])
-    assert set(line) == BENCH_KEYS | {"device"}
-    assert line["metric"] == "fnn_train_examples_per_s_per_gpu"
-    assert line["unit"] == "examples/s" and line["device"] == "cpu"
-    assert line["value"] > 0 and line["vs_baseline"] > 0 and line["sigma"] >= 0
-    assert line["protocol"] == "median_of_5_repeats_of_1_graph_replays"
-    assert os.listdir(tmp_path) == []
 
 
 def _constants(path: str) -> dict:
@@ -91,8 +73,7 @@ def _constants(path: str) -> dict:
 def test_headline_configuration_is_bench_py():
     ref = _constants(os.path.join(ROOT, "bench.py"))
     for name in ("BATCH", "K", "HIDDEN", "MEASURE_STEPS"):
-        assert getattr(bench_torch, name) == ref[name], name
-    assert bench_torch.N_EXAMPLES == 2 * ref["MEASURE_STEPS"] * ref["BATCH"]
+        assert getattr(bench_suite, name) == ref[name], name
     with open(os.path.join(ROOT, "bench.py")) as f:
         text = f.read()
     # the model, optimizers, state and data lines of bench.py:97-116
@@ -100,8 +81,8 @@ def test_headline_configuration_is_bench_py():
     assert "SparseAdagrad(0.05)" in text and "optax.adagrad(0.02)" in text
     assert 'seed=0, table_dtype="bf16"' in text
     assert "num_examples=N_EXAMPLES, k=4, seed=3" in text
-    assert (bench_torch.DROPOUT, bench_torch.SPARSE_LR, bench_torch.DENSE_LR,
-            bench_torch.TABLE_DTYPE, bench_torch.INIT_SEED, bench_torch.DATA_SEED) == (
+    assert (bench_suite.DROPOUT, bench_suite.SPARSE_LR, bench_suite.DENSE_LR,
+            bench_suite.TABLE_DTYPE, bench_suite.INIT_SEED, bench_suite.DATA_SEED) == (
         0.5, 0.05, 0.02, "bf16", 0, 3)
 
 
@@ -119,7 +100,7 @@ def _bf16_bits(a) -> np.ndarray:
 
 
 def test_headline_chunks_match_jax():
-    """Two chunks of K = 2 steps from ``bench_torch.build`` against the JAX
+    """Two chunks of K = 2 steps from ``bench_suite.build`` against the JAX
     package's ``make_scan_train_step`` on ``bench.py``'s model and
     optimizers, from the JAX state's parameters (the port's checkpoint
     conversion) and the JAX steps' dropout seeds: losses, ``state.step``,
@@ -134,11 +115,11 @@ def test_headline_chunks_match_jax():
     jstate = j_init_state(jmodel, schema, jsopt, jdopt, seed=0, table_dtype="bf16")
     seeds = _jax_seeds(jstate.rng, CHUNKS * STEPS)
 
-    h = bench_torch.build(t_make_schema(FIELDS), "cpu", k=K, hidden=HIDDEN)
+    h = bench_suite.build(t_make_schema(FIELDS), "cpu", k=K, hidden=HIDDEN)
     assert h.state.table.dtype == torch.bfloat16
     h.state.model.load_state_dict(t_ckpt.params_from_jax(
         np.asarray(jstate.table).astype(np.float32), jstate.dense))
-    chunks = bench_torch.stage(data.ids, data.labels, BATCH, CHUNKS * STEPS, "cpu",
+    chunks = bench_suite.stage(data.ids, data.labels, BATCH, CHUNKS * STEPS, "cpu",
                                scan_k=STEPS)
     j_scan = j_make_scan_train_step(jmodel, schema, jsopt, jdopt)
     for c, chunk in enumerate(chunks):
@@ -221,10 +202,9 @@ def test_device_sections_run_small_on_cpu(tmp_path, monkeypatch, capsys):
     assert os.listdir(tmp_path) == []
 
 
-@pytest.mark.parametrize("argv", [[os.path.join(ROOT, "bench_torch.py")],
-                                  ["-m", "deepctr_torch.tools.bench_suite",
+@pytest.mark.parametrize("argv", [["-m", "deepctr_torch.tools.bench_suite",
                                    "--sections", "parser"]],
-                         ids=["bench_torch", "bench_suite"])
+                         ids=["bench_suite"])
 def test_tools_raise_without_a_card(tmp_path, argv):
     res = subprocess.run([sys.executable, *argv], cwd=tmp_path,
                          env=dict(_env(), CUDA_VISIBLE_DEVICES=""), capture_output=True,
@@ -240,7 +220,6 @@ SECTION_KEYS = {
     "parser": "parser_native_mb_per_s",
     "models": "train_examples_per_s/deepfm",
     "full": "train_examples_per_s/fnn_full_vocab",
-    "fullbf16": "train_examples_per_s/fnn_full_vocab_bf16table",
     "batch": "train_examples_per_s/fnn_full_vocab_b32768",
     "batchbf16": "train_examples_per_s/fnn_full_vocab_b32768_bf16table",
     "batchbf16med": "peak_sigma/fnn_full_vocab_b32768_bf16",
@@ -252,8 +231,6 @@ SECTION_KEYS = {
     "servingquality": "serving_auc_delta/int8",
     "streamtrain": "train_stream_examples_per_s",
     "h2d": "h2d_examples_per_s_ceiling",
-    "dispatch": "train_inram_wall_examples_per_s",
-    "headline": "headline_production_config",
 }
 
 
@@ -283,11 +260,3 @@ def test_bench_torch_serving_quality_in_band():
     for mode in ("bf16", "int8"):
         assert abs(results[f"serving_auc_delta/{mode}"]) <= 0.002, mode
     assert results["serving_auc/f32"] > 0.5
-
-
-def test_bench_torch_headline_verdict_follows_its_rule():
-    results, _ = _bench_artifacts()
-    f32, bf16 = results["headline_median/f32"], results["headline_median/bf16table"]
-    sigma = max(results["headline_sigma/f32"], results["headline_sigma/bf16table"])
-    want = "f32" if f32 - bf16 > sigma else "bf16table"
-    assert results["headline_production_config"] == want

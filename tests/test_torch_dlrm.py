@@ -172,8 +172,8 @@ def _fnn_case():
 
 
 def test_fnn_scan_step_without_dense_features_is_unchanged(monkeypatch):
-    """``dense=None`` is the call without it: the model is called with the
-    arguments it always had, and the state's bits are the per-step route's."""
+    """``dense=None`` is the call without it: None reaches the model, which
+    reads nothing of it, and the state's bits are the per-step route's."""
     schema, sopt, dopt, state, ids, labels, weights = _fnn_case()
     other = state.clone()
     third = state.clone()
@@ -181,13 +181,13 @@ def test_fnn_scan_step_without_dense_features_is_unchanged(monkeypatch):
     real = type(state.model).apply_rows
 
     def spy(self, rows, mask, **kw):
-        calls.append(sorted(kw))
+        calls.append((sorted(kw), kw["dense"]))
         return real(self, rows, mask, **kw)
 
     monkeypatch.setattr(type(state.model), "apply_rows", spy)
     scan = t_step.make_scan_train_step(schema, sopt, dopt)
     _, with_none = scan(state, ids, labels, weights, seeds=[1, 2, 3], dense=None)
-    assert calls == [["seed", "train"]] * K
+    assert calls == [(["dense", "seed", "train"], None)] * K
     _, without = scan(other, ids, labels, weights, seeds=[1, 2, 3])
     assert torch.equal(with_none, without)
     step = t_step.make_train_step(schema, sopt, dopt)

@@ -4,9 +4,10 @@
 evidence and benchmark tools run there too: ``deepctr_torch.tools.reproduce``,
 ``deepctr_torch.tools.bench_suite``, ``deepctr_torch.tools.scaling_report``,
 ``deepctr_torch.tools.substrate_lab`` and ``deepctr_torch.tools.step_breakdown``
-load none of them,
-``tools/parity_report_torch.py`` and ``bench_torch.py`` (which run the NumPy
-oracle of ``deepctr_tpu.reference_impl``) no jax, optax or ml_dtypes."""
+load none of them, ``tools/parity_report_torch.py`` (which runs the NumPy
+oracle of ``deepctr_tpu.reference_impl``) no jax, optax or ml_dtypes. Every
+module under ``deepctr_torch`` imports without loading a module that sits
+outside the package in the checkout, and without editing ``sys.path``."""
 
 import ast
 import os
@@ -154,8 +155,8 @@ with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringI
     runpy.run_path("tools/parity_report_torch.py", run_name="__main__")
 assert "deepctr_tpu.reference_impl" in sys.modules
 """, ("jax", "jaxlib", "optax", "ml_dtypes")),
-    # the benchmark suite reuses bench_torch.py's builder, and loads
-    # nothing of the JAX package
+    # the benchmark suite builds the headline itself, and loads nothing of
+    # the JAX package or of the checkout's root
     "bench_suite": ("""
 import contextlib, io, os, sys, tempfile
 import torch
@@ -166,9 +167,8 @@ with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringI
     os.chdir(tmp)
     res = bench_suite.main(["--sections", "parser,lookup", "--device", "cpu", "--small"])
 assert res["embedding_lookups_per_s"] > 0, res
-h = bench_suite._bench_torch().build(make_schema([("a", 4), ("b", 8)]), "cpu",
-                                     hidden=(4,))
-assert h.state.step == 0 and "bench_torch" in sys.modules
+h = bench_suite.build(make_schema([("a", 4), ("b", 8)]), "cpu", hidden=(4,))
+assert h.state.step == 0 and "bench_torch" not in sys.modules
 """, ("jax", "jaxlib", "optax", "ml_dtypes", "deepctr_tpu")),
     # the scaling report's accounting and the substrate lab's record: nothing
     # of the JAX package
@@ -180,8 +180,8 @@ assert "2,359,296" in text and "5,111,808" in text, text
 with contextlib.redirect_stdout(io.StringIO()):
     assert substrate_lab.main(["--exp", "rank8", "--device", "cpu"]) == {"rank8": {}}
 """, ("jax", "jaxlib", "optax", "ml_dtypes", "deepctr_tpu")),
-    # the speed-of-light audit reuses bench_torch.py's builder, and loads
-    # nothing of the JAX package
+    # the speed-of-light audit reuses the suite's builder, and loads nothing
+    # of the JAX package or of the checkout's root
     "step_breakdown": ("""
 import contextlib, io, sys
 import torch
@@ -190,19 +190,8 @@ torch.set_num_threads(1)   # the suite's workers share the CPUs
 with contextlib.redirect_stdout(io.StringIO()):
     res = step_breakdown.main(["--device", "cpu", "--small", "--parts", "components"])
 assert list(res["components"]) == ["f32", "bf16"], res
-assert "bench_torch" in sys.modules
+assert "bench_torch" not in sys.modules
 """, ("jax", "jaxlib", "optax", "ml_dtypes", "deepctr_tpu")),
-    # the headline's baseline is the NumPy oracle of deepctr_tpu.reference_impl
-    "bench_torch": ("""
-import contextlib, io, sys
-import torch
-import bench_torch
-torch.set_num_threads(1)   # the suite's workers share the CPUs
-with contextlib.redirect_stdout(io.StringIO()):
-    line = bench_torch.main(["--device", "cpu", "--small"])
-assert line["device"] == "cpu", line
-assert "deepctr_tpu.reference_impl" in sys.modules
-""", ("jax", "jaxlib", "optax", "ml_dtypes")),
 }
 
 
@@ -211,8 +200,8 @@ def test_evidence_tools_load_no_jax(tool):
     """The evidence and benchmark tools run on the card's machine, which has
     no jax: ``deepctr_torch.tools.reproduce`` and
     ``deepctr_torch.tools.bench_suite`` load none of jax, optax, ml_dtypes
-    or ``deepctr_tpu``; ``tools/parity_report_torch.py`` and
-    ``bench_torch.py`` none of jax, optax or ml_dtypes."""
+    or ``deepctr_tpu``; ``tools/parity_report_torch.py`` none of jax, optax
+    or ml_dtypes."""
     body, banned = TOOL_SCRIPTS[tool]
     script = body + f"""
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {banned!r})
@@ -224,3 +213,37 @@ print("ok")
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.strip().endswith("ok")
+
+
+BOUNDARY_SCRIPT = """
+import importlib, os, sys
+root = os.getcwd()
+path = list(sys.path)
+names = []
+for top, dirs, files in os.walk(os.path.join(root, "deepctr_torch")):
+    dirs[:] = sorted(d for d in dirs if d != "__pycache__")
+    rel = os.path.relpath(top, root).replace(os.sep, ".")
+    names += [rel if f == "__init__.py" else f"{rel}.{f[:-3]}"
+              for f in sorted(files) if f.endswith(".py")]
+for name in names:
+    importlib.import_module(name)
+assert sys.path == path, sys.path[:4]
+package = os.path.join(root, "deepctr_torch") + os.sep
+outside = sorted(n for n, m in list(sys.modules.items())
+                 if (getattr(m, "__file__", None) or "").startswith(root + os.sep)
+                 and not m.__file__.startswith(package))
+assert not outside, outside
+print(len(names))
+"""
+
+
+def test_every_port_module_imports_within_the_package():
+    """Every module under ``deepctr_torch``, the scripts of ``csrc/``
+    included, imports without editing ``sys.path`` and without loading a
+    module of the checkout that lies outside the package (a script at its
+    root, ``tools/``, ``deepctr_tpu``): the package reaches up to nothing."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", BOUNDARY_SCRIPT], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert int(res.stdout.strip().splitlines()[-1]) > 60

@@ -104,6 +104,44 @@ def _bf16_bits(a) -> np.ndarray:
     return np.asarray(a, ml_dtypes.bfloat16).view(np.uint16).astype(np.int32)
 
 
+# every model of the port at small widths; DLRM alone takes dense features
+# (3 of them here)
+PORT_MAKERS = {
+    "lr": lambda s: t_models.make_lr(s, device="cpu"),
+    "fm": lambda s: t_models.make_fm(s, k=K, device="cpu"),
+    "fnn": lambda s: t_models.make_fnn(s, k=K, mlp=TMlpSpec(hidden=HIDDEN), device="cpu"),
+    "deepfm": lambda s: t_models.make_deepfm(s, k=K, mlp=TMlpSpec(hidden=HIDDEN),
+                                             device="cpu"),
+    "pnn": lambda s: t_models.make_pnn(s, k=K, mlp=TMlpSpec(hidden=HIDDEN), device="cpu"),
+    "snn": lambda s: t_models.make_snn(s, hidden1=4, mlp=TMlpSpec(hidden=HIDDEN),
+                                       device="cpu"),
+    "dlrm": lambda s: t_models.make_dlrm_dcnv2(s, embed_dim=4, bottom=(8, 4),
+                                               cross_layers=1, cross_rank=2, top=(8,),
+                                               num_dense=3, device="cpu"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORT_MAKERS))
+def test_apply_rows_refuses_what_the_model_cannot_use(schema, data, name):
+    """Every model's ``apply_rows`` takes ``dense=``: the six without dense
+    inputs raise when given them and give the same bits with None as
+    without it; DLRM-DCNv2 raises without them."""
+    model = PORT_MAKERS[name](schema)
+    model.init_parameters(torch.Generator().manual_seed(0), schema.pad_id)
+    ids = torch.from_numpy(data.ids[:BATCH]).long()
+    rows, mask = model.table.detach()[ids].float(), (ids != schema.pad_id).float()
+    dense = torch.ones(BATCH, 3)
+    if name == "dlrm":
+        with pytest.raises(ValueError, match="DLRMModel takes dense features"):
+            model.apply_rows(rows, mask)
+        assert model.apply_rows(rows, mask, dense=dense).shape == (BATCH,)
+    else:
+        with pytest.raises(ValueError, match="takes no dense features"):
+            model.apply_rows(rows, mask, dense=dense)
+        assert torch.equal(model.apply_rows(rows, mask, dense=None),
+                           model.apply_rows(rows, mask))
+
+
 @pytest.mark.parametrize("name", ["lr", "deepfm", "ipnn", "opnn"])
 def test_forward_matches_jax(schema, name):
     """From JAX's initial parameters, perturbed so that no leaf is zero

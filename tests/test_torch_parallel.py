@@ -224,6 +224,32 @@ def test_world_one_scan_step_is_the_single_device_scan_step(model_name, mode, de
         par.sharded.state_tensors(host), par.sharded.state_tensors(state), strict=True))
 
 
+@pytest.mark.parametrize("route", ["sharded", "sharded_scan", "dp"])
+def test_steps_without_dense_inputs_refuse_them(route, data):
+    """The sharded step, its scan route and the data-parallel step take
+    ``dense=`` and raise when it is given, before any update: the table
+    keeps its bits."""
+    schema = t_make_schema([("a", 4), ("b", 8), ("c", 16), ("tags", 10, 3)])
+    model = t_make_fnn(schema, k=3, mlp=TMlpSpec(hidden=(16, 8)), device="cpu")
+    sopt, dopt = TSparseAdagrad(0.1), make_dense_optimizer("adagrad", 0.05)
+    state = t_init_state(model, schema, sopt, dopt, seed=3)
+    ids, y, w = data.ids[:B], data.labels[:B], np.ones(B, np.float32)
+    dense = np.ones((B, 3), np.float32)
+    with par.process_group("cpu") as group:
+        if route == "dp":
+            st, step = state, par.make_dp_train_step(schema, sopt, dopt, group)
+        else:
+            st = par.sharded_state_from_state(state, group)
+            step = (par.make_sharded_train_step if route == "sharded"
+                    else par.make_sharded_scan_train_step)(schema, sopt, dopt, group)
+        if route == "sharded_scan":
+            ids, y, w, dense = (a[None] for a in (ids, y, w, dense))
+        table = st.model.table.clone()
+        with pytest.raises(ValueError, match="takes no dense features"):
+            step(st, ids, y, w, dense=dense)
+        assert torch.equal(st.model.table, table) and st.step == 0
+
+
 def test_num_devices_must_equal_the_world_size():
     with pytest.raises(ValueError, match="torchrun --standalone --nproc_per_node=2"):
         with par.process_group("cpu", num_devices=2):

@@ -45,7 +45,7 @@ from deepctr_torch.models import make_fnn as t_make_fnn
 from deepctr_torch.optim import make_dense_optimizer
 from deepctr_torch.optim import sparse as t_sparse
 from deepctr_torch.tools import step_breakdown as sb
-from deepctr_torch.tools.bench_suite import _bench_torch
+from deepctr_torch.tools import bench_suite
 from deepctr_torch.train import init_state as t_init_state
 from deepctr_torch.train import step as t_step
 from deepctr_torch.utils import checkpoint as t_ckpt
@@ -140,19 +140,18 @@ def _small_run(monkeypatch=None, broken=None):
             if variant != name:
                 return body
 
-            def wrapped(state, ids, labels, weights, lr_scale, seed):
-                loss, logits = body(state, ids, labels, weights, lr_scale, seed)
+            def wrapped(state, ids, labels, weights, lr_scale, seed, dense=None):
+                loss, logits = body(state, ids, labels, weights, lr_scale, seed, dense)
                 return fault(state, ids, loss), logits
 
             return wrapped
 
         monkeypatch.setattr(sb, "variant_body", patched)
-    bt = _bench_torch()
     schema = t_make_schema([("a", 40), ("b", 300), ("tags", 200, 3)])
     data = synthetic.generate(make_schema([("a", 40), ("b", 300), ("tags", 200, 3)]),
                               num_examples=sb.CHUNKS * sb.SCAN_K * 32, k=2, seed=5)
-    h = bt.build(schema, "cpu", table_dtype="f32", k=3, hidden=(8,))
-    chunks = bt.stage(data.ids, data.labels, 32, sb.CHUNKS * sb.SCAN_K, "cpu")
+    h = bench_suite.build(schema, "cpu", table_dtype="f32", k=3, hidden=(8,))
+    chunks = bench_suite.stage(data.ids, data.labels, 32, sb.CHUNKS * sb.SCAN_K, "cpu")
     return sb.run_variants(h, schema, chunks, torch.device("cpu"))
 
 
@@ -263,12 +262,12 @@ def test_warm_up_puts_back_every_variant(variant):
     """The capture's warm-up step runs each variant's body on the state
     and puts back every bit, for bodies that write nothing as for those
     that write: the state after equals a clone taken before."""
-    bt = _bench_torch()
     schema = t_make_schema([("a", 40), ("b", 300), ("tags", 200, 3)])
     data = synthetic.generate(make_schema([("a", 40), ("b", 300), ("tags", 200, 3)]),
                               num_examples=32, k=2, seed=5)
-    h = bt.build(schema, "cpu", table_dtype="bf16", k=3, hidden=(8,))
-    h.step(h.state, data.ids, data.labels, np.ones(32, np.float32))  # not the init
+    h = bench_suite.build(schema, "cpu", table_dtype="bf16", k=3, hidden=(8,))
+    step = t_step.make_train_step(schema, h.sparse_opt, h.dense_opt)
+    step(h.state, data.ids, data.labels, np.ones(32, np.float32))  # not the init
     before = h.state.clone()
     ids = torch.from_numpy(data.ids).long()
     body = sb.variant_body(variant, schema, h.sparse_opt, h.dense_opt)
