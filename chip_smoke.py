@@ -297,13 +297,14 @@ Phases, each printing its own lines:
     iPinYou's 927,658 x 11 table, bf16 and f32, on batches of 8192 x 18
     Zipf ids: table and accumulator bit for bit against the plain version
     after 1 and 3 updates, the workspace clean after them, untouched rows
-    kept, a second run and a CUDA graph's replays bit for bit, its launches
-    and rows written as predicted, and its ms beside its byte bound and the
-    plain version's (``_phase26_sparse_adagrad``);
+    kept, a second run and a CUDA graph's replays bit for bit, its launches,
+    rows written and rows split as predicted, and its ms beside its byte
+    bound and the plain version's (``_phase26_sparse_adagrad``);
 27. DLRM-DCNv2 at MLPerf's widths (``_phase27_dlrm``): the dense-mode
     sparse Adagrad kernel at the benchmark cell's scale (a 26,500,128 x 128
-    f32 table, 1,753,088 occurrences a batch) bit for bit against the plain
-    version on the touched rows, untouched rows kept; the CLI's loop
+    f32 table, 1,753,088 Zipf occurrences a batch) bit for bit against the
+    plain version on the touched rows, untouched rows kept, the workspace
+    clean, its ms beside its byte bound and its rows split; the CLI's loop
     (``configs/dlrm_dcnv2_criteo.json``) for 3 chunks of 8 x 8192, losses
     finite; one 8-step graph replay against 8 eager steps bit for bit, and
     the step's device ms by phase; in each part the dense-mode kernel's
@@ -3809,8 +3810,11 @@ SPARSE_SIGMA = 1e-3
 SPARSE_UPDATES = 3
 
 
-def _zipf_ids(schema, batch, gen, dev):
-    """int64 ``[batch, S]`` ids of ``schema``'s fields, Zipf(SPARSE_ALPHA)."""
+def _zipf_ids(schema, batch, gen, dev, filled=False):
+    """int64 ``[batch, S]`` ids of ``schema``'s fields, Zipf(SPARSE_ALPHA),
+    each field's ranks permuted; a field of several slots holds 1 +
+    Binomial(slots - 1, 0.6) ids and pad ids after them, or ids in every
+    slot where ``filled`` (MLPerf's multi-hot data)."""
     import torch
 
     cols = []
@@ -3819,12 +3823,12 @@ def _zipf_ids(schema, batch, gen, dev):
         cdf = torch.cumsum(p, 0)
         cdf = cdf / cdf[-1]
         perm = torch.randperm(f.vocab_size, generator=gen, device=dev)
-        count = 1 + (torch.rand((batch, f.max_len - 1), generator=gen, device=dev)
-                     < 0.6).sum(1)
+        count = f.max_len if filled else 1 + (
+            torch.rand((batch, f.max_len - 1), generator=gen, device=dev) < 0.6).sum(1)
         for j in range(f.max_len):
             u = torch.rand(batch, generator=gen, device=dev, dtype=torch.float64)
             gid = perm[torch.searchsorted(cdf, u).clamp_(max=f.vocab_size - 1)] + int(off)
-            cols.append(gid if j == 0 else torch.where(count > j, gid, schema.pad_id))
+            cols.append(gid if j == 0 or filled else torch.where(count > j, gid, schema.pad_id))
     return torch.stack(cols, 1)
 
 
@@ -3835,22 +3839,44 @@ def _same_bits(a, b) -> bool:
     return a.dtype == b.dtype and torch.equal(a.view(kind), b.view(kind))
 
 
+def _sparse_clean(ws) -> bool:
+    """The dense-mode update's workspace as each call leaves it: the owner
+    slots INT_MAX; the counts, the split rows' sums and finished chunks, and
+    the scratch's counts (elect blocks done, owners, occurrences placed,
+    rows split, later chunks, reduce blocks done) 0."""
+    return (bool((ws.owner == 2**31 - 1).all()) and not bool(ws.counts.any())
+            and not bool(ws.split_sums.any()) and not bool(ws.split_done.any())
+            and not bool(ws.scratch[1:4].any()))
+
+
+def _split_rows(ids, v, d) -> int:
+    """The rows of ``ids`` in [0, V) with more occurrences than the kernel's
+    chunk at width ``d``: what ``sparse.ROWS_SPLIT`` adds for the batch."""
+    import torch
+
+    from deepctr_torch.ops.kernels import sparse as sparse_k
+
+    _, counts = torch.unique(ids[ids < v], return_counts=True)
+    return int((counts > sparse_k.chunk(ids.shape[0], d, ids.device)).sum())
+
+
 def _phase26_sparse_adagrad(dev, rng=None) -> dict:
     """The dense-mode sparse Adagrad kernel (``ops/kernels/sparse.py``,
     ``csrc/sparse_adagrad.cu``) at iPinYou's shape: a 927,658 x 11 table in
     bf16 and in f32 with its f32 accumulator, ``SPARSE_UPDATES`` batches of
     8192 x 18 Zipf ids. For each dtype: (a) table and accumulator equal to
     ``adagrad_dense_plain``'s bit for bit after the first update and after
-    the third (the workspace comes back clean: owner slots all INT_MAX,
-    sums all 0, the scratch's counts 0); (b) the rows no id touched keep their bits; (c) the same
+    the third (the workspace comes back clean: ``_sparse_clean``); (b) the
+    rows no id touched keep their bits; (c) the same
     three updates run again from the same state, bit for bit; (d) one
     eager update, then the update captured in a CUDA graph and replayed on
     the second and third batches, equal to the eager updates; (e)
     ``LAUNCHES`` one an eager update and one the capture, none a replay,
-    and ``ROWS_WRITTEN`` the distinct ids of each batch, replays included;
-    (f) the kernel's ms (CUDA events, in turns with the plain version) beside
-    its byte bound: ids and gradient rows read once, each touched row's
-    accumulator and table row read and written once; (g) FNN's scan route
+    ``ROWS_WRITTEN`` the distinct ids of each batch and ``ROWS_SPLIT`` its
+    rows of more than a chunk, replays included; (f) the kernel's ms (CUDA
+    events, in turns with the plain version) beside its byte bound: ids and
+    gradient rows read once, each touched row's accumulator and table row
+    read and written once; (g) FNN's scan route
     (``_tracing_case``, dense mode): two replays of 8 steps count one launch
     a step and the capture's warm-up step, and rows written on the device by
     every step, the replays' included."""
@@ -3875,10 +3901,13 @@ def _phase26_sparse_adagrad(dev, rng=None) -> dict:
     every = torch.unique(torch.cat(touched))
     untouched = torch.ones(v, dtype=torch.bool, device=dev)
     untouched[every] = False
-    out = {"touched": [int(t.numel()) for t in touched], "occurrences": int(batches[0][0].numel())}
+    out = {"touched": [int(t.numel()) for t in touched], "occurrences": int(batches[0][0].numel()),
+           "split": [_split_rows(ids, v, d) for ids, _ in batches]}
     print(f"sparse adagrad: table {v} x {d}, {out['occurrences']} occurrences a batch; "
           f"distinct ids {out['touched']} ({100 * out['touched'][0] / v:.2f}% of the rows "
-          f"the first); {int(every.numel())} rows touched by the {SPARSE_UPDATES} batches")
+          f"the first); {int(every.numel())} rows touched by the {SPARSE_UPDATES} batches; "
+          f"rows of more than a chunk of {sparse_k.chunk(out['occurrences'], d, dev)} "
+          f"{out['split']}")
 
     def fresh(dtype):
         return table0.to(dtype), torch.zeros(v, d, device=dev)
@@ -3893,6 +3922,7 @@ def _phase26_sparse_adagrad(dev, rng=None) -> dict:
         plain = fresh(dtype)
         kern = fresh(dtype)
         launches, written = sparse_k.LAUNCHES, sparse_k.rows_written(dev)
+        split = sparse_k.rows_split(dev)
         run(sparse_k.adagrad_dense_plain, *plain, [0])
         run(sparse_k.adagrad_dense_update, *kern, [0])
         first = [_same_bits(a, b) for a, b in zip(kern, plain)]
@@ -3901,30 +3931,28 @@ def _phase26_sparse_adagrad(dev, rng=None) -> dict:
         third = [_same_bits(a, b) for a, b in zip(kern, plain)]
         err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(kern, plain))
         out["max_abs_err"] = max(out.get("max_abs_err", 0.0), err)
-        ws = sparse_k._WORKSPACES[id(kern[1])]
-        # the scratch's counts: the elect pass's blocks done, the owner list's
-        # length and the apply pass's blocks done
-        clean = (bool((ws.owner == 2**31 - 1).all()) and not bool(ws.sums.any())
-                 and not bool(ws.scratch[1:3].any()))
+        clean = _sparse_clean(sparse_k._WORKSPACES[id(kern[1])])
         kept = _same_bits(kern[0][untouched], table0.to(dtype)[untouched])
-        counted = (sparse_k.LAUNCHES - launches, sparse_k.rows_written(dev) - written)
+        counted = (sparse_k.LAUNCHES - launches, sparse_k.rows_written(dev) - written,
+                   sparse_k.rows_split(dev) - split)
         again = run(sparse_k.adagrad_dense_update, *fresh(dtype), range(SPARSE_UPDATES))
         repeat = [_same_bits(a, b) for a, b in zip(again, kern)]
         print(f"sparse adagrad {name}: kernel vs plain bit for bit after 1 update "
               f"(table, acc) {first}, after {SPARSE_UPDATES} {third} (max |kernel - "
               f"plain| {err}); workspace clean "
               f"{clean}; untouched rows kept {kept}; a second run bit for bit {repeat}; "
-              f"launches {counted[0]}, rows written {counted[1]} (predicted "
-              f"{SPARSE_UPDATES} and {sum(out['touched'])})")
+              f"launches {counted[0]}, rows written {counted[1]}, rows split {counted[2]} "
+              f"(predicted {SPARSE_UPDATES}, {sum(out['touched'])} and {sum(out['split'])})")
         if not (all(first) and all(third) and clean and kept and all(repeat)):
             raise AssertionError(f"sparse adagrad {name}: the kernel's bits")
-        if counted != (SPARSE_UPDATES, sum(out["touched"])):
+        if counted != (SPARSE_UPDATES, sum(out["touched"]), sum(out["split"])):
             raise AssertionError(f"sparse adagrad {name}: counted {counted}")
 
         # (d) under a CUDA graph: one eager update makes the workspace
         table, acc = fresh(dtype)
         static_ids, static_rows = batches[0][0].clone(), batches[0][1].clone()
         launches, written = sparse_k.LAUNCHES, sparse_k.rows_written(dev)
+        split = sparse_k.rows_split(dev)
         stream = torch.cuda.Stream(device=dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
@@ -3939,12 +3967,13 @@ def _phase26_sparse_adagrad(dev, rng=None) -> dict:
             graph.replay()
         torch.cuda.synchronize()
         replayed = [_same_bits(a, b) for a, b in zip((table, acc), kern)]
-        counted = (sparse_k.LAUNCHES - launches, sparse_k.rows_written(dev) - written)
+        counted = (sparse_k.LAUNCHES - launches, sparse_k.rows_written(dev) - written,
+                   sparse_k.rows_split(dev) - split)
         print(f"sparse adagrad {name}: an eager update and {SPARSE_UPDATES - 1} graph "
               f"replays against eager updates, bit for bit {replayed}; launches "
-              f"{counted[0]}, rows written {counted[1]} (predicted 2 and "
-              f"{sum(out['touched'])})")
-        if not all(replayed) or counted != (2, sum(out["touched"])):
+              f"{counted[0]}, rows written {counted[1]}, rows split {counted[2]} (predicted "
+              f"2, {sum(out['touched'])} and {sum(out['split'])})")
+        if not all(replayed) or counted != (2, sum(out["touched"]), sum(out["split"])):
             raise AssertionError(f"sparse adagrad {name}: the graph's update")
         del graph
         out[f"equal_{name}"] = True
@@ -3962,7 +3991,8 @@ def _phase26_sparse_adagrad(dev, rng=None) -> dict:
         print(f"sparse adagrad {name}: kernel {times['kernel']:.4f} ms, plain "
               f"{times['plain']:.4f} ms a call (CUDA events, in turns); bound "
               f"{bound['bound_ms']:.4f} ms ({nbytes:,} B at 3.35 TB/s), "
-              f"{100 * bound['bound_ms'] / times['kernel']:.1f}% of it")
+              f"{100 * bound['bound_ms'] / times['kernel']:.1f}% of it; rows split "
+              f"{out['split'][0]} a call")
 
     # (g) the scan route: one warm-up step, then each replay adds its 8
     chunk_ids = _zipf_ids(schema, 2 * SCAN_K * BATCH, gen, dev).view(2, SCAN_K, BATCH, -1)
@@ -4008,12 +4038,17 @@ def _phase27_dlrm(dev, root, rng=None) -> dict:
     """DLRM-DCNv2 (``models/dlrm.py``) at MLPerf's widths. (a) The dense-mode
     sparse Adagrad kernel at the benchmark cell's scale: the table of one
     GPU's share (26,500,128 x 128 f32, 13.6 GB, and its accumulator), three
-    batches of 8192 x 214 ids (M = 1,753,088 occurrences, 224 M gradient
-    elements), table and accumulator bit for bit against
-    ``adagrad_dense_plain`` (run on the touched rows alone, which gives the
-    same bits: a row's update reads its own sums and the scale, which
-    depends on M, D and the largest gradient), every untouched row kept,
-    the workspace clean and the rows written as predicted. (b) The CLI's
+    batches of 8192 x 214 ids drawn as the cell draws them (Zipf(1.05) in
+    each table, ranks permuted, every slot filled: M = 1,753,088
+    occurrences, 224 M gradient elements), table and accumulator bit for
+    bit against ``adagrad_dense_plain`` (run on the touched rows alone,
+    which gives the same bits: a row's update reads its own sums and the
+    scale, which depends on M, D and the largest gradient), every untouched
+    row kept, the workspace clean and the rows written and split as
+    predicted; then the update's device ms (CUDA events over 10 calls on
+    the first batch) beside its byte bound (ids and gradient rows read once,
+    each distinct row's accumulator and table row read and written once),
+    and the rows it split a call. (b) The CLI's
     loop (``configs/dlrm_dcnv2_criteo.json``: tables capped at 1,000,000
     rows, batch 8192, chunks of 8 on the graph route) for 3 chunks: losses
     finite. (c) One replay of the 8-step graph, the dense features staged
@@ -4057,12 +4092,13 @@ def _phase27_dlrm(dev, root, rng=None) -> dict:
     acc = torch.zeros(v, d, device=dev)
     batches = []
     for _ in range(3):
-        ids = _dlrm_slice_ids(schema, BATCH, gen, dev).reshape(-1)
+        ids = _zipf_ids(schema, BATCH, gen, dev, filled=True).reshape(-1)
         batches.append((ids, torch.randn(ids.shape[0], d, generator=gen, device=dev) * 1e-5))
     m = batches[0][0].numel()
     every = torch.unique(torch.cat([b[0] for b in batches]))
     p_table, p_acc = table[every].clone(), torch.zeros(every.numel(), d, device=dev)
-    written = sparse_k.rows_written(dev)
+    split_want = [_split_rows(b[0], v, d) for b in batches]
+    written, split = sparse_k.rows_written(dev), sparse_k.rows_split(dev)
     sparse_k.LAUNCHES = 0
     t0 = time.perf_counter()
     for ids, rows in batches:
@@ -4082,22 +4118,39 @@ def _phase27_dlrm(dev, root, rng=None) -> dict:
         kept &= _same_bits(table[start:start + block][here], initial(start)[here])
         kept &= not bool(acc[start:start + block][here].any())
     ws = sparse_k._WORKSPACES[id(acc)]
-    clean = (bool((ws.owner == 2**31 - 1).all()) and not bool(ws.sums.any())
-             and not bool(ws.scratch[1:3].any()))
-    counted = sparse_k.rows_written(dev) - written
-    want = sum(int(torch.unique(b[0]).numel()) for b in batches)
+    clean = _sparse_clean(ws)
+    counted = (sparse_k.rows_written(dev) - written, sparse_k.rows_split(dev) - split)
+    distinct = [int(torch.unique(b[0]).numel()) for b in batches]
+    ws_bytes = sum(t.numel() * t.element_size()
+                   for t in (ws.counts, ws.lists, ws.split_sums, ws.split_done))
     print(f"dlrm sparse adagrad: table {v:,} x {d} f32 ({table.numel() * 4 / 1e9:.2f} GB, "
           f"{table.numel():,} elements), {m:,} occurrences a batch ({m * d:,} gradient "
-          f"elements), distinct ids {[int(torch.unique(b[0]).numel()) for b in batches]}: "
+          f"elements), distinct ids {distinct}: "
           f"kernel vs plain on the touched rows bit for bit after 3 updates {equal}; "
           f"untouched rows and their accumulator kept {kept}; workspace clean {clean} "
-          f"(sums {tuple(ws.sums.shape)} int64, {ws.sums.numel() * 8 / 1e9:.2f} GB); rows "
-          f"written {counted} (predicted {want}); launches {launches['a']} (predicted 3); "
-          f"3 updates {kernel_s * 1e3:.1f} ms eager")
-    if not (equal and kept and clean and counted == want and launches["a"] == 3):
+          f"({ws_bytes / 1e6:.1f} MB for M; split sums {tuple(ws.split_sums.shape)} int64); "
+          f"rows written {counted[0]} (predicted {sum(distinct)}), rows split {counted[1]} "
+          f"(predicted {split_want}, chunk {sparse_k.chunk(m, d, dev)}); launches {launches['a']} "
+          f"(predicted 3); 3 updates {kernel_s * 1e3:.1f} ms eager")
+    if not (equal and kept and clean and counted == (sum(distinct), sum(split_want))
+            and launches["a"] == 3):
         raise AssertionError("dlrm sparse adagrad: the kernel at the cell's scale")
-    out.update(occurrences=m, rows_touched=want, equal=equal)
-    del table, acc, p_table, p_acc, batches, every, untouched, ws
+    ids, rows = batches[0]
+    split = sparse_k.rows_split(dev)
+    ms = _time_ms(lambda: sparse_k.adagrad_dense_update(table, acc, ids, rows, lr, eps),
+                  iters=10, warmup=2)
+    split_a_call = (sparse_k.rows_split(dev) - split) / 12
+    nbytes = m * 8 + m * d * 4 + distinct[0] * d * 2 * (4 + 4)
+    bound = _bound(0, nbytes)
+    print(f"dlrm sparse adagrad: {ms:.4f} ms a call (CUDA events, 10 calls on the first "
+          f"batch); bound {bound['bound_ms']:.4f} ms ({nbytes:,} B at 3.35 TB/s), "
+          f"{100 * bound['bound_ms'] / ms:.1f}% of it; rows split {split_a_call:g} a call "
+          f"(predicted {split_want[0]})")
+    if split_a_call != split_want[0] or split_want[0] == 0:
+        raise AssertionError(f"dlrm sparse adagrad: {split_a_call} rows split a call")
+    out.update(occurrences=m, rows_touched=sum(distinct), equal=equal, update_ms=ms,
+               update_bound_ms=bound["bound_ms"], rows_split=split_want[0])
+    del table, acc, p_table, p_acc, batches, every, untouched, ws, ids, rows
     sparse_k._WORKSPACES.clear()
     torch.cuda.empty_cache()
 
@@ -4684,6 +4737,10 @@ def main(argv=None) -> int:
         "plain_ms_f32": sparse["plain_ms_f32"],
         "bound_ms_f32": sparse["bound_ms_f32"],
         "rows_touched": sparse["touched"][0],
+        "rows_split": sparse["split"][0],
+        "ms_dlrm": dlrm["update_ms"],
+        "bound_ms_dlrm": dlrm["update_bound_ms"],
+        "rows_split_dlrm": dlrm["rows_split"],
     }, {
         "name": "dense_bwd_product",
         "route": "cuda",

@@ -12,15 +12,18 @@ for bit: its per-row sums are exact integers in the same 61-bit fixed point.
 
 Each accumulator the kernel updates owns one workspace: an int32 ``[V]``
 of owner slots (``INT_MAX`` between calls) and a few KB of scratch (the
-scale, counts, the elect pass's maxima), made once, and an int32 list of
-owners and an int64 ``[M, D]`` of fixed-point sums (zeros between calls)
-for the largest occurrence count M it has seen; each call leaves them as
-it found them. The workspace is made, and grown to a larger M, outside any
-capture (the graph route's eager warm-up step does it); a capture that
-would have to make or grow it raises. A grown workspace keeps its smaller
-list and sums, which a graph captured at that M still launches on. It goes
-with the accumulator: a released train state leaves no device memory
-behind.
+scale, counts, the elect pass's maxima), made once; and, for the largest
+occurrence count M it has seen, an int32 ``[M]`` of counts (zeros between
+calls), a buffer of lists (the owner list, each occurrence's place, the rows'
+segments and chunks: nothing kept between calls) and the split rows'
+workspace, an int64 ``[M // (C + 1), D]`` of sums and an int32 count of
+finished chunks each (zeros between calls), C the kernel's chunk for M
+occurrences of width D (:func:`chunk`). Each call leaves them as it found
+them. The workspace is made, and grown to a larger M, outside any capture
+(the graph route's eager warm-up step does it); a capture that would have
+to make or grow it raises. A grown workspace keeps its smaller buffers,
+which a graph captured at that M still launches on. It goes with the
+accumulator: a released train state leaves no device memory behind.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 from ..scatter import scatter_totals
 from ._build import check, is_cuda, load_library
 
-# kernel launches since the last reset (one an update: its three kernels); a
+# kernel launches since the last reset (one an update: its four kernels); a
 # graph's capture takes its launches back and adds them at each replay
 # (``train/step.py::_ChunkGraph``)
 LAUNCHES = 0
@@ -44,6 +47,9 @@ LAUNCHES = 0
 # on the device by every update (eager or replayed); read with
 # :func:`rows_written`. The train step never reads it.
 ROWS_WRITTEN: dict[torch.device, torch.Tensor] = {}
+# device -> int64 [1]: the rows whose occurrences in an update took more than
+# one chunk of C, added like ROWS_WRITTEN; read with :func:`rows_split`.
+ROWS_SPLIT: dict[torch.device, torch.Tensor] = {}
 
 # each pass's blocks at most (the elect pass's take 256 occurrences at a
 # time): one partial maximum an elect block in the scratch
@@ -55,9 +61,11 @@ _INT_MAX = 2**31 - 1
 class _Workspace:
     owner: torch.Tensor          # int32 [V]
     scratch: torch.Tensor        # int64, _scratch_bytes() at least
-    owner_list: torch.Tensor     # int32 [M], M the largest count seen
-    sums: torch.Tensor           # int64 [M, D]
-    retired: list = dataclasses.field(default_factory=list)   # smaller lists and sums
+    counts: torch.Tensor         # int32 [M], M the largest count seen
+    lists: torch.Tensor          # uint8, _list_bytes(M, C) at least
+    split_sums: torch.Tensor     # int64 [M // (C + 1), D] at least
+    split_done: torch.Tensor     # int32 [M // (C + 1)] at least
+    retired: list = dataclasses.field(default_factory=list)   # smaller M's buffers
 
 
 # id of the accumulator -> its workspace; dropped when the accumulator is freed
@@ -80,10 +88,9 @@ def _kernel():
     fn = load_library().sparse_adagrad_dense
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_float, *[ctypes.c_void_p] * 6, ctypes.c_int,
+                   *[ctypes.c_void_p] * 3]
     return fn
 
 
@@ -93,6 +100,37 @@ def _scratch_bytes() -> int:
     fn.restype = ctypes.c_longlong
     fn.argtypes = [ctypes.c_int]
     return fn(MAX_BLOCKS)
+
+
+@functools.cache
+def _chunk(m: int, d: int, index: int) -> int:
+    fn = load_library().sparse_adagrad_chunk
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    with torch.cuda.device(index):
+        c = fn(m, d)
+    if c < 1:
+        raise RuntimeError(f"sparse_adagrad_chunk({m}, {d}) failed on cuda:{index}")
+    return c
+
+
+def chunk(m: int, d: int, device) -> int:
+    """C, the kernel's chunk for an update of ``m`` occurrences of width
+    ``d`` on the CUDA ``device``: a row with more than C occurrences is
+    summed in chunks of C and counted in ``ROWS_SPLIT``. C is about half the
+    occurrences each lane group of the card would take if they were dealt
+    out evenly (at least one round of loads), so no chunk keeps its group
+    much past the others."""
+    device = torch.device(device)
+    return _chunk(m, d, device.index if device.index is not None
+                  else torch.cuda.current_device())
+
+
+def _list_bytes(m: int, c: int) -> int:
+    fn = load_library().sparse_adagrad_list_bytes
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_longlong]
+    return fn(m, c)
 
 
 def _check_args(table, acc, ids, rows) -> None:
@@ -119,10 +157,13 @@ def _check_args(table, acc, ids, rows) -> None:
                          f"the kernel's 32-bit indices")
 
 
-def _workspace(acc: torch.Tensor, m: int) -> _Workspace:
-    """``acc``'s workspace, made at its first use and grown to ``m`` occurrences."""
+def _workspace(acc: torch.Tensor, m: int, c: int) -> _Workspace:
+    """``acc``'s workspace, made at its first use and grown to ``m``
+    occurrences in chunks of ``c``."""
+    d, list_bytes, split_rows = acc.shape[1], _list_bytes(m, c), m // (c + 1)
     ws = _WORKSPACES.get(id(acc))
-    if ws is not None and ws.owner_list.shape[0] >= m:
+    if ws is not None and (ws.counts.shape[0] >= m and ws.lists.shape[0] >= list_bytes
+                           and ws.split_done.shape[0] >= split_rows):
         return ws
     if torch.cuda.is_current_stream_capturing():
         raise RuntimeError(
@@ -130,30 +171,47 @@ def _workspace(acc: torch.Tensor, m: int) -> _Workspace:
             "capture: run one update of this accumulator and batch shape eagerly "
             "first (the graph route's warm-up step does)")
     device = acc.device
-    owner_list = torch.empty(m, dtype=torch.int32, device=device)
-    sums = torch.zeros((m, acc.shape[1]), dtype=torch.int64, device=device)
+    if ws is not None:   # grown to hold both what it held and this call
+        m = max(m, ws.counts.shape[0])
+        list_bytes = max(list_bytes, ws.lists.shape[0])
+        split_rows = max(split_rows, ws.split_done.shape[0])
+    per_m = (torch.zeros(m, dtype=torch.int32, device=device),
+             torch.empty(list_bytes, dtype=torch.uint8, device=device),
+             torch.zeros((split_rows, d), dtype=torch.int64, device=device),
+             torch.zeros(split_rows, dtype=torch.int32, device=device))
     if ws is None:
-        if device not in ROWS_WRITTEN:
-            ROWS_WRITTEN[device] = torch.zeros(1, dtype=torch.int64, device=device)
+        for counters in (ROWS_WRITTEN, ROWS_SPLIT):
+            if device not in counters:
+                counters[device] = torch.zeros(1, dtype=torch.int64, device=device)
         ws = _Workspace(
             torch.full((acc.shape[0],), _INT_MAX, dtype=torch.int32, device=device),
             torch.zeros(-(-_scratch_bytes() // 8), dtype=torch.int64, device=device),
-            owner_list, sums)
+            *per_m)
         _WORKSPACES[id(acc)] = ws
         weakref.finalize(acc, _WORKSPACES.pop, id(acc), None)
     else:
-        ws.retired.append((ws.owner_list, ws.sums))
-        ws.owner_list, ws.sums = owner_list, sums
+        ws.retired.append((ws.counts, ws.lists, ws.split_sums, ws.split_done))
+        ws.counts, ws.lists, ws.split_sums, ws.split_done = per_m
     return ws
+
+
+def _read(counters: dict, device) -> int:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    count = counters.get(device)
+    return 0 if count is None else int(count)
 
 
 def rows_written(device) -> int:
     """The rows the kernel has written on ``device`` (a synchronising read)."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    count = ROWS_WRITTEN.get(device)
-    return 0 if count is None else int(count)
+    return _read(ROWS_WRITTEN, device)
+
+
+def rows_split(device) -> int:
+    """The rows the kernel has summed in more than one chunk on ``device``
+    (a synchronising read)."""
+    return _read(ROWS_SPLIT, device)
 
 
 def adagrad_dense_update(table: torch.Tensor, acc: torch.Tensor, ids: torch.Tensor,
@@ -176,13 +234,16 @@ def adagrad_dense_update(table: torch.Tensor, acc: torch.Tensor, ids: torch.Tens
     m, d = rows.shape
     if m == 0:
         return
-    ws = _workspace(acc, m)
+    c = chunk(m, d, table.device)
+    ws = _workspace(acc, m, c)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         code = _kernel()(table.data_ptr(), int(table.dtype == torch.bfloat16),
                          acc.data_ptr(), ids.data_ptr(), rows.data_ptr(), table.shape[0],
-                         d, m, lr, eps, ws.owner.data_ptr(), ws.owner_list.data_ptr(),
-                         ws.sums.data_ptr(), ws.scratch.data_ptr(), MAX_BLOCKS,
-                         ROWS_WRITTEN[table.device].data_ptr(), stream)
+                         d, m, c, lr, eps, ws.owner.data_ptr(), ws.counts.data_ptr(),
+                         ws.lists.data_ptr(), ws.split_sums.data_ptr(),
+                         ws.split_done.data_ptr(), ws.scratch.data_ptr(), MAX_BLOCKS,
+                         ROWS_WRITTEN[table.device].data_ptr(),
+                         ROWS_SPLIT[table.device].data_ptr(), stream)
     check(code, f"adagrad_dense_update (table {list(table.shape)}, rows {list(rows.shape)})")
     LAUNCHES += 1

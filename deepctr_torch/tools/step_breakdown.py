@@ -330,11 +330,14 @@ def tower_params(dims) -> int:
 
 
 def component_work(name: str, *, batch: int, slots: int, d: int, vocab: int,
-                   unique: int, table_bytes: int, dims) -> dict:
+                   unique: int, table_bytes: int, dims, cuda: bool = False) -> dict:
     """Bytes and FLOP of one component at the step's shapes, each input read
     once and each output written once, and the peak that bounds its FLOP.
-    ``unique`` is the batch's distinct ids (the rows a gather or the sorted
-    update must touch), ``table_bytes`` the table's element size."""
+    ``unique`` is the batch's distinct ids (the rows a gather, the sorted
+    update or the dense-mode kernel must touch), ``table_bytes`` the table's
+    element size; ``cuda`` says the dense-mode update runs as its kernel,
+    which touches those rows alone, and not as the plain version's
+    whole-table pass."""
     m = batch * slots
     ids, occ = 8 * m, 4 * m * d                      # int64 ids, f32 occurrence rows
     rows_t, rows_acc = unique * d * table_bytes, unique * d * 4
@@ -346,11 +349,11 @@ def component_work(name: str, *, batch: int, slots: int, d: int, vocab: int,
         nbytes, flop = ids + rows_t + occ, 0
     elif name == "scatter_dense":
         nbytes, flop = ids + occ + full_acc, m * d
-    elif name == "adagrad_dense":
+    elif name == "adagrad_dense" and not cuda:
         # ids and rows in; table and accumulator read and written; 7 ops an
         # element (g*g, acc +=, sqrt, + eps, lr *, /, table -)
         nbytes, flop = ids + occ + 2 * (full_t + full_acc), m * d + 7 * vocab * d
-    elif name == "adagrad_sorted":
+    elif name in ("adagrad_dense", "adagrad_sorted"):
         nbytes, flop = ids + occ + 2 * (rows_t + rows_acc), m * d + 7 * unique * d
     elif name == "tower_fwdbwd":
         # x, the parameters and g in; logits, gx and the gradients out
@@ -510,7 +513,7 @@ def run_components(h, ids: torch.Tensor, seed: int) -> tuple[dict, dict]:
         call = _in_turn(calls[name], cuda)
         ms = bench.call_ms(call)
         del call
-        work = component_work(name, **shape)
+        work = component_work(name, **shape, cuda=cuda)
         rec = {**work, **bound(work), "unique_ids": unique,
                "ms": ms if cuda else None, "in_step": name in STEP_COMPONENTS}
         rec["share"] = rec["bound_ms"] / ms if cuda else None
@@ -752,10 +755,9 @@ def report_lines(res: dict) -> list[str]:
             if cuda:
                 lines += ["", "On the card `adagrad_dense` times "
                           "`ops/kernels/sparse.py::adagrad_dense_update`, which reads and "
-                          "writes the touched rows alone; its bytes and bound here are "
-                          "still the plain version's whole-table pass, so its share of "
-                          "bound, and the composite bound below, overstate it (the "
-                          "kernel's own byte bound: `chip_smoke.py` phase 26)."]
+                          "writes the touched rows alone, and its bytes and bound count "
+                          "those rows, as `chip_smoke.py` phase 26 does at this shape "
+                          "and phase 27 at DLRM-DCNv2's."]
             if dtype == res["dtypes"][0] and res.get("ptxas"):
                 lines += ["", "ptxas on the tower kernels, beside `tower_fwdbwd`'s time:"]
                 lines += [f"- `{x}`" for x in res["ptxas"]]

@@ -304,6 +304,8 @@ def test_component_counts_against_a_hand_count():
     # five rows of table (20) and accumulator (40), read and written
     assert work["adagrad_sorted"]["bytes"] == 96 + 96 + 2 * (20 + 40)
     assert work["adagrad_sorted"]["flop"] == 24 + 7 * 10
+    # on the card the dense-mode kernel touches those five rows alone
+    assert sb.component_work("adagrad_dense", **shape, cuda=True) == work["adagrad_sorted"]
     # params 6x4 + 4 + 4x1 + 1 = 33; x 4 x 6, g and logits 4 each
     assert work["tower_fwdbwd"] == {
         "bytes": 4 * (2 * 24 + 2 * 33 + 2 * 4),
