@@ -316,7 +316,17 @@ Phases, each printing its own lines:
     second call, its ms beside its 3xTF32 bound and cuBLAS f32's ms; then
     two fresh DLRM states through one replay each of an 8-step graph, bit
     for bit, with 192 kernel products and 24 cuBLAS products a replay
-    (``_phase28_dense_bwd``).
+    (``_phase28_dense_bwd``);
+29. xDeepFM at the paper's Criteo widths (``_phase29_xdeepfm``): the tower
+    kernels at the DNN's [4096, 390] 400-400-1 relu, forward, backward and
+    the autograd wrapper against the plain versions, timed beside their
+    3xTF32 bounds; the dense-mode sparse Adagrad kernel at the benchmark
+    cell's scale (a 26,000,833 x 11 f32 table, 159,744 one-hot Zipf
+    occurrences a batch) as in phase 27; the CLI's loop
+    (``configs/xdeepfm_criteo.json``) for 3 chunks of 8 x 4096; one 8-step
+    graph replay against 8 eager steps bit for bit, one replay's counters
+    from 0 (tower, update, CIN products and outer-product bytes, ids
+    gathered) as predicted, and the step's device ms by phase.
 Phases 8-13 train through the CLI, so on the scan route: their launch
 counts add each replay's captured launches (the wrappers run but launch
 nothing during a capture), and each capture's warm-up step on the state
@@ -4021,6 +4031,103 @@ DLRM_ROWS_CAP = 100_000     # phase 27 (c): the graph check's tables, capped
 DLRM_CLI_CAP = 1_000_000    # phase 27 (b): the CLI run's tables, capped (the config's)
 
 
+def _update_at_scale(dev, tag, schema, d, lr, eps, batch, seed, filled) -> dict:
+    """The dense-mode sparse Adagrad kernel on a benchmark cell's f32 table
+    ``[V, d]`` (rows N(0, 1e-3^2), the pad row zero) and its accumulator:
+    three batches of ``batch`` examples of Zipf ids (``_zipf_ids``), table
+    and accumulator bit for bit against ``adagrad_dense_plain`` run on the
+    touched rows alone (the same bits: a row's update reads its own sums and
+    the scale, which depends on M, D and the largest gradient), every
+    untouched row kept, the workspace clean, the rows written and split as
+    predicted and one launch an update; then the update's device ms (CUDA
+    events over 10 calls on the first batch) beside its byte bound (ids and
+    gradient rows read once, each distinct row's accumulator and table row
+    read and written once), and the rows it split a call."""
+    import torch
+
+    from deepctr_torch.ops.kernels import sparse as sparse_k
+
+    v = schema.padded_vocab_size
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    block = 1 << 22
+
+    def initial(start):   # rows [start, start + block) of the initial table
+        gen_b = torch.Generator(device=dev).manual_seed(seed + start)
+        rows = torch.randn(min(block, v - start), d, generator=gen_b, device=dev) * 1e-3
+        if start <= schema.pad_id < start + block:
+            rows[schema.pad_id - start] = 0.0
+        return rows
+
+    table = torch.empty(v, d, device=dev)
+    for start in range(0, v, block):
+        table[start:start + block] = initial(start)
+    acc = torch.zeros(v, d, device=dev)
+    batches = []
+    for _ in range(3):
+        ids = _zipf_ids(schema, batch, gen, dev, filled=filled).reshape(-1)
+        batches.append((ids, torch.randn(ids.shape[0], d, generator=gen, device=dev) * 1e-5))
+    m = batches[0][0].numel()
+    every = torch.unique(torch.cat([b[0] for b in batches]))
+    p_table, p_acc = table[every].clone(), torch.zeros(every.numel(), d, device=dev)
+    split_want = [_split_rows(b[0], v, d) for b in batches]
+    written, split = sparse_k.rows_written(dev), sparse_k.rows_split(dev)
+    sparse_k.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for ids, rows in batches:
+        sparse_k.adagrad_dense_update(table, acc, ids, rows, lr, eps)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    launches = sparse_k.LAUNCHES
+    for ids, rows in batches:
+        sparse_k.adagrad_dense_plain(p_table, p_acc, torch.searchsorted(every, ids), rows,
+                                     lr, eps)
+    equal = _same_bits(table[every], p_table) and _same_bits(acc[every], p_acc)
+    untouched = torch.ones(v, dtype=torch.bool, device=dev)
+    untouched[every] = False
+    kept = True
+    for start in range(0, v, block):
+        here = untouched[start:start + block]
+        kept &= _same_bits(table[start:start + block][here], initial(start)[here])
+        kept &= not bool(acc[start:start + block][here].any())
+    ws = sparse_k._WORKSPACES[id(acc)]
+    clean = _sparse_clean(ws)
+    counted = (sparse_k.rows_written(dev) - written, sparse_k.rows_split(dev) - split)
+    distinct = [int(torch.unique(b[0]).numel()) for b in batches]
+    ws_bytes = sum(t.numel() * t.element_size()
+                   for t in (ws.counts, ws.lists, ws.split_sums, ws.split_done))
+    print(f"{tag}: table {v:,} x {d} f32 ({table.numel() * 4 / 1e9:.2f} GB, "
+          f"{table.numel():,} elements), {m:,} occurrences a batch ({m * d:,} gradient "
+          f"elements), distinct ids {distinct}: "
+          f"kernel vs plain on the touched rows bit for bit after 3 updates {equal}; "
+          f"untouched rows and their accumulator kept {kept}; workspace clean {clean} "
+          f"({ws_bytes / 1e6:.1f} MB for M; split sums {tuple(ws.split_sums.shape)} int64); "
+          f"rows written {counted[0]} (predicted {sum(distinct)}), rows split {counted[1]} "
+          f"(predicted {split_want}, chunk {sparse_k.chunk(m, d, dev)}); launches {launches} "
+          f"(predicted 3); 3 updates {kernel_s * 1e3:.1f} ms eager")
+    if not (equal and kept and clean and counted == (sum(distinct), sum(split_want))
+            and launches == 3):
+        raise AssertionError(f"{tag}: the kernel at the cell's scale")
+    ids, rows = batches[0]
+    split = sparse_k.rows_split(dev)
+    ms = _time_ms(lambda: sparse_k.adagrad_dense_update(table, acc, ids, rows, lr, eps),
+                  iters=10, warmup=2)
+    split_a_call = (sparse_k.rows_split(dev) - split) / 12
+    nbytes = m * 8 + m * d * 4 + distinct[0] * d * 2 * (4 + 4)
+    bound = _bound(0, nbytes)
+    print(f"{tag}: {ms:.4f} ms a call (CUDA events, 10 calls on the first "
+          f"batch); bound {bound['bound_ms']:.4f} ms ({nbytes:,} B at 3.35 TB/s), "
+          f"{100 * bound['bound_ms'] / ms:.1f}% of it; rows split {split_a_call:g} a call "
+          f"(predicted {split_want[0]})")
+    if split_a_call != split_want[0] or split_want[0] == 0:
+        raise AssertionError(f"{tag}: {split_a_call} rows split a call")
+    del table, acc, p_table, p_acc, batches, every, untouched, ws, ids, rows
+    sparse_k._WORKSPACES.clear()
+    torch.cuda.empty_cache()
+    return dict(occurrences=m, rows_touched=sum(distinct), equal=equal, update_ms=ms,
+                update_bound_ms=bound["bound_ms"], rows_split=split_want[0],
+                launches=launches)
+
+
 def _dlrm_slice_ids(schema, batch, gen, dev):
     """``[batch, S]`` ids of ``schema``, every slot filled, log-uniform over
     each field's rows."""
@@ -4069,90 +4176,14 @@ def _phase27_dlrm(dev, root, rng=None) -> dict:
     from deepctr_torch.utils import prof
 
     t_phase = time.perf_counter()
-    out = {}
     # (a) the update at the cell's scale
     rows_cap = [(r + 7) // 8 if r > 1_000_000 else r for r in synthetic_dlrm.MLPERF_ROWS]
     schema = Schema(tuple(
         FieldSpec(f"C{i + 1}", r, h)
         for i, (r, h) in enumerate(zip(rows_cap, synthetic_dlrm.MLPERF_HOTNESS))))
-    v, d, lr, eps = schema.padded_vocab_size, 128, 0.004, 1e-8
-    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
-    block = 1 << 22
-
-    def initial(start):   # rows [start, start + block) of the initial table
-        gen_b = torch.Generator(device=dev).manual_seed(SEED + 27 + start)
-        rows = torch.randn(min(block, v - start), d, generator=gen_b, device=dev) * 1e-3
-        if start <= schema.pad_id < start + block:
-            rows[schema.pad_id - start] = 0.0
-        return rows
-
-    table = torch.empty(v, d, device=dev)
-    for start in range(0, v, block):
-        table[start:start + block] = initial(start)
-    acc = torch.zeros(v, d, device=dev)
-    batches = []
-    for _ in range(3):
-        ids = _zipf_ids(schema, BATCH, gen, dev, filled=True).reshape(-1)
-        batches.append((ids, torch.randn(ids.shape[0], d, generator=gen, device=dev) * 1e-5))
-    m = batches[0][0].numel()
-    every = torch.unique(torch.cat([b[0] for b in batches]))
-    p_table, p_acc = table[every].clone(), torch.zeros(every.numel(), d, device=dev)
-    split_want = [_split_rows(b[0], v, d) for b in batches]
-    written, split = sparse_k.rows_written(dev), sparse_k.rows_split(dev)
-    sparse_k.LAUNCHES = 0
-    t0 = time.perf_counter()
-    for ids, rows in batches:
-        sparse_k.adagrad_dense_update(table, acc, ids, rows, lr, eps)
-    torch.cuda.synchronize()
-    kernel_s = time.perf_counter() - t0
-    launches = {"a": sparse_k.LAUNCHES}
-    for ids, rows in batches:
-        sparse_k.adagrad_dense_plain(p_table, p_acc, torch.searchsorted(every, ids), rows,
-                                     lr, eps)
-    equal = _same_bits(table[every], p_table) and _same_bits(acc[every], p_acc)
-    untouched = torch.ones(v, dtype=torch.bool, device=dev)
-    untouched[every] = False
-    kept = True
-    for start in range(0, v, block):
-        here = untouched[start:start + block]
-        kept &= _same_bits(table[start:start + block][here], initial(start)[here])
-        kept &= not bool(acc[start:start + block][here].any())
-    ws = sparse_k._WORKSPACES[id(acc)]
-    clean = _sparse_clean(ws)
-    counted = (sparse_k.rows_written(dev) - written, sparse_k.rows_split(dev) - split)
-    distinct = [int(torch.unique(b[0]).numel()) for b in batches]
-    ws_bytes = sum(t.numel() * t.element_size()
-                   for t in (ws.counts, ws.lists, ws.split_sums, ws.split_done))
-    print(f"dlrm sparse adagrad: table {v:,} x {d} f32 ({table.numel() * 4 / 1e9:.2f} GB, "
-          f"{table.numel():,} elements), {m:,} occurrences a batch ({m * d:,} gradient "
-          f"elements), distinct ids {distinct}: "
-          f"kernel vs plain on the touched rows bit for bit after 3 updates {equal}; "
-          f"untouched rows and their accumulator kept {kept}; workspace clean {clean} "
-          f"({ws_bytes / 1e6:.1f} MB for M; split sums {tuple(ws.split_sums.shape)} int64); "
-          f"rows written {counted[0]} (predicted {sum(distinct)}), rows split {counted[1]} "
-          f"(predicted {split_want}, chunk {sparse_k.chunk(m, d, dev)}); launches {launches['a']} "
-          f"(predicted 3); 3 updates {kernel_s * 1e3:.1f} ms eager")
-    if not (equal and kept and clean and counted == (sum(distinct), sum(split_want))
-            and launches["a"] == 3):
-        raise AssertionError("dlrm sparse adagrad: the kernel at the cell's scale")
-    ids, rows = batches[0]
-    split = sparse_k.rows_split(dev)
-    ms = _time_ms(lambda: sparse_k.adagrad_dense_update(table, acc, ids, rows, lr, eps),
-                  iters=10, warmup=2)
-    split_a_call = (sparse_k.rows_split(dev) - split) / 12
-    nbytes = m * 8 + m * d * 4 + distinct[0] * d * 2 * (4 + 4)
-    bound = _bound(0, nbytes)
-    print(f"dlrm sparse adagrad: {ms:.4f} ms a call (CUDA events, 10 calls on the first "
-          f"batch); bound {bound['bound_ms']:.4f} ms ({nbytes:,} B at 3.35 TB/s), "
-          f"{100 * bound['bound_ms'] / ms:.1f}% of it; rows split {split_a_call:g} a call "
-          f"(predicted {split_want[0]})")
-    if split_a_call != split_want[0] or split_want[0] == 0:
-        raise AssertionError(f"dlrm sparse adagrad: {split_a_call} rows split a call")
-    out.update(occurrences=m, rows_touched=sum(distinct), equal=equal, update_ms=ms,
-               update_bound_ms=bound["bound_ms"], rows_split=split_want[0])
-    del table, acc, p_table, p_acc, batches, every, untouched, ws, ids, rows
-    sparse_k._WORKSPACES.clear()
-    torch.cuda.empty_cache()
+    out = _update_at_scale(dev, "dlrm sparse adagrad", schema, 128, 0.004, 1e-8, BATCH,
+                           SEED + 27, filled=True)
+    launches = {"a": out.pop("launches")}
 
     # (b) the CLI's loop at full widths
     cfg = RunConfig.load(os.path.join(root, "configs", "dlrm_dcnv2_criteo.json"))
@@ -4361,6 +4392,209 @@ def _phase28_dense_bwd(dev, rng=None) -> dict:
             "launches_replay": replay[0], "library_replay": replay[1]}
 
 
+# phase 29: xDeepFM at the benchmark cell's widths (configs/xdeepfm_criteo.json)
+XDEEPFM_CONFIG = "configs/xdeepfm_criteo.json"
+XDEEPFM_BATCH = 4096
+XDEEPFM_IN = 39 * 10        # the DNN's input: the 39 fields' k = 10 factors
+XDEEPFM_HIDDEN = (400, 400)
+XDEEPFM_MAPS = (200, 200, 200)
+XDEEPFM_LABEL_RATE = 0.256
+
+
+def _phase29_xdeepfm(dev, root, rng) -> dict:
+    """xDeepFM (``models/xdeepfm.py``) at the paper's Criteo widths, on the
+    shapes of the benchmark cell ``xdeepfm_criteo.train_cin``. (a) The
+    tower kernels at the DNN's [4096, 390] 400-400-1 relu, no dropout: the
+    forward and the backward kernel against the plain versions, and the
+    autograd wrapper ``mlp_tower`` against autograd through the plain tower,
+    every gradient (rows at relu's step get no upstream gradient, see
+    RELU_EDGE); the forward and the backward timed in turns with the plain
+    ones, beside their 3xTF32 bounds. (b) The dense-mode sparse Adagrad at
+    the cell's table (26,000,833 x 11 f32) and occurrences (4096 x 39
+    one-hot Zipf ids a batch, 159,744), as phase 27 (a)
+    (``_update_at_scale``). (c) The CLI's loop
+    (``configs/xdeepfm_criteo.json``) for 3 chunks of 8 x 4096: losses
+    finite, one dense-mode update a step and one a capture's warm-up step.
+    (d) One replay of the 8-step graph against 8 eager steps from one state,
+    losses and every state tensor bit for bit, at the cell's widths and
+    table; every counter set to 0 just before one replay and read after it:
+    8 launches each of the tower's forward and backward and of the update,
+    no dropout launch, 6 CIN products a step on cuBLAS (``dense.BWD_LIBRARY``)
+    and none on the backward kernel, ``cin.PRODUCTS`` 9 a step,
+    ``cin.OUTER_BYTES`` ``cin.outer_bytes`` a step, ``pool.OCCURRENCES``
+    4096 x 39 a step; and the step's device ms by phase from the graph's
+    stamps over 5 replays."""
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch.config import RunConfig
+    from deepctr_torch.data.criteo import criteo_schema
+    from deepctr_torch.ops import cin as cin_op
+    from deepctr_torch.ops import kernels
+    from deepctr_torch.ops.kernels import mlp as mlp_k
+    from deepctr_torch.ops.kernels import sparse as sparse_k
+    from deepctr_torch.train import init_state, make_scan_train_step, make_train_step
+    from deepctr_torch.train.step import _state_tensors
+    from deepctr_torch.utils import prof
+
+    t_phase = time.perf_counter()
+    # (a) the DNN's tower
+    dims = (XDEEPFM_IN,) + XDEEPFM_HIDDEN + (1,)
+    tag = f"[{XDEEPFM_BATCH}, {XDEEPFM_IN}] {'-'.join(map(str, dims[1:]))} relu"
+    x = torch.from_numpy(rng.normal(size=(XDEEPFM_BATCH, XDEEPFM_IN))
+                         .astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=XDEEPFM_BATCH).astype(np.float32)).to(dev)
+    layers = _tower(rng, dims, dev)
+    errs = [_check_close(f"xdeepfm tower: fwd kernel vs plain {tag}",
+                         mlp_k.mlp_tower_fwd(x, layers, "relu").cpu(),
+                         mlp_k.mlp_tower_plain(x, layers, "relu").cpu())]
+    edge = _relu_edge_rows(x, layers, 0.0, 0)
+    g_up = torch.where(edge, 0.0, g)
+    print(f"xdeepfm tower {tag}: {int(edge.sum())} of {XDEEPFM_BATCH} rows have a hidden "
+          f"pre-activation within {RELU_EDGE:g} of 0; their upstream gradient is set to 0")
+    gx, grads = mlp_k.mlp_tower_bwd(x, layers, g_up, "relu")
+    wgx, wgrads = mlp_k.mlp_tower_bwd_plain(x, layers, g_up, "relu")
+    errs.append(_check_close(f"xdeepfm tower: bwd kernel vs plain {tag}: gx", gx.cpu(),
+                             wgx.cpu()))
+    for i, ((gw, gb), (ww, wb)) in enumerate(zip(grads, wgrads)):
+        errs.append(_check_grad(f"xdeepfm tower: bwd kernel vs plain {tag}: gW{i}",
+                                gw.cpu(), ww.cpu()))
+        errs.append(_check_grad(f"xdeepfm tower: bwd kernel vs plain {tag}: gb{i}",
+                                gb.cpu(), wb.cpu()))
+    xg = x.clone().requires_grad_(True)
+    lg = [(w.clone().requires_grad_(True), b.clone().requires_grad_(True))
+          for w, b in layers]
+    flat = [xg] + [t for pair in lg for t in pair]
+    got = torch.autograd.grad(mlp_k.mlp_tower(xg, lg, "relu", 0.0, 0), flat, g_up)
+    want = torch.autograd.grad(mlp_k.mlp_tower_plain(xg, lg, "relu", 0.0, 0), flat, g_up)
+    errs.append(_check_close(f"xdeepfm tower: mlp_tower vs autograd of the plain {tag}: "
+                             f"gx", got[0].cpu(), want[0].cpu()))
+    for i, (a, e) in enumerate(zip(got[1:], want[1:])):
+        errs.append(_check_grad(f"xdeepfm tower: mlp_tower vs autograd of the plain {tag}: "
+                                f"leaf {i}", a.cpu(), e.cpu()))
+    fwd = _in_turns({"plain": lambda: mlp_k.mlp_tower_plain(x, layers, "relu"),
+                     "kernel": lambda: mlp_k.mlp_tower_fwd(x, layers, "relu")})
+    bwd = _in_turns({"plain": lambda: mlp_k.mlp_tower_bwd_plain(x, layers, g, "relu"),
+                     "kernel": lambda: mlp_k.mlp_tower_bwd(x, layers, g, "relu")})
+    work = _tower_work(XDEEPFM_BATCH, dims)
+    bounds = {name: _bound(*work[name])["bound_3xtf32_ms"] for name in ("fwd", "bwd")}
+    for name, t in (("fwd", fwd), ("bwd", bwd)):
+        print(f"xdeepfm tower {tag} {name}: kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms (CUDA events, in turns); 3xTF32 bound "
+              f"{bounds[name]:.4f} ms, "
+              f"{100 * bounds[name] / t['kernel']:.1f}% of it")
+    out = {"tower_err": max(errs), "tower_fwd_ms": fwd["kernel"],
+           "tower_fwd_plain_ms": fwd["plain"], "tower_fwd_bound_ms": bounds["fwd"],
+           "tower_bwd_ms": bwd["kernel"], "tower_bwd_plain_ms": bwd["plain"],
+           "tower_bwd_bound_ms": bounds["bwd"]}
+    del x, g, g_up, layers, xg, lg, flat, got, want, gx, grads, wgx, wgrads
+
+    # (b) the update at the cell's scale
+    cfg = RunConfig.load(os.path.join(root, XDEEPFM_CONFIG))
+    schema = criteo_schema(cfg.data.criteo_cat_buckets)
+    upd = _update_at_scale(dev, "xdeepfm sparse adagrad", schema, 1 + cfg.model.k,
+                           cfg.optim.sparse_lr, cfg.optim.eps, XDEEPFM_BATCH, SEED + 29,
+                           filled=False)
+    launches = {"b": upd["launches"]}
+    out.update(update_ms=upd["update_ms"], update_bound_ms=upd["update_bound_ms"],
+               update_rows_split=upd["rows_split"])
+
+    # (c) the CLI's loop at the cell's widths
+    run_cfg = cfg.apply_overrides([
+        f"data.synthetic_examples={3 * SCAN_K * XDEEPFM_BATCH * 100 // 85 + 1}",
+        "train.epochs=1"])
+    t0 = time.perf_counter()
+    sparse_k.LAUNCHES = 0
+    res = cli.run(run_cfg, dev)
+    launches["c"] = sparse_k.LAUNCHES
+    rec = res["history"][0]
+    print(f"xdeepfm cli: {res['state'].step} steps of {XDEEPFM_BATCH} at the paper's "
+          f"Criteo widths ({res['state'].model.table.shape[0]:,} rows): train loss "
+          f"{rec['train_loss']:.5f}, held-out AUC {rec['auc']:.4f}, "
+          f"{rec['examples_per_s']:,.0f} examples/s (the first chunk captures), "
+          f"{time.perf_counter() - t0:.1f} s; dense-mode updates launched {launches['c']} "
+          f"(predicted {res['state'].step + 1}: the capture's warm-up step and each step)")
+    if not all(np.isfinite(r["train_loss"]) for r in res["history"]):
+        raise AssertionError(f"xdeepfm cli: a loss is not finite: {res['history']}")
+    if launches["c"] != res["state"].step + 1:
+        raise AssertionError(f"xdeepfm cli: {launches['c']} dense-mode updates launched")
+    out["cli_examples_per_s"] = rec["examples_per_s"]
+    del res
+    torch.cuda.empty_cache()
+
+    # (d) a replay against eager steps, one replay's counters, and the phases
+    sopt, dopt = cli.build_optimizers(cfg)
+
+    def fresh():
+        return init_state(cli.build_model(cfg, schema, dev), schema, sopt, dopt, seed=SEED)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 290)
+    chunk = (_zipf_ids(schema, SCAN_K * XDEEPFM_BATCH, gen, dev).view(SCAN_K, XDEEPFM_BATCH, -1),
+             (torch.rand(SCAN_K, XDEEPFM_BATCH, generator=gen, device=dev)
+              < XDEEPFM_LABEL_RATE).float(),
+             torch.ones(SCAN_K, XDEEPFM_BATCH, device=dev))
+    g_state = fresh()
+    prof.enable(True)
+    try:
+        scan = make_scan_train_step(schema, sopt, dopt)
+        scan(g_state, *chunk)
+        prof.drain()
+        kernels.add_launch_counts({n: -c for n, c in kernels.launch_counts().items()})
+        scan(g_state, *chunk)
+        counts = kernels.launch_counts()
+        for _ in range(4):
+            scan(g_state, *chunk)
+        torch.cuda.synchronize()
+        reading = [r for r in prof.drain()["phases"] if len(r.stamps)]
+        ms = {k: v / (5 * SCAN_K) for k, v in prof.reading_ms(reading[0]).items()}
+    finally:
+        prof.enable(False)
+        prof.drain()
+    scan.graph.clear()
+    del g_state, scan
+    want_counts = {
+        "mlp.LAUNCHES": SCAN_K, "mlp.DROPOUT_LAUNCHES": 0, "mlp.BWD_LAUNCHES": SCAN_K,
+        "interaction.LAUNCHES": 0, "sparse.LAUNCHES": SCAN_K, "dense.BWD_LAUNCHES": 0,
+        "dense.BWD_LIBRARY": 2 * len(XDEEPFM_MAPS) * SCAN_K,
+        "pool.OCCURRENCES": SCAN_K * XDEEPFM_BATCH * schema.num_fields,
+        "cin.OUTER_BYTES": SCAN_K * cin_op.outer_bytes(XDEEPFM_BATCH, cfg.model.k,
+                                                       schema.num_fields, XDEEPFM_MAPS),
+        "cin.PRODUCTS": 3 * len(XDEEPFM_MAPS) * SCAN_K}
+    counted = {n: counts[n] for n in want_counts}
+    print(f"xdeepfm scan: one replay of {SCAN_K} steps, every counter from 0 just before "
+          f"it: {counted} (predicted {want_counts}; stamp.LAUNCHES {counts['stamp.LAUNCHES']})")
+    e_state = fresh()
+    step = make_train_step(schema, sopt, dopt)
+    e_losses = torch.stack([step(e_state, *(t[i] for t in chunk))[1].loss
+                            for i in range(SCAN_K)])
+    g2 = fresh()
+    scan2 = make_scan_train_step(schema, sopt, dopt)
+    g2, g2_losses = scan2(g2, *chunk)
+    same = (torch.equal(g2_losses, e_losses) and g2.step == e_state.step
+            and all(torch.equal(a, b)
+                    for a, b in zip(_state_tensors(g2), _state_tensors(e_state))))
+    scan2.graph.clear()
+    print(f"xdeepfm scan: one replay of an {SCAN_K}-step graph vs {SCAN_K} eager steps from "
+          f"one state at the cell's widths ({schema.padded_vocab_size:,} rows): losses and "
+          f"every state tensor bit-identical: {same}; losses "
+          f"{[round(float(x), 5) for x in e_losses]}")
+    print(f"xdeepfm scan: device ms a step by phase over 5 replays of {SCAN_K} steps "
+          f"(stamps): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; total {sum(ms.values()):.3f}")
+    if not same:
+        raise AssertionError("xdeepfm scan: the graph replay differs from eager steps")
+    if counted != want_counts:
+        raise AssertionError(f"xdeepfm scan: a replay's counters {counted}")
+    if list(ms) != ["lookup", "cin", "dnn", "backward", "cin_bwd", "sparse", "dense"]:
+        raise AssertionError(f"xdeepfm scan: phases {list(ms)}")
+    del g2, scan2, e_state, step, chunk
+    torch.cuda.empty_cache()
+    out.update(phase_ms=ms, replay_counts=counted,
+               launches=launches["b"] + launches["c"] + counted["sparse.LAUNCHES"])
+    print(f"xdeepfm: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def _template_args(mangled) -> str:
     """``<64, true>`` for a mangled ``ILi64ELb1EE``; '' for none."""
     if not mangled:
@@ -4395,14 +4629,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port's paths on one GPU.")
     ap.add_argument("--phases", help="run phases 1-3 (device, build, the tower "
                     "forward) and then only these phases (a comma list of 3, 6, 7, "
-                    "25, 26, 27, 28), and print no report")
+                    "25, 26, 27, 28, 29), and print no report")
     args = ap.parse_args(argv)
     phases = None
     if args.phases:
         phases = {int(p) for p in args.phases.split(",")}
-        if not phases <= {3, 6, 7, 25, 26, 27, 28}:
+        if not phases <= {3, 6, 7, 25, 26, 27, 28, 29}:
             ap.error(f"--phases {args.phases}: the phases alone are 3, 6, 7, 25, 26, "
-                     f"27 and 28")
+                     f"27, 28 and 29")
 
     import torch
 
@@ -4485,7 +4719,8 @@ def main(argv=None) -> int:
             {6: _phase6_training_kernels, 7: _phase7_fm_kernel,
              25: _phase25_tracing, 26: _phase26_sparse_adagrad,
              27: lambda dev, rng: _phase27_dlrm(dev, root),
-             28: _phase28_dense_bwd}[phase](dev, rng)
+             28: _phase28_dense_bwd,
+             29: lambda dev, rng: _phase29_xdeepfm(dev, root, rng)}[phase](dev, rng)
         print(f"chip_smoke: phases 1-3 and {sorted(phases - {3})} only (--phases): "
               f"no report")
         return 0
@@ -4625,6 +4860,7 @@ def main(argv=None) -> int:
     sparse = _phase26_sparse_adagrad(dev)
     dlrm = _phase27_dlrm(dev, root)
     dense_bwd = _phase28_dense_bwd(dev)
+    xdeepfm = _phase29_xdeepfm(dev, root, rng)
 
     work = _tower_work(BATCH, fnn_dims)
     criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))
@@ -4649,6 +4885,10 @@ def main(argv=None) -> int:
         "ms_criteo": tower_times["criteo tanh"][0],
         "plain_ms_criteo": tower_times["criteo tanh"][1],
         "bound_ms_criteo": _bound(*criteo["fwd"])["bound_ms"],
+        "ms_xdeepfm": xdeepfm["tower_fwd_ms"],
+        "plain_ms_xdeepfm": xdeepfm["tower_fwd_plain_ms"],
+        "bound_3xtf32_ms_xdeepfm": xdeepfm["tower_fwd_bound_ms"],
+        "launches_xdeepfm_replay": xdeepfm["replay_counts"]["mlp.LAUNCHES"],
     }, {
         "name": "mlp_tower_fwd (dropout branch)",
         "route": "cuda",
@@ -4694,6 +4934,11 @@ def main(argv=None) -> int:
         "ms_criteo": train_k["criteo_bwd_ms"],
         "plain_ms_criteo": train_k["criteo_bwd_plain_ms"],
         "bound_ms_criteo": _bound(*criteo["bwd"])["bound_ms"],
+        "ms_xdeepfm": xdeepfm["tower_bwd_ms"],
+        "plain_ms_xdeepfm": xdeepfm["tower_bwd_plain_ms"],
+        "bound_3xtf32_ms_xdeepfm": xdeepfm["tower_bwd_bound_ms"],
+        "launches_xdeepfm_replay": xdeepfm["replay_counts"]["mlp.BWD_LAUNCHES"],
+        "max_abs_err_xdeepfm": xdeepfm["tower_err"],
     }, {
         "name": "fm_score",
         "route": "cuda",
@@ -4741,6 +4986,10 @@ def main(argv=None) -> int:
         "ms_dlrm": dlrm["update_ms"],
         "bound_ms_dlrm": dlrm["update_bound_ms"],
         "rows_split_dlrm": dlrm["rows_split"],
+        "launches_xdeepfm": xdeepfm["launches"],
+        "ms_xdeepfm": xdeepfm["update_ms"],
+        "bound_ms_xdeepfm": xdeepfm["update_bound_ms"],
+        "rows_split_xdeepfm": xdeepfm["update_rows_split"],
     }, {
         "name": "dense_bwd_product",
         "route": "cuda",

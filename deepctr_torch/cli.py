@@ -1,8 +1,9 @@
 """CLI entry point: ``python -m deepctr_torch.cli --config configs/fnn.json``.
 
 Port of ``deepctr_tpu/cli.py`` for LR, FM, FNN, SNN, DeepFM and PNN
-(IPNN/OPNN), and the port's own DLRM-DCNv2 (``model.name=dlrm_dcnv2``,
-below): it reads the same ``configs/*.json`` and dotted overrides
+(IPNN/OPNN), and the port's own DLRM-DCNv2 (``model.name=dlrm_dcnv2``) and
+xDeepFM (``model.name=xdeepfm``), below: it reads the same
+``configs/*.json`` and dotted overrides
 (``deepctr_torch.config.RunConfig``, the port's copy of the reference's),
 trains (``run``: data in RAM or streamed from shard files
 (``data.stream``), model, optimizers, a resumed train state
@@ -67,6 +68,15 @@ inputs) and cross network (3 layers of rank 512) are MLPerf's, fixed. Its
 ``.yx`` files, checkpoints, scoring, sharding and pretraining are not
 supported, and asking for them raises.
 
+``model.name=xdeepfm`` (``configs/xdeepfm_criteo.json``), which the
+reference lacks, trains on the data the other models train on (generated
+Criteo data with ``data.format=criteo``, or any schema and files), through
+the same ``fit`` and scan route; ``k`` is its factors' width and
+``model.hidden`` its DNN's hidden widths, ReLU and no dropout, and its CIN
+is the paper's Criteo one, 200-200-200 feature maps, fixed. Its
+checkpoints, scoring, sharding, pretraining and hand-off are not supported,
+and asking for them raises.
+
 ``train.prefetch`` (default true) stages the training batches, or chunks, on
 a background thread, onto the card through pinned buffers and a side stream
 (``data.DevicePrefetcher``). ``train.profile_dir`` writes a
@@ -104,6 +114,7 @@ def build_model(cfg, schema, device: torch.device | str):
         make_lr,
         make_pnn,
         make_snn,
+        make_xdeepfm,
     )
 
     m = cfg.model
@@ -132,8 +143,14 @@ def build_model(cfg, schema, device: torch.device | str):
                              "model.activation=relu and model.dropout=0")
         return make_dlrm_dcnv2(schema, embed_dim=m.k, top=tuple(m.hidden),
                                init_sigma=m.init_sigma, device=device)
+    if m.name == "xdeepfm":
+        if m.activation != "relu" or m.dropout != 0.0:
+            raise ValueError("xdeepfm's DNN has ReLU layers and no dropout: set "
+                             "model.activation=relu and model.dropout=0")
+        return make_xdeepfm(schema, k=m.k, dnn=tuple(m.hidden), init_sigma=m.init_sigma,
+                            device=device)
     raise ValueError(
-        f"unknown model {m.name!r} (lr|fm|fnn|snn|deepfm|ipnn|opnn|dlrm_dcnv2)"
+        f"unknown model {m.name!r} (lr|fm|fnn|snn|deepfm|ipnn|opnn|dlrm_dcnv2|xdeepfm)"
     )
 
 
@@ -250,8 +267,8 @@ def run(cfg, device: torch.device) -> dict:
     """Train the configured model on ``device``; returns the best AUC, its
     epoch, the per-epoch history and the final ``TrainState`` (with
     ``train.sharded``, this rank's ``parallel.ShardedTrainState``)."""
-    if cfg.model.name == "dlrm_dcnv2":
-        _refuse_for_dense_inputs(cfg)
+    if cfg.model.name in ("dlrm_dcnv2", "xdeepfm"):
+        _refuse_unsupported(cfg)
     with torch.autograd.set_detect_anomaly(cfg.train.debug_nans):
         if not cfg.train.sharded:
             return _run(cfg, device)
@@ -261,17 +278,21 @@ def run(cfg, device: torch.device) -> dict:
             return _run(cfg, group.device, group)
 
 
-def _refuse_for_dense_inputs(cfg) -> None:
-    """DLRM-DCNv2 trains on generated data in RAM on one device: raise for
-    the options it does not take (the module's docstring)."""
+def _refuse_unsupported(cfg) -> None:
+    """DLRM-DCNv2 trains on generated data in RAM on one device, xDeepFM on
+    one device without checkpoints: raise for the options each does not
+    take (the module's docstring)."""
     t, d = cfg.train, cfg.data
     unsupported = {"train.sharded": t.sharded, "train.checkpoint_path": t.checkpoint_path,
                    "train.resume": t.resume, "train.pretrain": t.pretrain,
-                   "data.train_path": d.train_path, "data.stream": d.stream,
                    "model.init_from": cfg.model.init_from}
+    where = "on one device without checkpoints"
+    if cfg.model.name == "dlrm_dcnv2":
+        unsupported.update({"data.train_path": d.train_path, "data.stream": d.stream})
+        where = "on generated data in RAM on one device"
     asked = [k for k, v in unsupported.items() if v]
     if asked:
-        raise ValueError(f"dlrm_dcnv2 trains on generated data in RAM on one device; "
+        raise ValueError(f"{cfg.model.name} trains {where}; "
                          f"it does not take {', '.join(asked)}")
 
 
@@ -579,7 +600,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="deepctr_torch",
         description="CTR training and scoring on PyTorch/CUDA (LR, FM, FNN, "
-        "SNN, DeepFM, IPNN/OPNN; training DLRM-DCNv2)",
+        "SNN, DeepFM, IPNN/OPNN; training DLRM-DCNv2 and xDeepFM)",
     )
     ap.add_argument("--config", help="JSON config path (defaults applied)")
     ap.add_argument(

@@ -1,5 +1,5 @@
 """Models of the port: LR, FM, FNN, SNN (with its DAE and RBM pretrainers),
-DeepFM, PNN (IPNN/OPNN) and DLRM-DCNv2."""
+DeepFM, PNN (IPNN/OPNN), DLRM-DCNv2 and xDeepFM."""
 
 from .base import MlpSpec, apply_model, init_mlp, lazy_l2, weighted_bce_with_logits
 from .deepfm import DeepFMModel, make_deepfm
@@ -18,10 +18,12 @@ from .snn import (
     make_snn,
     sample_negatives,
 )
+from .xdeepfm import XDeepFMModel, make_xdeepfm
 
 __all__ = ["MlpSpec", "apply_model", "init_mlp", "lazy_l2",
            "weighted_bce_with_logits", "DeepFMModel", "make_deepfm", "DLRMModel",
            "make_dlrm_dcnv2", "FMModel",
            "make_fm", "FNNModel", "make_fnn", "LRModel", "make_lr", "PNNModel",
            "make_pnn", "DaePretrainer", "FieldSampling", "RbmPretrainer", "SNNModel",
-           "field_sampling", "init_pretrain_dense", "make_snn", "sample_negatives"]
+           "field_sampling", "init_pretrain_dense", "make_snn", "sample_negatives",
+           "XDeepFMModel", "make_xdeepfm"]

@@ -4,8 +4,10 @@ Each wrapper counts its launches in a module-level integer
 (``mlp.LAUNCHES``, ``mlp.DROPOUT_LAUNCHES``, ``mlp.BWD_LAUNCHES``,
 ``interaction.LAUNCHES``, ``stamp.LAUNCHES``, ``sparse.LAUNCHES``,
 ``dense.BWD_LAUNCHES``, and ``dense.BWD_LIBRARY``: the dense layers'
-backward products its shape rule sent to cuBLAS), and ``ops/pool.py`` the
-ids the train steps gather (``pool.OCCURRENCES``).
+backward products its shape rule sent to cuBLAS), ``ops/pool.py`` the
+ids the train steps gather (``pool.OCCURRENCES``), and ``ops/cin.py`` the
+CIN's outer-product bytes and products (``cin.OUTER_BYTES``,
+``cin.PRODUCTS``).
 :func:`launch_counts` reads them all, by name. Under CUDA graph capture a
 wrapper runs but launches nothing; the graph's replays launch what it
 recorded. So ``train/step.py``'s graphs take back what their capture
@@ -18,18 +20,19 @@ from __future__ import annotations
 # the counters, named "<module>.<counter>"
 COUNTERS = ("mlp.LAUNCHES", "mlp.DROPOUT_LAUNCHES", "mlp.BWD_LAUNCHES",
             "interaction.LAUNCHES", "stamp.LAUNCHES", "sparse.LAUNCHES",
-            "dense.BWD_LAUNCHES", "dense.BWD_LIBRARY", "pool.OCCURRENCES")
+            "dense.BWD_LAUNCHES", "dense.BWD_LIBRARY", "pool.OCCURRENCES",
+            "cin.OUTER_BYTES", "cin.PRODUCTS")
 # the tower's and the FM scorer's counters under the names the tools report
 TOWER_NAMES = {"fwd": "mlp.LAUNCHES", "fwd_dropout": "mlp.DROPOUT_LAUNCHES",
                "bwd": "mlp.BWD_LAUNCHES", "fm_score": "interaction.LAUNCHES"}
 
 
 def _modules():
-    from .. import pool
+    from .. import cin, pool
     from . import dense, interaction, mlp, sparse, stamp
 
     return {"mlp": mlp, "interaction": interaction, "stamp": stamp, "sparse": sparse,
-            "dense": dense, "pool": pool}
+            "dense": dense, "pool": pool, "cin": cin}
 
 
 def launch_counts() -> dict[str, int]:

@@ -185,9 +185,11 @@ def _step_body(schema: Schema, sparse_opt, dense_opt, l2: float,
     graph of K steps run this same body. It counts the ids it gathers
     (``ops/pool.py``) and marks the end of each of its phases for the
     tracing (:func:`..utils.prof.phase`): ``lookup`` (the gather), the
-    model's own forward phases (DLRM's), then ``tower`` (forward, loss and
-    backward; a model's ``backward_phase`` where it marks its forward),
-    ``sparse`` and ``dense`` (the two updates)."""
+    model's own forward phases (DLRM's, xDeepFM's), a model's
+    ``loss_phase`` after the loss where it has one (xDeepFM's), then
+    ``tower`` (forward, loss and backward; a model's ``backward_phase``
+    where it marks its forward), ``sparse`` and ``dense`` (the two
+    updates)."""
     pad_id = schema.pad_id
 
     def body(state: TrainState, ids, labels, weights, lr_scale, seed, dense=None):
@@ -201,6 +203,8 @@ def _step_body(schema: Schema, sparse_opt, dense_opt, l2: float,
         logits = model.apply_rows(rows, mask, dense=dense, train=True, seed=seed)
         loss = weighted_bce_with_logits(logits, labels, weights)
         loss = loss + lazy_l2(rows, mask, l2)
+        if hasattr(model, "loss_phase"):
+            prof.phase(model.loss_phase)
         if check_finite and not bool(torch.isfinite(loss)):
             raise FloatingPointError(f"train step {state.step + 1}: loss "
                                      f"{float(loss.detach())} is not finite")
