@@ -326,7 +326,18 @@ Phases, each printing its own lines:
     (``configs/xdeepfm_criteo.json``) for 3 chunks of 8 x 4096; one 8-step
     graph replay against 8 eager steps bit for bit, one replay's counters
     from 0 (tower, update, CIN products and outer-product bytes, ids
-    gathered) as predicted, and the step's device ms by phase.
+    gathered) as predicted, and the step's device ms by phase;
+30. the CIN kernel (``csrc/cin.cu``, ``_phase30_cin``) at the cell's three
+    layers (B·D = 40,960 rows, 39 fields, 200-200-200 maps): each form (the
+    forward, the weight gradient, the operand gradient's two outputs, the
+    gradients of X^{k-1} and of X^0) against float64 beside the f32 error
+    of ``ops/cin.py``'s plain version (``outer`` and ``layer_grads``), the
+    same bits on a second call; each form's ms beside its 3xTF32 bound and
+    cuBLAS f32's product alone (``library_ms``), the forward's and the
+    layer's backward's beside the plain version's; the step's phases
+    ``cin`` and ``cin_bwd`` over graph replays on the plain route (the
+    parent's) and on the kernel; and every gap of the benchmark check
+    (``ctrbench.calibrate_xdeepfm``) on three seeds, each under its limit.
 Phases 8-13 train through the CLI, so on the scan route: their launch
 counts add each replay's captured launches (the wrappers run but launch
 nothing during a capture), and each capture's warm-up step on the state
@@ -4419,17 +4430,16 @@ def _phase29_xdeepfm(dev, root, rng) -> dict:
     losses and every state tensor bit for bit, at the cell's widths and
     table; every counter set to 0 just before one replay and read after it:
     8 launches each of the tower's forward and backward and of the update,
-    no dropout launch, 6 CIN products a step on cuBLAS (``dense.BWD_LIBRARY``)
-    and none on the backward kernel, ``cin.PRODUCTS`` 9 a step,
-    ``cin.OUTER_BYTES`` ``cin.outer_bytes`` a step, ``pool.OCCURRENCES``
-    4096 x 39 a step; and the step's device ms by phase from the graph's
-    stamps over 5 replays."""
+    no dropout launch, the CIN's 9 products a step on its kernel
+    (``cin_kernel.LAUNCHES``, ``cin.PRODUCTS``), none on cuBLAS
+    (``dense.BWD_LIBRARY``) or the dense backward kernel, no outer-product
+    bytes (``cin.OUTER_BYTES``), ``pool.OCCURRENCES`` 4096 x 39 a step; and
+    the step's device ms by phase from the graph's stamps over 5 replays."""
     import torch
 
     from deepctr_torch import cli
     from deepctr_torch.config import RunConfig
     from deepctr_torch.data.criteo import criteo_schema
-    from deepctr_torch.ops import cin as cin_op
     from deepctr_torch.ops import kernels
     from deepctr_torch.ops.kernels import mlp as mlp_k
     from deepctr_torch.ops.kernels import sparse as sparse_k
@@ -4555,11 +4565,10 @@ def _phase29_xdeepfm(dev, root, rng) -> dict:
     want_counts = {
         "mlp.LAUNCHES": SCAN_K, "mlp.DROPOUT_LAUNCHES": 0, "mlp.BWD_LAUNCHES": SCAN_K,
         "interaction.LAUNCHES": 0, "sparse.LAUNCHES": SCAN_K, "dense.BWD_LAUNCHES": 0,
-        "dense.BWD_LIBRARY": 2 * len(XDEEPFM_MAPS) * SCAN_K,
+        "dense.BWD_LIBRARY": 0,
         "pool.OCCURRENCES": SCAN_K * XDEEPFM_BATCH * schema.num_fields,
-        "cin.OUTER_BYTES": SCAN_K * cin_op.outer_bytes(XDEEPFM_BATCH, cfg.model.k,
-                                                       schema.num_fields, XDEEPFM_MAPS),
-        "cin.PRODUCTS": 3 * len(XDEEPFM_MAPS) * SCAN_K}
+        "cin.OUTER_BYTES": 0, "cin.PRODUCTS": 3 * len(XDEEPFM_MAPS) * SCAN_K,
+        "cin_kernel.LAUNCHES": 3 * len(XDEEPFM_MAPS) * SCAN_K}
     counted = {n: counts[n] for n in want_counts}
     print(f"xdeepfm scan: one replay of {SCAN_K} steps, every counter from 0 just before "
           f"it: {counted} (predicted {want_counts}; stamp.LAUNCHES {counts['stamp.LAUNCHES']})")
@@ -4595,6 +4604,197 @@ def _phase29_xdeepfm(dev, root, rng) -> dict:
     return out
 
 
+# phase 30: the CIN kernel at the benchmark cell's widths
+CIN_ROWS = XDEEPFM_BATCH * 10           # B·D: 4096 examples of D = 10
+CIN_FIELDS = 39
+CIN_LAYERS = {"layer 1": (39, 200, 1), "layers 2-3": (200, 200, 2)}   # maps in, out, a step
+CIN_F32_MULTIPLE = 2.0                  # the kernel's error over the plain f32 product's
+CIN_CELL = "xdeepfm_criteo.train_cin"
+CIN_GAP_SEEDS = (2147495001, 2147495002, 2147495003)
+
+
+def _xdeepfm_phases(dev, cfg, schema, chunk, replays=5) -> dict:
+    """The xDeepFM step's device ms by phase over ``replays`` replays of its
+    8-step graph (after one unmeasured), from a fresh state."""
+    import torch
+
+    from deepctr_torch import cli
+    from deepctr_torch.train import init_state, make_scan_train_step
+    from deepctr_torch.utils import prof
+
+    sopt, dopt = cli.build_optimizers(cfg)
+    state = init_state(cli.build_model(cfg, schema, dev), schema, sopt, dopt, seed=SEED)
+    prof.enable(True)
+    try:
+        scan = make_scan_train_step(schema, sopt, dopt)
+        scan(state, *chunk)
+        scan(state, *chunk)
+        torch.cuda.synchronize()
+        prof.drain()
+        for _ in range(replays):
+            scan(state, *chunk)
+        torch.cuda.synchronize()
+        reading = [r for r in prof.drain()["phases"] if len(r.stamps)]
+        ms = {k: v / (replays * SCAN_K) for k, v in prof.reading_ms(reading[0]).items()}
+    finally:
+        prof.enable(False)
+        prof.drain()
+    scan.graph.clear()
+    del state, scan
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _phase30_cin(dev, root) -> dict:
+    """The CIN kernel at the cell's widths (docstring, phase 30)."""
+    import math
+
+    import torch
+
+    from deepctr_torch.config import RunConfig
+    from deepctr_torch.data.criteo import criteo_schema
+    from deepctr_torch.ops import cin as cin_op
+    from deepctr_torch.ops.kernels import cin as cin_k
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    forms, worst = [], 0.0
+    total = {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0}
+    for layer, (h_in, h_out, count) in CIN_LAYERS.items():
+        x = 0.5 * torch.randn(CIN_ROWS, h_in, generator=gen, device=dev)
+        x0 = 0.5 * torch.randn(CIN_ROWS, CIN_FIELDS, generator=gen, device=dev)
+        w = torch.randn(h_in * CIN_FIELDS, h_out, generator=gen, device=dev) / math.sqrt(
+            h_in * CIN_FIELDS)
+        g = 1e-3 * torch.randn(CIN_ROWS, h_out, generator=gen, device=dev)
+        # X^0's gradient starts from a random matrix of its part's scale
+        base = 1e-3 * torch.randn(CIN_ROWS, CIN_FIELDS, generator=gen, device=dev)
+        g_x0 = base.clone()
+        flop = 2.0 * CIN_ROWS * h_in * CIN_FIELDS * h_out
+        # float64 and the plain f32 version: ops/cin.py's outer and layer_grads
+        xd, x0d, wd, gd = (t.double() for t in (x, x0, w, g))
+        exact_x, exact_part, exact_w = cin_op.layer_grads(xd, x0d, wd, gd)
+        exact = {"forward": cin_op.outer(xd, x0d) @ wd, "weight_grad": exact_w,
+                 "operand_grad": exact_x, "operand_grad g_x0": base.double() + exact_part}
+        del xd, x0d, wd, gd, exact_x, exact_part, exact_w
+        plain_x, plain_part, plain_w = cin_op.layer_grads(x, x0, w, g)
+        plain = {"forward": cin_op.outer(x, x0) @ w, "weight_grad": plain_w,
+                 "operand_grad": plain_x, "operand_grad g_x0": base + plain_part}
+        del plain_x, plain_part, plain_w
+
+        def x0_grad():
+            out = base.clone()
+            cin_k.operand_grad(x, x0, w, g, out)
+            return out
+
+        checked = {"forward": lambda: cin_k.forward(x, x0, w),
+                   "weight_grad": lambda: cin_k.weight_grad(x, x0, g),
+                   "operand_grad": lambda: cin_k.operand_grad(x, x0, w, g, base.clone()),
+                   "operand_grad g_x0": x0_grad}
+        errs = {}
+        for form, kernel in checked.items():
+            want = exact.pop(form)
+            got, again, ref = kernel(), kernel(), plain.pop(form)
+            norm = want.norm()
+            err = float((got.double() - want).norm() / norm)
+            ref_err = float((ref.double() - want).norm() / norm)
+            same = torch.equal(got, again)
+            del want, got, again, ref
+            errs[form] = (err, ref_err)
+            print(f"cin {form} {layer}: error against float64 {err:.3e} (plain f32 "
+                  f"{ref_err:.3e}); the same bits twice {same}")
+            worst = max(worst, err / ref_err)
+            if not same or err > CIN_F32_MULTIPLE * ref_err:
+                raise AssertionError(f"cin {form} {layer}: error {err:.3e} against the plain "
+                                     f"f32's {ref_err:.3e}, same bits {same}")
+        torch.cuda.empty_cache()
+
+        z = cin_op.outer(x, x0)
+        bound_ms = flop / (TF32_FLOPS / 3) * 1e3
+        timed = {"forward": {"kernel": checked["forward"],
+                             "plain": lambda: cin_op.outer(x, x0) @ w,
+                             "library": lambda: z @ w},
+                 "weight_grad": {"kernel": checked["weight_grad"], "library": lambda: z.t() @ g},
+                 "operand_grad": {"kernel": lambda: cin_k.operand_grad(x, x0, w, g, g_x0),
+                                  "library": lambda: g @ w.t()},
+                 "backward": {"kernel": lambda: cin_k.layer_grads(x, x0, w, g, g_x0),
+                              "plain": lambda: cin_op.layer_grads(x, x0, w, g)}}
+        for form, fns in timed.items():
+            t = _in_turns(fns, iters=10)
+            forms.append({"form": form, "layer": layer, "h_in": h_in, "h_out": h_out,
+                          "count": count, "ms": t["kernel"], "plain_ms": t.get("plain"),
+                          "library_ms": t.get("library")})
+            line = (f"cin {form} {layer} [{CIN_ROWS}, {h_in} x {CIN_FIELDS} -> {h_out}] "
+                    f"(x{count} a step): kernel {t['kernel']:.4f} ms")
+            if form == "backward":
+                line += f", plain (ops/cin.py's layer_grads) {t['plain']:.4f} ms"
+                total["plain"] += count * t["plain"]
+            else:
+                line += (f" ({flop / t['kernel'] / 1e9:.1f} TFLOP/s, "
+                         f"{100 * bound_ms / t['kernel']:.1f}% of the 3xTF32 bound "
+                         f"{bound_ms:.4f}), cuBLAS f32's product alone {t['library']:.4f} ms")
+                forms[-1].update(bound_ms=bound_ms, err=errs[form][0], plain_err=errs[form][1])
+                total["kernel"] += count * t["kernel"]
+                total["library"] += count * t["library"]
+                total["bound"] += count * bound_ms
+            if form == "forward":
+                line += f", plain {t['plain']:.4f} ms"
+                total["plain"] += count * t["plain"]
+            print(line)
+        del x, x0, w, g, g_x0, base, z
+        torch.cuda.empty_cache()
+    print(f"cin: the 9 products of a step {total['kernel']:.3f} ms on the kernel against "
+          f"{total['plain']:.3f} ms plain and {total['library']:.3f} ms of cuBLAS f32 products "
+          f"alone; 3xTF32 bound {total['bound']:.3f} ms "
+          f"({100 * total['bound'] / total['kernel']:.1f}% of it); the worst error over the "
+          f"plain f32's {worst:.2f} (at most {CIN_F32_MULTIPLE})")
+
+    # the step's CIN phases, on the plain route (the parent's) and the kernel
+    cfg = RunConfig.load(os.path.join(root, XDEEPFM_CONFIG))
+    schema = criteo_schema(cfg.data.criteo_cat_buckets)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 300)
+    chunk = (_zipf_ids(schema, SCAN_K * XDEEPFM_BATCH, gen, dev).view(SCAN_K, XDEEPFM_BATCH, -1),
+             (torch.rand(SCAN_K, XDEEPFM_BATCH, generator=gen, device=dev)
+              < XDEEPFM_LABEL_RATE).float(),
+             torch.ones(SCAN_K, XDEEPFM_BATCH, device=dev))
+    card_rule = cin_op.is_cuda
+    cin_op.is_cuda = lambda x, what: False   # the plain route on CUDA tensors
+    try:
+        plain_ms = _xdeepfm_phases(dev, cfg, schema, chunk)
+    finally:
+        cin_op.is_cuda = card_rule
+    kernel_ms = _xdeepfm_phases(dev, cfg, schema, chunk)
+    for what, ms in (("plain route", plain_ms), ("kernel", kernel_ms)):
+        print(f"cin: the step's device ms by phase on the {what} over 5 replays of {SCAN_K} "
+              f"steps: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + f"; total {sum(ms.values()):.3f}")
+    del chunk
+
+    # the benchmark check's gaps on the cell, under its limits
+    with open(os.path.join(root, "ctrbench", "limits", f"{CIN_CELL}.json")) as f:
+        limits = json.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "gaps.json")
+        res = subprocess.run(
+            [sys.executable, "-m", "ctrbench.calibrate_xdeepfm", "--workload", CIN_CELL,
+             "--seeds", ",".join(map(str, CIN_GAP_SEEDS)), "--out", out],
+            cwd=root, capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise AssertionError(f"cin: calibrate_xdeepfm exit {res.returncode}: "
+                                 f"{res.stderr[-3000:]}")
+        with open(out) as f:
+            program = json.load(f)["program"]
+    gaps = {name: max(float(n[name]) for n in program.values()) for name in limits}
+    print(f"cin: the cell's check on seeds {CIN_GAP_SEEDS}, the worst of each gap: "
+          + ", ".join(f"{k} {v:.3g} (limit {limits[k]['limit']:g})" for k, v in gaps.items()))
+    if any(v > limits[k]["limit"] for k, v in gaps.items()):
+        raise AssertionError(f"cin: the cell's gaps {gaps} past their limits")
+    print(f"cin: {time.perf_counter() - t_phase:.1f} s")
+    return {"forms": forms, "worst_err_ratio": worst, "ms_step": total["kernel"],
+            "plain_ms_step": total["plain"], "library_ms_step": total["library"],
+            "bound_ms_step": total["bound"], "phase_ms_plain": plain_ms,
+            "phase_ms_kernel": kernel_ms, "gaps": gaps}
+
+
 def _template_args(mangled) -> str:
     """``<64, true>`` for a mangled ``ILi64ELb1EE``; '' for none."""
     if not mangled:
@@ -4613,7 +4813,7 @@ def _sass_hmma(lib_path) -> dict:
                           text=True, timeout=300).stdout
     out = {}
     for part in sass.split("Function : ")[1:]:
-        entry = re.search(r"\d+((?:tower|fm|dense)_\w+?_kernel)(I(?:L[ib]\d+E)+E)?",
+        entry = re.search(r"\d+((?:tower|fm|dense|cin)_\w+?_kernel)(I(?:L[ib]\d+E)+E)?",
                           part.split()[0])
         if not entry:
             continue
@@ -4629,14 +4829,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port's paths on one GPU.")
     ap.add_argument("--phases", help="run phases 1-3 (device, build, the tower "
                     "forward) and then only these phases (a comma list of 3, 6, 7, "
-                    "25, 26, 27, 28, 29), and print no report")
+                    "25, 26, 27, 28, 29, 30), and print no report")
     args = ap.parse_args(argv)
     phases = None
     if args.phases:
         phases = {int(p) for p in args.phases.split(",")}
-        if not phases <= {3, 6, 7, 25, 26, 27, 28, 29}:
+        if not phases <= {3, 6, 7, 25, 26, 27, 28, 29, 30}:
             ap.error(f"--phases {args.phases}: the phases alone are 3, 6, 7, 25, 26, "
-                     f"27, 28 and 29")
+                     f"27, 28, 29 and 30")
 
     import torch
 
@@ -4676,7 +4876,7 @@ def main(argv=None) -> int:
         for line in f:
             if line.startswith("== "):   # the next source's log
                 name = line[3:].strip()
-            entry = re.search(r"entry function '.*?\d+((?:tower|fm|dense)_\w+?_kernel)"
+            entry = re.search(r"entry function '.*?\d+((?:tower|fm|dense|cin)_\w+?_kernel)"
                               r"(I(?:L[ib]\d+E)+E)?", line)
             if entry:
                 name = entry.group(1) + _template_args(entry.group(2))
@@ -4704,7 +4904,7 @@ def main(argv=None) -> int:
         print(f"  cuobjdump -sass, {kernel}: {count} tensor-core instructions"
               + (f" (e.g. {example})" if example else ""))
     for kernel in ("tower_fwd_kernel", "tower_bwd_rows_kernel", "tower_wgrad_kernel",
-                   "dense_bwd_kernel"):
+                   "dense_bwd_kernel", "cin_fwd_kernel", "cin_wgrad_kernel", "cin_ograd_kernel"):
         if not any(k.startswith(kernel) and c for k, (c, _) in hmma.items()):
             raise AssertionError(f"{kernel}: no tensor-core instructions in its SASS")
     # the FM scorer stays in full f32 on the CUDA cores
@@ -4720,7 +4920,8 @@ def main(argv=None) -> int:
              25: _phase25_tracing, 26: _phase26_sparse_adagrad,
              27: lambda dev, rng: _phase27_dlrm(dev, root),
              28: _phase28_dense_bwd,
-             29: lambda dev, rng: _phase29_xdeepfm(dev, root, rng)}[phase](dev, rng)
+             29: lambda dev, rng: _phase29_xdeepfm(dev, root, rng),
+             30: lambda dev, rng: _phase30_cin(dev, root)}[phase](dev, rng)
         print(f"chip_smoke: phases 1-3 and {sorted(phases - {3})} only (--phases): "
               f"no report")
         return 0
@@ -4861,6 +5062,7 @@ def main(argv=None) -> int:
     dlrm = _phase27_dlrm(dev, root)
     dense_bwd = _phase28_dense_bwd(dev)
     xdeepfm = _phase29_xdeepfm(dev, root, rng)
+    cin_k = _phase30_cin(dev, root)
 
     work = _tower_work(BATCH, fnn_dims)
     criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))
@@ -5002,6 +5204,21 @@ def main(argv=None) -> int:
         "bound_3xtf32_ms_step": dense_bwd["bound_ms_step"],
         "library_ms_step": dense_bwd["cublas_ms_step"],
         "products": dense_bwd["products"],
+    }, {
+        "name": "cin_forward, cin_weight_grad, cin_operand_grad",
+        "route": "cuda",
+        "source": "deepctr_torch/csrc/cin.cu",
+        "replaces": None,
+        "launches_replay": xdeepfm["replay_counts"]["cin_kernel.LAUNCHES"],
+        "worst_err_ratio": cin_k["worst_err_ratio"],
+        "ms_step": cin_k["ms_step"],
+        "bound_3xtf32_ms_step": cin_k["bound_ms_step"],
+        "plain_ms_step": cin_k["plain_ms_step"],
+        "library_ms_step": cin_k["library_ms_step"],
+        "forms": cin_k["forms"],
+        "phase_ms_plain": cin_k["phase_ms_plain"],
+        "phase_ms_kernel": cin_k["phase_ms_kernel"],
+        "gaps": cin_k["gaps"],
     }]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -20,30 +20,35 @@ operand of a product is a plain row-major matrix. ``W^k`` is ``[H_{k-1}·m,
 H_k]``, the port's ``[in, out]``, row ``i·m + j``. Its output is the pooled
 ``[p^1, ..., p^T]`` ``[B, Σ H_k]``.
 
-- The forward builds ``Z^k`` in device memory and multiplies it by ``W^k``
-  on cuBLAS; it saves ``X^0``, the ``W^k`` and ``X^1 .. X^{T-1}``, never a
-  ``Z^k``.
-- The backward recomputes each ``Z^k`` for the weight gradient ``Z^T·G``
-  (``kernels/dense.py::weight_grad``), then forms the operand's gradient
-  ``G·W^T`` (``input_grad``) and reduces it against the other factor: over
-  the fields ``j`` against ``X^0`` for ``X^{k-1}``'s gradient, over the maps
-  ``i`` against ``X^{k-1}`` for ``X^0``'s. Those reductions are batched
-  products, one matrix a row.
-- Every product runs in float32 with TF32 off (``layers.f32_products``).
-  CIN's shapes are not the backward kernel's (its M, N and K are not
-  multiples of its tile), so its products go to cuBLAS (counted in
-  ``dense.BWD_LIBRARY``).
+The Function saves ``X^0``, the ``W^k`` and ``X^1 .. X^{T-1}``, never a
+``Z^k``. It chooses its route by device (the kernel's wrapper takes CUDA
+tensors only):
+
+- On the card, each layer's three products run on the CIN kernel
+  (``kernels/cin.py``, ``csrc/cin.cu``, 3xTF32 on the tensor cores), which
+  forms ``Z^k`` and its gradient in registers: the forward ``Z^k·W^k``, the
+  weight gradient ``Z^T·G`` and the operand gradient ``G·W^T`` reduced in
+  its epilogue against the factors. Nothing else falls back.
+- On the CPU, the plain version: the forward builds ``Z^k`` in memory and
+  multiplies it by ``W^k``; the backward recomputes each ``Z^k`` for the
+  weight gradient ``Z^T·G`` (``kernels/dense.py::weight_grad``), then forms
+  the operand's gradient ``G·W^T`` (``input_grad``) and reduces it against
+  the other factor: over the fields ``j`` against ``X^0`` for
+  ``X^{k-1}``'s gradient, over the maps ``i`` against ``X^{k-1}`` for
+  ``X^0``'s, by batched products, one matrix a row. Every product in
+  float32 with TF32 off (``layers.f32_products``).
 
 Tracing (``utils/prof.py``): the backward marks ``backward`` as it starts
 (the backward of what came after the CIN in the forward) and ``cin_bwd`` as
 it ends, so the CIN's backward is a phase of its own. Two counters, added
 at every replay of a captured graph as the kernels' launches are
 (``ops/kernels/__init__.py``): ``OUTER_BYTES``, the bytes of ``Z^k`` and of
-its gradient written to device memory (``4·B·D·H_{k-1}·m`` for each ``Z^k``
-of the forward, and twice that in the backward: ``Z^k`` again and its
-gradient; :func:`outer_bytes`), which a fused kernel would not write; and
-``PRODUCTS``, the CIN's matrix products (one a layer forward, two
-backward).
+its gradient the plain version writes to memory (``4·B·D·H_{k-1}·m`` for
+each ``Z^k`` of the forward, and twice that in the backward: ``Z^k`` again
+and its gradient; :func:`outer_bytes`), 0 on the card; and ``PRODUCTS``,
+the CIN's matrix products (one a layer forward, two backward) on either
+route. The kernel counts its launches in ``kernels/cin.py``'s
+``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -54,7 +59,9 @@ from typing import Sequence
 import torch
 
 from ..utils import prof
+from .kernels import cin as cin_k
 from .kernels import dense
+from .kernels._build import is_cuda
 from .layers import f32_products
 
 # bytes of outer-product operand (and of its gradient) written, and matrix
@@ -106,12 +113,17 @@ class _Cin(torch.autograd.Function):
         b, d, m = x0.shape
         r0 = x0.reshape(b * d, m)
         xs, pooled = [r0], []
+        card = is_cuda(x0, "cin")
         with f32_products():
             for w in weights:
-                z = outer(xs[-1], r0)
-                _count(4 * z.numel(), 1)
-                xs.append(z @ w)
-                del z
+                if card:
+                    xs.append(cin_k.forward(xs[-1], r0, w))
+                    _count(0, 1)
+                else:
+                    z = outer(xs[-1], r0)
+                    _count(4 * z.numel(), 1)
+                    xs.append(z @ w)
+                    del z
                 pooled.append(xs[-1].view(b, d, -1).sum(1))
         ctx.save_for_backward(x0, *weights, *xs[1:-1])
         ctx.layers = len(weights)
@@ -129,13 +141,18 @@ class _Cin(torch.autograd.Function):
         g_x0 = torch.zeros_like(r0)
         g_w: list[torch.Tensor | None] = [None] * len(weights)
         g_x = None
+        card = is_cuda(r0, "cin")
         with f32_products():
             for k in reversed(range(len(weights))):
                 h = weights[k].shape[1]
                 g = gp[:, ends[k] - h:ends[k]][:, None, :].expand(b, d, h)
                 g = (g if g_x is None else g + g_x.view(b, d, h)).reshape(b * d, h)
-                g_x, part, g_w[k] = layer_grads(xs[k], r0, weights[k], g)
-                g_x0 += part
+                if card:
+                    g_x, g_w[k] = cin_k.layer_grads(xs[k], r0, weights[k], g, g_x0)
+                    _count(0, 2)
+                else:
+                    g_x, part, g_w[k] = layer_grads(xs[k], r0, weights[k], g)
+                    g_x0 += part
             g_x0 += g_x   # the first layer's X^{k-1} is X^0 itself
         prof.phase("cin_bwd")
         return (g_x0.view(b, d, m), *g_w)

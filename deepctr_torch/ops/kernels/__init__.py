@@ -3,8 +3,9 @@
 Each wrapper counts its launches in a module-level integer
 (``mlp.LAUNCHES``, ``mlp.DROPOUT_LAUNCHES``, ``mlp.BWD_LAUNCHES``,
 ``interaction.LAUNCHES``, ``stamp.LAUNCHES``, ``sparse.LAUNCHES``,
-``dense.BWD_LAUNCHES``, and ``dense.BWD_LIBRARY``: the dense layers'
-backward products its shape rule sent to cuBLAS), ``ops/pool.py`` the
+``dense.BWD_LAUNCHES``, ``dense.BWD_LIBRARY``: the dense layers'
+backward products its shape rule sent to cuBLAS, and ``cin_kernel.LAUNCHES``:
+``kernels/cin.py``'s launches, the CIN's products), ``ops/pool.py`` the
 ids the train steps gather (``pool.OCCURRENCES``), and ``ops/cin.py`` the
 CIN's outer-product bytes and products (``cin.OUTER_BYTES``,
 ``cin.PRODUCTS``).
@@ -21,7 +22,7 @@ from __future__ import annotations
 COUNTERS = ("mlp.LAUNCHES", "mlp.DROPOUT_LAUNCHES", "mlp.BWD_LAUNCHES",
             "interaction.LAUNCHES", "stamp.LAUNCHES", "sparse.LAUNCHES",
             "dense.BWD_LAUNCHES", "dense.BWD_LIBRARY", "pool.OCCURRENCES",
-            "cin.OUTER_BYTES", "cin.PRODUCTS")
+            "cin.OUTER_BYTES", "cin.PRODUCTS", "cin_kernel.LAUNCHES")
 # the tower's and the FM scorer's counters under the names the tools report
 TOWER_NAMES = {"fwd": "mlp.LAUNCHES", "fwd_dropout": "mlp.DROPOUT_LAUNCHES",
                "bwd": "mlp.BWD_LAUNCHES", "fm_score": "interaction.LAUNCHES"}
@@ -29,10 +30,11 @@ TOWER_NAMES = {"fwd": "mlp.LAUNCHES", "fwd_dropout": "mlp.DROPOUT_LAUNCHES",
 
 def _modules():
     from .. import cin, pool
+    from . import cin as cin_kernel
     from . import dense, interaction, mlp, sparse, stamp
 
     return {"mlp": mlp, "interaction": interaction, "stamp": stamp, "sparse": sparse,
-            "dense": dense, "pool": pool, "cin": cin}
+            "dense": dense, "pool": pool, "cin": cin, "cin_kernel": cin_kernel}
 
 
 def launch_counts() -> dict[str, int]:

@@ -232,6 +232,7 @@ def test_phases_and_counters_of_a_step():
     assert delta["cin.OUTER_BYTES"] == cin_op.outer_bytes(B, D, M, MAPS) == \
         3 * 4 * B * D * M * (M + 6 + 6)
     assert delta["cin.PRODUCTS"] == 3 * len(MAPS)
+    assert delta["cin_kernel.LAUNCHES"] == 0   # the CPU takes the plain version
     assert delta["pool.OCCURRENCES"] == B * SCHEMA.num_slots
 
 
@@ -295,6 +296,22 @@ def test_cin_on_the_card_at_criteo_width():
     torch.testing.assert_close(got_y, want_y, rtol=1e-4, atol=1e-4)
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.card
+def test_one_step_on_the_card_runs_the_cin_kernel():
+    """One train step on the card: the CIN's nine products on its kernel
+    (``kernels/cin.py``), none on cuBLAS, no outer product in memory."""
+    dev = _card()
+    sopt, dopt = SparseAdagrad(0.05, eps=1e-8, mode="dense"), Adam(0.01)
+    state = t_step.init_state(_model(6).to(dev), SCHEMA, sopt, dopt)
+    ids, labels = _batch(40)
+    step = t_step.make_train_step(SCHEMA, sopt, dopt)
+    before = launch_counts()
+    step(state, ids.to(dev), labels.to(dev), torch.ones(B, device=dev))
+    delta = count_difference(launch_counts(), before)
+    assert delta["cin_kernel.LAUNCHES"] == 9 and delta["cin.PRODUCTS"] == 9
+    assert delta["cin.OUTER_BYTES"] == 0 and delta["dense.BWD_LIBRARY"] == 0
 
 
 @pytest.mark.card
