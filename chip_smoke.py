@@ -337,7 +337,17 @@ Phases, each printing its own lines:
     layer's backward's beside the plain version's; the step's phases
     ``cin`` and ``cin_bwd`` over graph replays on the plain route (the
     parent's) and on the kernel; and every gap of the benchmark check
-    (``ctrbench.calibrate_xdeepfm``) on three seeds, each under its limit.
+    (``ctrbench.calibrate_xdeepfm``) on three seeds, each under its limit;
+31. HSTU at the ML-20M large widths (``_phase31_hstu``): one block and the
+    sampled softmax at full width (128 histories of 200, D 256, 4 heads of
+    64, 128 negatives) against ``tests/plain_hstu.py``, the loss and every
+    gradient; one 8-step graph replay of the benchmark cell's widths (8
+    blocks, 26,745 items) against 8 eager steps, losses and every state
+    tensor bit for bit; one replay's counters from 0 (the dense layers'
+    backward kernel 32 a step, none left to cuBLAS, ``hstu.TOKENS`` and
+    ``hstu.PADDED`` summing to 8 x 128 x 200, ``hstu.NEGATIVES``); the
+    step's device ms by phase over 5 replays; the CLI
+    (``configs/hstu_ml20m.json``) for 3 chunks with its retrieval metrics.
 Phases 8-13 train through the CLI, so on the scan route: their launch
 counts add each replay's captured launches (the wrappers run but launch
 nothing during a capture), and each capture's warm-up step on the state
@@ -4823,20 +4833,195 @@ def _sass_hmma(lib_path) -> dict:
     return out
 
 
+# phase 31: HSTU at the benchmark cell's widths
+HSTU_CELL = "hstu_ml20m.train_seq"
+HSTU_SEED = 2147496001
+HSTU_OUT_RTOL = 1e-4    # a block's outputs and the loss, relative to the largest
+HSTU_GRAD_RTOL = 1e-3   # a gradient, relative to its leaf's largest entry
+
+
+def _hstu_chunk(cfg, dev, seed):
+    """A chunk of the cell's traffic ``[K, B, 2, N]`` and its weights."""
+    import torch
+
+    from ctrbench import cells, traffic_hstu
+
+    tr = cells.load_cell(HSTU_CELL).traffic
+    ids = traffic_hstu.train_chunk(traffic_hstu.sampler(cfg, tr, seed, dev), cfg, tr, seed, 0)
+    return ids, torch.zeros(ids.shape[:2], device=dev), torch.ones(ids.shape[:2], device=dev)
+
+
+def _phase31_hstu(dev, root) -> dict:
+    """HSTU (``models/hstu.py``, ``ops/hstu.py``) at the benchmark cell's
+    widths. (a) One block and the sampled softmax at full width, on the
+    harness's weights of the cell (its first block), against
+    ``tests/plain_hstu.py`` on the card: the output, the loss and every
+    gradient. (b) One replay of the 8-step graph against 8 eager steps from
+    one state (8 blocks, 26,745 items), losses and every state tensor bit
+    for bit. (c) Every counter from 0 just before one replay: the dense
+    layers' backward kernel 4 products a block and step, none on cuBLAS;
+    ``hstu.TOKENS`` the chunk's valid positions, ``hstu.TOKENS`` +
+    ``hstu.PADDED`` = 8 x 128 x 200, ``hstu.NEGATIVES`` 8 x 128 x 199 x 128.
+    (d) The step's device ms by phase over 5 replays. (e) The CLI for 3
+    chunks of 8 x 128 with its retrieval metrics."""
+    import importlib.util
+
+    import torch
+
+    from ctrbench import cells, port_hstu
+    from deepctr_torch import cli
+    from deepctr_torch.config import RunConfig
+    from deepctr_torch.ops import hstu as hstu_op
+    from deepctr_torch.ops import kernels
+    from deepctr_torch.train import make_scan_train_step, make_train_step
+    from deepctr_torch.train.step import _state_tensors
+    from deepctr_torch.utils import prof
+
+    spec = importlib.util.spec_from_file_location(
+        "plain_hstu", os.path.join(root, "tests", "plain_hstu.py"))
+    plain_hstu = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(plain_hstu)
+
+    t_phase = time.perf_counter()
+    cfg = cells.load_cell(HSTU_CELL).config
+    ids, labels, weights = _hstu_chunk(cfg, dev, HSTU_SEED)
+    out = {}
+
+    # (a) one block and the loss against the plain model
+    one = dict(cfg, num_blocks=1)
+    state, _, _ = port_hstu.train_state(one, HSTU_SEED, dev)
+    model = state.model
+    params = {n: p.detach().clone().requires_grad_(True) for n, p in model.named_parameters()}
+    pcfg = {"items": one["items"], "max_len": one["max_sequence_length"],
+            "k": one["item_embedding_dim"], "blocks": 1, "heads": one["num_heads"],
+            "d_qk": one["dqk"], "d_v": one["dv"], "dropout": one["dropout_rate"],
+            "negatives": one["num_negatives"], "temperature": one["temperature"]}
+    batch = ids[0]
+    valid = batch[:, 0] != one["items"]
+    with torch.no_grad():
+        got = model.encode(batch, 17)[valid]
+        with plain_hstu.f32_products():
+            want = plain_hstu.encode(params, batch, pcfg, 17)[valid]
+    errs = {"output": float((got - want).abs().max() / want.abs().max())}
+    loss = model.train_loss(batch, weights[0], 17)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    wloss = plain_hstu.loss(params, batch, weights[0], pcfg, 17)
+    wgrads = torch.autograd.grad(wloss, list(params.values()))
+    errs["loss"] = abs(float(loss.detach()) - float(wloss.detach())) / abs(float(wloss.detach()))
+    errs["grads"] = {n: float((g - w).abs().max() / w.abs().max())
+                     for n, g, w in zip(params, grads, wgrads)}
+    print(f"hstu: one block and the loss at [{batch.shape[0]}, {batch.shape[2]}] D "
+          f"{one['item_embedding_dim']}, {valid.sum()} valid positions, against "
+          f"plain_hstu on the card: output {errs['output']:.3g} (limit {HSTU_OUT_RTOL:g}), "
+          f"loss {float(loss.detach()):.6f} vs {float(wloss.detach()):.6f} "
+          f"({errs['loss']:.3g}), worst gradient "
+          f"{max(errs['grads'].values()):.3g} (limit {HSTU_GRAD_RTOL:g}): {errs['grads']}")
+    if errs["output"] > HSTU_OUT_RTOL or errs["loss"] > HSTU_OUT_RTOL or \
+            max(errs["grads"].values()) > HSTU_GRAD_RTOL:
+        raise AssertionError("hstu: the port's block and loss differ from the plain model")
+    out["plain_errors"] = errs
+    del state, model, params, grads, wgrads, loss, wloss
+    torch.cuda.empty_cache()
+
+    # (b) a replay against eager steps; (c) one replay's counters; (d) the phases
+    seeds = list(range(101, 101 + SCAN_K))
+
+    def fresh():
+        return port_hstu.train_state(cfg, HSTU_SEED, dev)
+
+    g_state, sch, opt = fresh()
+    prof.enable(True)
+    try:
+        scan = make_scan_train_step(sch, None, opt)
+        g_state, g_losses = scan(g_state, ids, labels, weights, seeds=seeds)
+        g_snapshot = [t.clone() for t in _state_tensors(g_state)]
+        prof.drain()
+        kernels.add_launch_counts({n: -c for n, c in kernels.launch_counts().items()})
+        hstu_op.reset_counts()
+        scan(g_state, ids, labels, weights)
+        counts = dict(kernels.launch_counts(), **hstu_op.counts())
+        for _ in range(4):
+            scan(g_state, ids, labels, weights)
+        torch.cuda.synchronize()
+        reading = [r for r in prof.drain()["phases"] if len(r.stamps)]
+        ms = {k: v / (5 * SCAN_K) for k, v in prof.reading_ms(reading[0]).items()}
+    finally:
+        prof.enable(False)
+        prof.drain()
+    scan.graph.clear()
+    del g_state, scan
+    torch.cuda.empty_cache()
+    e_state, sch, opt = fresh()
+    step = make_train_step(sch, None, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    e_losses = torch.stack([step(e_state, ids[i], labels[i], weights[i], seed=seeds[i])[1].loss
+                            for i in range(SCAN_K)])
+    torch.cuda.synchronize()
+    out["eager_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    print(f"hstu: eager steps' peak device memory {out['eager_peak_bytes']:,} B "
+          f"({held:,} B held before them: the state, the chunk and the phase's tensors)")
+    same = torch.equal(g_losses, e_losses) and all(
+        torch.equal(a, b) for a, b in zip(g_snapshot, _state_tensors(e_state)))
+    tokens = int((ids[:, :, 0] != cfg["items"]).sum())
+    n, b, neg = cfg["max_sequence_length"], cfg["batch"], cfg["num_negatives"]
+    want_counts = {"dense.BWD_LAUNCHES": 4 * cfg["num_blocks"] * SCAN_K,
+                   "dense.BWD_LIBRARY": 0, "mlp.LAUNCHES": 0, "sparse.LAUNCHES": 0,
+                   "hstu.TOKENS": tokens, "hstu.PADDED": SCAN_K * b * n - tokens,
+                   "hstu.NEGATIVES": SCAN_K * b * (n - 1) * neg}
+    counted = {k: counts[k] for k in want_counts}
+    print(f"hstu scan: one replay of {SCAN_K} steps vs {SCAN_K} eager steps from one state "
+          f"at the cell's widths: losses and every state tensor bit-identical: {same}; "
+          f"losses {[round(float(x), 5) for x in e_losses]}")
+    print(f"hstu scan: one replay's counters from 0: {counted} (predicted {want_counts}; "
+          f"stamp.LAUNCHES {counts['stamp.LAUNCHES']})")
+    print(f"hstu scan: device ms a step by phase over 5 replays of {SCAN_K} steps (stamps): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; total {sum(ms.values()):.3f}")
+    if not same:
+        raise AssertionError("hstu scan: the graph replay differs from eager steps")
+    if counted != want_counts:
+        raise AssertionError(f"hstu scan: a replay's counters {counted}")
+    if set(ms) != {"lookup", "hstu_proj", "hstu_attn", "loss", "backward", "hstu_attn_bwd",
+                   "dense"}:
+        raise AssertionError(f"hstu scan: phases {list(ms)}")
+    del e_state, step, g_snapshot
+    torch.cuda.empty_cache()
+    out.update(phase_ms=ms, replay_counts=counted)
+
+    # (e) the CLI for 3 chunks
+    run_cfg = RunConfig.load(os.path.join(root, "configs", "hstu_ml20m.json")).apply_overrides(
+        ["data.synthetic_examples=3300", "data.test_fraction=0.05"])
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = cli.run(run_cfg, dev)
+    recs = [json.loads(line) for line in buf.getvalue().splitlines() if '"epoch"' in line]
+    print(f"hstu cli: {recs} in {time.perf_counter() - t0:.1f} s")
+    if res["state"].step != 3 * SCAN_K or not all(np.isfinite(r["loss"]) for r in recs):
+        raise AssertionError(f"hstu cli: {res['state'].step} steps, {recs}")
+    out["cli"] = recs[-1]
+    del res
+    torch.cuda.empty_cache()
+    print(f"hstu: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port's paths on one GPU.")
     ap.add_argument("--phases", help="run phases 1-3 (device, build, the tower "
                     "forward) and then only these phases (a comma list of 3, 6, 7, "
-                    "25, 26, 27, 28, 29, 30), and print no report")
+                    "25, 26, 27, 28, 29, 30, 31), and print no report")
     args = ap.parse_args(argv)
     phases = None
     if args.phases:
         phases = {int(p) for p in args.phases.split(",")}
-        if not phases <= {3, 6, 7, 25, 26, 27, 28, 29, 30}:
+        if not phases <= {3, 6, 7, 25, 26, 27, 28, 29, 30, 31}:
             ap.error(f"--phases {args.phases}: the phases alone are 3, 6, 7, 25, 26, "
-                     f"27, 28, 29 and 30")
+                     f"27, 28, 29, 30 and 31")
 
     import torch
 
@@ -4921,7 +5106,8 @@ def main(argv=None) -> int:
              27: lambda dev, rng: _phase27_dlrm(dev, root),
              28: _phase28_dense_bwd,
              29: lambda dev, rng: _phase29_xdeepfm(dev, root, rng),
-             30: lambda dev, rng: _phase30_cin(dev, root)}[phase](dev, rng)
+             30: lambda dev, rng: _phase30_cin(dev, root),
+             31: lambda dev, rng: _phase31_hstu(dev, root)}[phase](dev, rng)
         print(f"chip_smoke: phases 1-3 and {sorted(phases - {3})} only (--phases): "
               f"no report")
         return 0
@@ -5063,6 +5249,7 @@ def main(argv=None) -> int:
     dense_bwd = _phase28_dense_bwd(dev)
     xdeepfm = _phase29_xdeepfm(dev, root, rng)
     cin_k = _phase30_cin(dev, root)
+    hstu = _phase31_hstu(dev, root)
 
     work = _tower_work(BATCH, fnn_dims)
     criteo = _tower_work(BATCH, (CRITEO_IN,) + CRITEO_HIDDEN + (1,))
@@ -5219,7 +5406,7 @@ def main(argv=None) -> int:
         "phase_ms_plain": cin_k["phase_ms_plain"],
         "phase_ms_kernel": cin_k["phase_ms_kernel"],
         "gaps": cin_k["gaps"],
-    }]}
+    }], "hstu": hstu}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,8 +1,8 @@
 """CLI entry point: ``python -m deepctr_torch.cli --config configs/fnn.json``.
 
 Port of ``deepctr_tpu/cli.py`` for LR, FM, FNN, SNN, DeepFM and PNN
-(IPNN/OPNN), and the port's own DLRM-DCNv2 (``model.name=dlrm_dcnv2``) and
-xDeepFM (``model.name=xdeepfm``), below: it reads the same
+(IPNN/OPNN), and the port's own DLRM-DCNv2 (``model.name=dlrm_dcnv2``),
+xDeepFM (``model.name=xdeepfm``) and HSTU (``model.name=hstu``), below: it reads the same
 ``configs/*.json`` and dotted overrides
 (``deepctr_torch.config.RunConfig``, the port's copy of the reference's),
 trains (``run``: data in RAM or streamed from shard files
@@ -77,6 +77,24 @@ is the paper's Criteo one, 200-200-200 feature maps, fixed. Its
 checkpoints, scoring, sharding, pretraining and hand-off are not supported,
 and asking for them raises.
 
+``model.name=hstu`` (``configs/hstu_ml20m.json``), which the reference
+lacks, trains on users' histories generated from ``data.synthetic_seed``
+(``data/synthetic_hstu.py``: ``data.synthetic_examples`` users over the
+one-field schema of ``data.schema_path``, its vocabulary the items and its
+slots the history's length, or ML-20M's 26,744 items and 200 positions;
+the last ``data.test_fraction`` of the users held out), in chunks of
+``train.scan_steps`` steps of ``train.batch_size`` histories through
+``make_scan_train_step`` (0 and 1 a chunk of one step), the last chunk
+padded with weight-0 steps; each
+epoch logs its mean loss, its rate and the held-out users' hit rate and
+NDCG at 10 (each history's last item ranked among every item by the
+output before it). ``model.k`` is the item embeddings' width,
+``model.hidden`` ``[blocks, heads, head width]`` and ``model.dropout`` the
+blocks' and the input's dropout; its Adam (``optim.dense=adam``) takes the
+source's betas (0.9, 0.98). Its checkpoints, scoring, sharding,
+pretraining, hand-off, L2 and file data are not supported, and asking for
+them raises.
+
 ``train.prefetch`` (default true) stages the training batches, or chunks, on
 a background thread, onto the card through pinned buffers and a side stream
 (``data.DevicePrefetcher``). ``train.profile_dir`` writes a
@@ -97,6 +115,7 @@ import contextlib
 import functools
 import os
 import sys
+import time
 
 import torch
 
@@ -111,6 +130,7 @@ def build_model(cfg, schema, device: torch.device | str):
         make_dlrm_dcnv2,
         make_fm,
         make_fnn,
+        make_hstu,
         make_lr,
         make_pnn,
         make_snn,
@@ -149,8 +169,15 @@ def build_model(cfg, schema, device: torch.device | str):
                              "model.activation=relu and model.dropout=0")
         return make_xdeepfm(schema, k=m.k, dnn=tuple(m.hidden), init_sigma=m.init_sigma,
                             device=device)
+    if m.name == "hstu":
+        if len(m.hidden) != 3:
+            raise ValueError("hstu takes model.hidden=[blocks, heads, head width], "
+                             f"not {list(m.hidden)}")
+        blocks, heads, width = (int(x) for x in m.hidden)
+        return make_hstu(schema, k=m.k, blocks=blocks, heads=heads, d_qk=width, d_v=width,
+                         dropout=m.dropout, device=device)
     raise ValueError(
-        f"unknown model {m.name!r} (lr|fm|fnn|snn|deepfm|ipnn|opnn|dlrm_dcnv2|xdeepfm)"
+        f"unknown model {m.name!r} (lr|fm|fnn|snn|deepfm|ipnn|opnn|dlrm_dcnv2|xdeepfm|hstu)"
     )
 
 
@@ -267,9 +294,11 @@ def run(cfg, device: torch.device) -> dict:
     """Train the configured model on ``device``; returns the best AUC, its
     epoch, the per-epoch history and the final ``TrainState`` (with
     ``train.sharded``, this rank's ``parallel.ShardedTrainState``)."""
-    if cfg.model.name in ("dlrm_dcnv2", "xdeepfm"):
+    if cfg.model.name in ("dlrm_dcnv2", "xdeepfm", "hstu"):
         _refuse_unsupported(cfg)
     with torch.autograd.set_detect_anomaly(cfg.train.debug_nans):
+        if cfg.model.name == "hstu":
+            return _run_hstu(cfg, device)
         if not cfg.train.sharded:
             return _run(cfg, device)
         from .parallel import process_group
@@ -279,17 +308,19 @@ def run(cfg, device: torch.device) -> dict:
 
 
 def _refuse_unsupported(cfg) -> None:
-    """DLRM-DCNv2 trains on generated data in RAM on one device, xDeepFM on
-    one device without checkpoints: raise for the options each does not
-    take (the module's docstring)."""
+    """DLRM-DCNv2 and HSTU train on generated data in RAM on one device,
+    xDeepFM on one device without checkpoints: raise for the options each
+    does not take (the module's docstring)."""
     t, d = cfg.train, cfg.data
     unsupported = {"train.sharded": t.sharded, "train.checkpoint_path": t.checkpoint_path,
                    "train.resume": t.resume, "train.pretrain": t.pretrain,
                    "model.init_from": cfg.model.init_from}
     where = "on one device without checkpoints"
-    if cfg.model.name == "dlrm_dcnv2":
+    if cfg.model.name in ("dlrm_dcnv2", "hstu"):
         unsupported.update({"data.train_path": d.train_path, "data.stream": d.stream})
         where = "on generated data in RAM on one device"
+    if cfg.model.name == "hstu":
+        unsupported["optim.l2"] = cfg.optim.l2
     asked = [k for k, v in unsupported.items() if v]
     if asked:
         raise ValueError(f"{cfg.model.name} trains {where}; "
@@ -313,6 +344,85 @@ def dense_input_data(cfg):
     cut = int(len(data) * (1 - d.test_fraction))
     return schema, *((p.ids, p.labels, p.dense)
                      for p in (data.slice(slice(0, cut)), data.slice(slice(cut, None))))
+
+
+def _run_hstu(cfg, device: torch.device) -> dict:
+    """HSTU's training run (the module's docstring): ``{"history", "state"}``."""
+    import numpy as np
+
+    from .data import Schema, synthetic_hstu
+    from .optim import Adam, make_dense_optimizer
+    from .train.step import init_state, make_scan_train_step
+    from .utils.logging import MetricsLogger
+    from .utils.prof import trace
+
+    d, t = cfg.data, cfg.train
+    if d.schema_path:
+        with open(d.schema_path) as f:
+            schema = Schema.from_json(f.read())
+    else:
+        schema = synthetic_hstu.ml20m_schema()
+    data = synthetic_hstu.generate(schema, d.synthetic_examples, seed=d.synthetic_seed)
+    cut = int(len(data) * (1 - d.test_fraction))
+    train_ids, test_ids = data.ids[:cut], data.ids[cut:]
+    model = build_model(cfg, schema, device)
+    dense_opt = (Adam(cfg.optim.dense_lr, b1=0.9, b2=0.98) if cfg.optim.dense == "adam"
+                 else make_dense_optimizer(cfg.optim.dense, cfg.optim.dense_lr))
+    state = init_state(model, schema, None, dense_opt, seed=t.seed)
+    k, b = max(t.scan_steps, 1), t.batch_size
+    step = make_scan_train_step(schema, None, dense_opt, check_finite=t.debug_nans)
+    logger = MetricsLogger(t.metrics_path, echo=True)
+    rng = np.random.default_rng(t.seed)
+    pad = np.stack([np.full(schema.fields[0].max_len, schema.pad_id), np.zeros(
+        schema.fields[0].max_len, dtype=np.int64)])
+    history = []
+    with trace(t.profile_dir):
+        for epoch in range(t.epochs):
+            order = rng.permutation(len(train_ids))
+            steps = len(order) // b
+            losses, t0 = [], time.perf_counter()
+            for c in range(0, steps, k):
+                live = min(k, steps - c)
+                ids = np.broadcast_to(pad, (k, b) + pad.shape).copy()
+                ids[:live] = train_ids[order[c * b:(c + live) * b]].reshape(
+                    (live, b) + pad.shape)
+                weights = torch.zeros(k, b)
+                weights[:live] = 1.0
+                state, loss = step(state, torch.from_numpy(ids).to(device),
+                                   torch.zeros(k, b), weights)
+                losses.append(loss[:live])
+            mean = float(torch.cat(losses).mean()) if losses else float("nan")
+            rec = {"epoch": epoch, "loss": mean, "steps": steps,
+                   "examples_per_s": steps * b / max(time.perf_counter() - t0, 1e-9),
+                   **_hstu_retrieval(model, test_ids, b, device)}
+            logger.log(rec)
+            history.append(rec)
+    logger.log({"event": "done", "step": state.step})
+    logger.close()
+    return {"history": history, "state": state}
+
+
+def _hstu_retrieval(model, ids, batch: int, device) -> dict:
+    """Hit rate and NDCG at 10 of each held-out history's last item, ranked
+    among every item by the (dropout-free) output at the position before
+    it; histories shorter than 2 are left out."""
+    import numpy as np
+
+    lengths = (ids[:, 0] != model.pad_id).sum(1)
+    ids = ids[lengths >= 2]
+    lengths = lengths[lengths >= 2]
+    hits = ndcg = 0.0
+    for s in range(0, len(ids), batch):
+        part = torch.from_numpy(ids[s:s + batch]).to(device)
+        last = torch.from_numpy(lengths[s:s + batch] - 1).to(device)
+        rows = torch.arange(part.shape[0], device=device)
+        scores = model.scores(part, last - 1)
+        target = part[rows, 0, last]
+        rank = (scores > scores[rows, target][:, None]).sum(1).double()
+        hits += float((rank < 10).sum())
+        ndcg += float(torch.where(rank < 10, 1.0 / torch.log2(rank + 2.0), 0.0).sum())
+    n = max(len(ids), 1)
+    return {"hr@10": hits / n, "ndcg@10": ndcg / n, "eval_users": int(len(ids))}
 
 
 def _run(cfg, device: torch.device, group=None) -> dict:
@@ -600,7 +710,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="deepctr_torch",
         description="CTR training and scoring on PyTorch/CUDA (LR, FM, FNN, "
-        "SNN, DeepFM, IPNN/OPNN; training DLRM-DCNv2 and xDeepFM)",
+        "SNN, DeepFM, IPNN/OPNN; training DLRM-DCNv2, xDeepFM and HSTU)",
     )
     ap.add_argument("--config", help="JSON config path (defaults applied)")
     ap.add_argument(

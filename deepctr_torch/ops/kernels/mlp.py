@@ -95,12 +95,12 @@ def dropout_params(dropout: float) -> tuple[int, float]:
     return _keep_params(1.0 - dropout)
 
 
-def dropout_mask_plain(shape: tuple[int, int], keep: float, seed: Seed,
-                       layer: int, row0: int = 0,
-                       device: torch.device | str = "cpu") -> torch.Tensor:
-    """The reference's ``_dropout_mask``, bit for bit: f32 ``[rows, cols]``
-    of ``1/keep`` where kept and 0 where dropped. ``seed`` is an int or a
-    0-d integer tensor."""
+def counter_hash(shape: tuple[int, int], seed: Seed, layer: int, row0: int = 0,
+                 device: torch.device | str = "cpu") -> torch.Tensor:
+    """The reference's counter hash of element ``(row, col)`` of stream
+    ``layer``: int64 ``[rows, cols]`` of ``fmix32(row*0x9E3779B9 +
+    col*0x85EBCA6B + seed*0xC2B2AE35 + (layer+1)*0x27D4EB2F)``, uint32 values,
+    rows counted from ``row0``. ``seed`` is an int or a 0-d integer tensor."""
     rows, cols = shape
     r = torch.arange(rows, dtype=torch.int64, device=device)[:, None] + row0
     c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
@@ -113,7 +113,16 @@ def dropout_mask_plain(shape: tuple[int, int], keep: float, seed: Seed,
     h = _mul_u32(h, 0x7FEB352D)
     h = h ^ (h >> 15)
     h = _mul_u32(h, 0x846CA68B)
-    h = h ^ (h >> 16)
+    return h ^ (h >> 16)
+
+
+def dropout_mask_plain(shape: tuple[int, int], keep: float, seed: Seed,
+                       layer: int, row0: int = 0,
+                       device: torch.device | str = "cpu") -> torch.Tensor:
+    """The reference's ``_dropout_mask``, bit for bit: f32 ``[rows, cols]``
+    of ``1/keep`` where kept (:func:`counter_hash` under the threshold) and 0
+    where dropped. ``seed`` is an int or a 0-d integer tensor."""
+    h = counter_hash(shape, seed, layer, row0, device)
     threshold, scale = _keep_params(keep)
     return torch.where(h < threshold, scale, 0.0).to(torch.float32)
 

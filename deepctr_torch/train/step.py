@@ -28,6 +28,13 @@ What differs from the reference, and why:
   buffers and replayed like the ids. Every step passes ``dense`` on as it
   comes, None included, and the model decides (``models/base.py``): a
   graph without them holds no dense buffer.
+- A model may supply its own loss (HSTU, ``models/hstu.py``, which the
+  reference does not have): ``model.train_loss(ids, weights, seed)``. Its
+  step differentiates that loss with respect to every parameter, the table
+  among them (a ``dense_table`` model's table is a dense parameter, under
+  the dense optimizer, and the state has no sparse optimizer), and updates
+  them with the dense optimizer alone; ``labels`` are not read. Every other
+  model's step is as it was.
 - The reference's split plan (``ops/split_embed.py``) is not ported: its
   one-hot matmuls are a TPU gather mechanism. One gather of all slots and
   one scatter of the occurrence gradients give the same per-row sums, up to
@@ -126,7 +133,9 @@ class StepMetrics(NamedTuple):
 
 def dense_params(model: nn.Module) -> list[torch.Tensor]:
     """The dense parameters (tower, bias) in ``named_parameters`` order
-    (the table is the sparse optimizer's)."""
+    (the table is the sparse optimizer's, except a ``dense_table`` model's)."""
+    if getattr(model, "dense_table", False):
+        return list(model.parameters())
     return [p for name, p in model.named_parameters() if name != "table"]
 
 
@@ -136,19 +145,25 @@ def init_state(model: nn.Module, schema: Schema, sparse_opt, dense_opt,
 
     ``table_dtype="bf16"`` stores the table in bfloat16; the gathered rows,
     the gradients and the Adagrad accumulator stay f32, and updates round on
-    write."""
+    write. A ``dense_table`` model takes no sparse optimizer (None) and an
+    f32 table; its sparse state is empty."""
     device = model.table.device
+    dense_table = getattr(model, "dense_table", False)
+    if dense_table != (sparse_opt is None) or (dense_table and table_dtype != "f32"):
+        raise ValueError(f"{getattr(model, 'name', 'the model')}: a dense table takes no "
+                         "sparse optimizer and an f32 table, a sparse one both")
     model.init_parameters(torch.Generator(device=device).manual_seed(seed),
                           schema.pad_id)
     if table_dtype == "bf16":
         model.table.data = model.table.data.to(torch.bfloat16)
     elif table_dtype != "f32":
         raise ValueError(f"table_dtype {table_dtype!r} (f32|bf16)")
-    model.table.requires_grad_(False)
+    if not dense_table:
+        model.table.requires_grad_(False)
     return TrainState(
         step=0,
         model=model,
-        sparse_state=sparse_opt.init(model.table),
+        sparse_state=() if dense_table else sparse_opt.init(model.table),
         dense_state=dense_opt.init(dense_params(model)),
         generator=torch.Generator().manual_seed(seed),
     )
@@ -189,11 +204,28 @@ def _step_body(schema: Schema, sparse_opt, dense_opt, l2: float,
     ``loss_phase`` after the loss where it has one (xDeepFM's), then
     ``tower`` (forward, loss and backward; a model's ``backward_phase``
     where it marks its forward), ``sparse`` and ``dense`` (the two
-    updates)."""
+    updates). A model with its own loss (``train_loss``) marks its forward
+    phases itself; its step marks ``backward_phase`` and ``dense`` and
+    returns the loss twice."""
     pad_id = schema.pad_id
+
+    def own_loss(state: TrainState, ids, weights, lr_scale, seed):
+        model = state.model
+        params = dense_params(model)
+        loss = model.train_loss(ids, weights, seed)
+        if check_finite and not bool(torch.isfinite(loss)):
+            raise FloatingPointError(f"train step {state.step + 1}: loss "
+                                     f"{float(loss.detach())} is not finite")
+        grads = torch.autograd.grad(loss, params)
+        prof.phase(model.backward_phase)
+        dense_opt.update(params, list(grads), state.dense_state, lr_scale=lr_scale)
+        prof.phase("dense")
+        return loss.detach(), loss.detach()
 
     def body(state: TrainState, ids, labels, weights, lr_scale, seed, dense=None):
         model = state.model
+        if hasattr(model, "train_loss"):
+            return own_loss(state, ids, weights, lr_scale, seed)
         mask = (ids != pad_id).float()
         rows = model.table.detach()[ids].float().requires_grad_(True)
         params = dense_params(model)
@@ -399,7 +431,8 @@ def _warm_up(body, state: TrainState, ids, labels, weights, lr_scale: float, see
     into the same tensors, so the addresses a graph key holds stay valid.
     ``dense`` goes to the body as it comes."""
     table = state.model.table
-    rowwise = [table, *(t for t in state.sparse_state if t.shape == table.shape)]
+    rowwise = [] if getattr(state.model, "dense_table", False) else [
+        table, *(t for t in state.sparse_state if t.shape == table.shape)]
     held = {id(t) for t in rowwise}
     whole = [t for t in _state_tensors(state) if id(t) not in held]
     with torch.no_grad():
@@ -466,7 +499,8 @@ class _ChunkGraph:
     Tracing (:mod:`..utils.prof`): a graph captured while it is on owns a
     :class:`~..utils.prof.PhaseRing` and holds a device stamp at the start
     of each replay and at each phase mark of each step (33 stamps in a
-    replay of 8 single-device steps, 41 sharded); one captured while it is
+    replay of 8 single-device steps, 41 sharded; a model's ``phases_a_step``
+    sets a step's room in the ring, 8 by default); one captured while it is
     off holds none. The capture is the span ``graph.capture`` (``graph.
     warm_up``, ``graph.record``); a replay is ``chunk`` (``chunk.load``,
     ``chunk.seeds``, ``chunk.seed_wait``, ``chunk.replay``), numbered from 0
@@ -496,7 +530,8 @@ class _ChunkGraph:
         self._slot = 0
         self._load(ids, labels, weights, dense)
         self.replays = 0
-        self.ring = prof.PhaseRing(k, device, self) if prof.enabled() else None
+        self.ring = (prof.PhaseRing(k, device, self, getattr(
+            state.model, "phases_a_step", prof.PHASES_A_STEP)) if prof.enabled() else None)
 
         t0 = time.perf_counter()
         with prof.span("graph.capture", steps=k):

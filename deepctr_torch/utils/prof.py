@@ -55,7 +55,8 @@ MAX_SPANS = 1 << 18
 # a ring's rows: the replays of a 15 s window of the fastest graph (about
 # 110 replays a second) fit, with room
 RING_REPLAYS = 4096
-# the most phases one step of a captured body may mark
+# the most phases one step of a captured body may mark, unless its model
+# says how many it marks (``phases_a_step``: HSTU's 44 at 8 blocks)
 PHASES_A_STEP = 8
 # the phase mark that opens a unit (a step, or a replay of K steps): the
 # time up to it is no phase's
@@ -252,16 +253,19 @@ def stamping(ring: PhaseRing | None):
 
 class PhaseRing:
     """The device stamps of one captured graph: a ring of ``replays`` rows,
-    one a replay, of up to ``1 + steps · PHASES_A_STEP`` slots, and the
+    one a replay, of up to ``1 + steps · phases`` slots (``phases`` a step,
+    :data:`PHASES_A_STEP` unless the step's model says), and the
     count of replays begun (``ops/kernels/stamp.py`` says the layout). The
     slots' names are set as the capture marks them. ``owner`` is the graph:
     once it is gone the ring is read one last time at the next drain."""
 
-    def __init__(self, steps: int, device, owner, replays: int = RING_REPLAYS):
+    def __init__(self, steps: int, device, owner, phases: int = PHASES_A_STEP,
+                 replays: int = RING_REPLAYS):
         self.id = next(_IDS)
         self.steps = steps
+        self.phases = phases
         self.replays = replays
-        self.buf = torch.zeros((replays + 1, 1 + steps * PHASES_A_STEP), dtype=torch.int64,
+        self.buf = torch.zeros((replays + 1, 1 + steps * phases), dtype=torch.int64,
                                device=device)
         self.names: list[str] = []
         self.read = 0   # replays drained so far
@@ -274,7 +278,7 @@ class PhaseRing:
 
         slot = len(self.names)
         if slot >= self.buf.shape[1]:
-            raise ValueError(f"more than {PHASES_A_STEP} phases a step in a graph of "
+            raise ValueError(f"more than {self.phases} phases a step in a graph of "
                              f"{self.steps} steps")
         if (slot == 0) != (name == START):
             raise ValueError(f"a replay's first phase mark is {START!r}, not {name!r}")
